@@ -1,0 +1,40 @@
+"""cvmatrix_tpu_torch — the PyTorch/CUDA port of the fast cross-validation engine.
+
+A port of :mod:`cvmatrix_tpu` (the JAX reference package in this
+repository) to PyTorch, with hand-written CUDA kernels for the NVIDIA H100
+(``sm_90a``) where the JAX package has Pallas kernels. It computes in native
+float64 and imports neither JAX nor ``cvmatrix_tpu``. Importing it builds
+and loads no kernel: each kernel is compiled from ``csrc/`` at first launch.
+
+Public surface: ``CVMatrix`` (the engine facade) and ``Partitioner`` (fold
+bookkeeping), plus the functional core (``CVConfig``, ``FitState``, ``fit``,
+``training_*``).
+"""
+
+from .config import CVConfig
+from .core import (
+    FitState,
+    fit,
+    training_matrices,
+    training_statistics,
+    training_XTX,
+    training_XTX_XTY,
+    training_XTY,
+)
+from .models import CVMatrix, Partitioner
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CVMatrix",
+    "Partitioner",
+    "CVConfig",
+    "FitState",
+    "fit",
+    "training_matrices",
+    "training_XTX",
+    "training_XTY",
+    "training_XTX_XTY",
+    "training_statistics",
+    "__version__",
+]

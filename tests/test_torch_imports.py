@@ -1,0 +1,57 @@
+"""Package rules of the port: no JAX, no ``cvmatrix_tpu``, no kernel build at
+import time, and no silent CPU route for a CUDA request."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import cvmatrix_tpu_torch as T
+from cvmatrix_tpu_torch.core import batch as TB
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|cvmatrix_tpu)\b",
+                       re.MULTILINE)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, cvmatrix_tpu_torch, cvmatrix_tpu_torch.models.sweep\n"
+        "from cvmatrix_tpu_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cvmatrix_tpu',\n"
+        "                                    'triton'))\n"
+        "print(bad, sorted(_build._LIBS))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[] []"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "cvmatrix_tpu_torch").rglob("*.py"),
+              ROOT / "chip_smoke.py"]
+))
+def test_sources_never_import_jax(path):
+    assert not IMPORT_RE.search((ROOT / path).read_text()), path
+
+
+def test_kernel_source_ships_with_the_package():
+    assert (ROOT / "cvmatrix_tpu_torch" / "csrc" / "loocv.cu").is_file()
+    assert "cvmatrix_tpu_torch" in (ROOT / "pyproject.toml").read_text()
+
+
+def test_cuda_request_without_gpu_raises():
+    x = np.random.default_rng(0).random((20, 3))
+    y = np.random.default_rng(1).random((20, 2))
+    cfg = T.CVConfig()
+    st = T.fit(cfg, x, y)
+    src = TB.prepare_loocv_sources(cfg, st, np.arange(4))
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        TB.loocv_from_sources(cfg, src, np.arange(4), return_XTY=True,
+                              impl="cuda")

@@ -1,0 +1,117 @@
+"""The port's materialising sweep against the JAX package's, and the whole
+LOOCV slice (fit -> Partitioner -> sources -> chunked downdate) against
+the NumPy oracle."""
+
+import numpy as np
+import pytest
+from numpy.testing import assert_allclose
+
+import cvmatrix_tpu as J
+import cvmatrix_tpu_torch as T
+from cvmatrix_tpu.models import sweep as JS
+from cvmatrix_tpu_torch.core import batch as TB
+from cvmatrix_tpu_torch.models import sweep as TS
+
+from .data import make_dataset, zero_fraction
+from .oracle import NaiveOracle
+
+X_ALL, Y_ALL, FOLDS, WEIGHTS = make_dataset(n=41, k=5, m=2)
+N = X_ALL.shape[0]
+
+
+def probes(flags, idx, mask=None, weighted=True, **kw):
+    w = zero_fraction(WEIGHTS) if weighted else None
+    got = TS.materialize_cv(T.CVConfig(*flags), X_ALL, Y_ALL, w, idx, mask,
+                            **kw)
+    ref = JS.materialize_cv(J.CVConfig(*flags), X_ALL, Y_ALL, w, idx, mask,
+                            **kw)
+    return float(got), float(ref)
+
+
+@pytest.mark.parametrize("batch_size", [None, 10])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_loocv_probe_matches_jax(flags, weighted, batch_size):
+    """All-row LOOCV at the same chunking (41 folds in chunks of 10 pad to
+    50 by repeating the last fold; the probe reads the last chunk)."""
+    got, ref = probes(flags, np.arange(N)[:, None], weighted=weighted,
+                      batch_size=batch_size)
+    assert_allclose(got, ref, atol=1e-8, rtol=0)
+
+
+@pytest.mark.parametrize("xtx_only", [False, True])
+def test_loocv_probe_xtx_only_matches_jax(xtx_only):
+    got, ref = probes((True, True, False, True), np.arange(N)[:, None],
+                      batch_size=7, return_XTY=not xtx_only)
+    assert_allclose(got, ref, atol=1e-8, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fold_engine_probe_matches_jax(masked):
+    """Multi-row folds take the per-fold engine on the CPU."""
+    if masked:
+        _, idx, mask = J.Partitioner(FOLDS).padded_batches()
+    else:
+        idx = np.arange(40).reshape(8, 5)
+        mask = None
+    got, ref = probes((True, True, True, True), idx, mask, batch_size=3)
+    assert_allclose(got, ref, atol=1e-8, rtol=0)
+
+
+def test_chunking_rule():
+    """The JAX package's rule: 4 GB / (16 B K C), at most 2000, equalised."""
+    assert TS.chunking(100_000, 500, 510) == (971, 103)
+    assert TS.chunking(41, 5, 7, batch_size=10) == (9, 5)
+    assert TS.chunking(41, 5, 7) == (41, 1)
+
+
+def test_whole_slice_against_oracle():
+    """CVMatrix.fit, Partitioner(np.arange(N)), then prepare_loocv_sources
+    and loocv_from_sources chunk by chunk over every fold."""
+    flags = (True, True, True, True)
+    w = zero_fraction(WEIGHTS)
+    cvm = T.CVMatrix(*flags).fit(X_ALL, Y_ALL, w)
+    keys, idx, mask = T.Partitioner(np.arange(N)).padded_batches()
+    assert mask is None and idx.shape == (N, 1)
+    src = TB.prepare_loocv_sources(cvm.config, cvm.state, idx)
+    oracle = NaiveOracle(*flags).fit(X_ALL, Y_ALL, w)
+    bs = 16
+    for start in range(0, N, bs):
+        rows = idx[start:start + bs, 0]
+        out = TB.loocv_from_sources(cvm.config, src, rows,
+                                    src.scal[start:start + bs],
+                                    return_XTY=True)
+        for f, r in enumerate(rows):
+            (xtx, xty), _ = oracle.training_XTX_XTY(np.delete(np.arange(N), r))
+            assert_allclose(out[f, :, :5].numpy(), xtx, atol=1e-8, rtol=0)
+            assert_allclose(out[f, :, 5:].numpy(), xty, atol=1e-8, rtol=0)
+
+
+def test_sweep_argument_errors():
+    st = T.fit(T.CVConfig(), X_ALL, Y_ALL, WEIGHTS)
+    idx = np.arange(N)[:, None]
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
+        TS.materialize_sweep(T.CVConfig(), st, idx, impl="cuda")
+    with pytest.raises(ValueError, match="Unknown impl"):
+        TS.materialize_sweep(T.CVConfig(), st, idx, impl="xla")
+    with pytest.raises(ValueError, match="Weights must be non-negative"):
+        TS.materialize_cv(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS, idx)
+    st_x = T.fit(T.CVConfig(), X_ALL, None, WEIGHTS)
+    with pytest.raises(ValueError, match="Response variables"):
+        TS.materialize_sweep(T.CVConfig(), st_x, idx)
+
+
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+@pytest.mark.parametrize("flags", [(True, False, True, False),
+                                   (True, True, True, False)])
+def test_impls_agree_on_cpu(impl, flags):
+    """On CPU tensors 'auto' and 'torch' both run the plain twin; (F,)
+    one-row fold indices are accepted as (F, 1)."""
+    w = zero_fraction(WEIGHTS)
+    got = TS.materialize_cv(T.CVConfig(*flags), X_ALL, Y_ALL, w,
+                            np.arange(N), impl=impl, batch_size=12)
+    ref = JS.materialize_cv(J.CVConfig(*flags), X_ALL, Y_ALL, w,
+                            np.arange(N)[:, None], batch_size=12)
+    assert_allclose(float(got), float(ref), atol=1e-8, rtol=0)
