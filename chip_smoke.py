@@ -9,19 +9,38 @@ CUDA toolkit (``nvcc``)::
 Phases, each of which raises on failure (exit code 1, no result line):
 
 1. Device: require CUDA; print the card, its power limit and the toolchain.
-2. Build: compile the LOOCV kernel from ``cvmatrix_tpu_torch/csrc/loocv.cu``.
-3. Kernel against its plain twin on the card: 16 flag sets x weighted and
-   unweighted at N=2,000, K=500, M=10 over 64 folds, and the main path's
-   first and last 256 folds; bound max|kernel - twin| <= 1e-12 max|twin|.
-   Times one 971-fold chunk through the kernel and through the twin.
-4. Main path: weighted, all four centre/scale flags on, float64,
+2. Build: compile the kernels of ``cvmatrix_tpu_torch/csrc/`` (``loocv.cu``,
+   ``fold_downdate.cu``, ``fold_epilogue.cu``), one ``nvcc`` each, all at
+   once; print their register and spill lines.
+3. LOOCV kernel against its plain twin on the card: 16 flag sets x
+   weighted and unweighted at N=2,000, K=500, M=10 over 64 folds, and the
+   main path's first and last 256 folds; bound max|kernel - twin| <= 1e-12
+   max|twin|. Times one 971-fold chunk through the kernel and the twin.
+4. LOOCV main path: weighted, all four centre/scale flags on, float64,
    N=100,000, K=500, M=10, seed 42, leave-one-out over all 100,000 folds
    through ``materialize_cv``, once to warm up and once timed, with the
    kernel's launch count read around the timed run. Also times the fit
    alone and the fold sweep alone, through the kernel and the plain twin.
-5. Oracle: the main path's probe and two folds' full matrices against the
-   NumPy oracle ``tests/oracle.py``.
-6. Prints the kernels' JSON line, the card's name and power limit, and as
+5. LOOCV oracle: the main path's probe and two folds' full matrices
+   against the NumPy oracle ``tests/oracle.py``.
+6. K-fold kernels against their twins: 16 flag sets x weighted and
+   unweighted, [XTX | XTY] and XTX alone (XTY alone for two flag sets),
+   at N=2,000, K=500, M=10, through ``training_matrices_batched`` for one
+   fold batch per route (L=4 packed, L=100 v3, L=1,000 Ozaki-df64,
+   L=1,025 epilogue), each also masked; every call must launch its route's
+   kernel; bound 1e-12 max|twin|. Then the first full-width chunk of each
+   phase 7 sweep (P=25,000, 10,000, 1,000, 100, 10 and the masked P=3 at
+   N=100,000) through the kernel and through the twin, held at the same
+   bound, and each route's chunk timed through both.
+7. K-fold path at full width: the configuration of phase 4 through
+   ``materialize_cv`` over ``Partitioner(np.arange(N) % P)`` for P =
+   25,000, 10,000, 1,000, 100, 10 and 3 (the last masked), once to warm
+   up and once timed, the launch counts read around the timed run (the
+   route's kernel once per chunk, no other), then the sweep alone through
+   the kernels and through the plain twins.
+8. K-fold oracle: each P's probe and its probe fold's full matrices
+   against ``tests/oracle.py`` at 1e-10.
+9. Prints the kernels' JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -36,6 +55,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +63,24 @@ import torch
 N, K, M, SEED = 100_000, 500, 10, 42
 TWIN_RTOL = 1e-12
 ORACLE_RTOL = 1e-10
+# P -> the wrapper whose kernel the K-fold main path must launch
+KFOLD_P = ((25_000, "fold_packed"), (10_000, "fold_v3"), (1_000, "fold_v3"),
+           (100, "fold_ozaki_df64"), (10, "fold_epilogue"),
+           (3, "fold_epilogue"))
+ROUTE_WRAPPER = {"packed": "fold_packed", "v3": "fold_v3",
+                 "ozaki_df64": "fold_ozaki_df64", "epilogue": "fold_epilogue"}
+KERNEL_SOURCES = {
+    "fused_loocv": ("cvmatrix_tpu_torch/csrc/loocv.cu",
+                    "cvmatrix_tpu/ops/kernels.py:892"),
+    "fold_packed": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                    "cvmatrix_tpu/ops/kernels.py:382"),
+    "fold_v3": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                "cvmatrix_tpu/ops/kernels.py:2333"),
+    "fold_ozaki_df64": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                        "cvmatrix_tpu/ops/kernels.py:1385"),
+    "fold_epilogue": ("cvmatrix_tpu_torch/csrc/fold_epilogue.cu",
+                      "cvmatrix_tpu/ops/kernels.py:531"),
+}
 
 
 def log(*a) -> None:
@@ -88,6 +126,7 @@ def main() -> int:
               "needs a CUDA card.", file=sys.stderr)
         return 1
     from cvmatrix_tpu_torch import CVConfig, Partitioner, fit
+    from cvmatrix_tpu_torch.core import batch as TB
     from cvmatrix_tpu_torch.core.batch import (
         loocv_from_sources,
         prepare_loocv_sources,
@@ -98,6 +137,7 @@ def main() -> int:
         materialize_sweep,
     )
     from cvmatrix_tpu_torch.ops import _build
+    from cvmatrix_tpu_torch.ops import fold_downdate as FD
     from cvmatrix_tpu_torch.ops.loocv import fused_loocv
     from tests.oracle import NaiveOracle
 
@@ -118,13 +158,19 @@ def main() -> int:
         f"{'present' if triton else 'absent'}")
 
     # ---- 2. build ----------------------------------------------------------
+    libs = ("loocv", "fold_downdate", "fold_epilogue")
     t0 = time.perf_counter()
-    _build.load_library("loocv")
-    log(f"[build] loocv.cu -> {_build.build_dir()} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_LOG.get("loocv", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, at once
+        list(pool.map(_build.load_library, libs))
+    log(f"[build] {', '.join(n + '.cu' for n in libs)} -> "
+        f"{_build.build_dir()} in {time.perf_counter() - t0:.2f} s "
+        "(in parallel)")
+    for name in libs:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if "Function properties" in line:
+                log(f"[build] {name}: {line.split('for ')[-1].strip()}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}:   {line.strip()}")
 
     # ---- 3. kernel against twin -------------------------------------------
     def twin(cfg, state, rows, with_y):
@@ -262,17 +308,239 @@ def main() -> int:
         log(f"[oracle] fold {fold}: max|kernel - oracle| "
             f"{np.abs(got[i] - ref).max():.3e} (max|oracle| {scale:.3e})")
 
-    # ---- 6. result -----------------------------------------------------------
+    # ---- 6. K-fold kernels against twins -----------------------------------
+    def batch(cfg, state, idx, mask, xtx, xty, impl):
+        mats, _ = TB.training_matrices_batched(
+            cfg, state, idx, mask, return_XTX=xtx, return_XTY=xty, impl=impl)
+        return torch.cat(mats, dim=2) if isinstance(mats, tuple) else mats
+
+    fold_err = {w: 0.0 for w in ROUTE_WRAPPER.values()}
+    fold_rel = dict(fold_err)
+    rng = np.random.default_rng(SEED + 1)
+    fold_batches = []
+    for n_l, n_folds in ((4, 16), (100, 8), (1000, 2), (1025, 2)):
+        idx = np.stack([rng.choice(n_small, n_l, replace=False)
+                        for _ in range(n_folds)])
+        mask = np.ones(idx.shape)
+        mask[::2, -max(1, n_l // 10):] = 0.0
+        fold_batches += [(idx, None), (idx, mask)]
+    cases = 0
+    for flags in itertools.product([True, False], repeat=4):
+        for w in (ws, None):
+            cfg_s = CVConfig(*flags, ddof=1, dtype=np.float64)
+            st_s = fit(cfg_s, Xs, Ys, w, device=dev)
+            sides = [(True, True), (True, False)]
+            if flags in ((True,) * 4, (False,) * 4):
+                sides.append((False, True))
+            for (xtx, xty), (idx, mask) in itertools.product(sides,
+                                                             fold_batches):
+                route = TB.route_kernel(cfg_s, st_s, idx.shape[1], xtx, xty,
+                                        mask is not None)
+                before = FD.launch_counts()
+                got = batch(cfg_s, st_s, idx, mask, xtx, xty, "cuda")
+                after = FD.launch_counts()
+                ref = batch(cfg_s, st_s, idx, mask, xtx, xty, "torch")
+                torch.cuda.synchronize()
+                launched = {n for n in after if after[n] != before[n]}
+                if launched != {ROUTE_WRAPPER[route]}:
+                    raise AssertionError(
+                        f"L={idx.shape[1]} ({route}) launched {launched}")
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                if not err <= TWIN_RTOL * scale:
+                    raise AssertionError(
+                        f"{route} kernel vs twin: max|diff| {err:.3e} > "
+                        f"{TWIN_RTOL:g} * {scale:.3e} ({cfg_s}, L="
+                        f"{idx.shape[1]}, mask={mask is not None}, "
+                        f"xtx={xtx}, xty={xty})")
+                name = ROUTE_WRAPPER[route]
+                fold_err[name] = max(fold_err[name], err)
+                fold_rel[name] = max(fold_rel[name], err / scale)
+                cases += 1
+    log(f"[kfold-twin] {cases} cases (N={n_small}; L=4, 100, 1000, 1025, "
+        f"each unmasked and masked): worst max|diff| {fold_err}, worst "
+        f"relative {fold_rel}")
+
+    def chunk_idx(p):
+        _, idx, mask = Partitioner(np.arange(N) % p).padded_batches()
+        bs_p, n_chunks_p = chunking(p, K, K + M)
+        return idx, mask, bs_p, n_chunks_p
+
+    def hold(label, name, got, ref):
+        """A full-width chunk through the kernel against its twin; the
+        error joins the kernel's worst case."""
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= TWIN_RTOL * scale:
+            raise AssertionError(
+                f"{label}: {name} kernel vs twin max|diff| {err:.3e} > "
+                f"{TWIN_RTOL:g} * {scale:.3e}")
+        fold_err[name] = max(fold_err[name], err)
+        fold_rel[name] = max(fold_rel[name], err / scale)
+        log(f"[kfold-chunk] {label}: {name} kernel vs twin max|diff| "
+            f"{err:.3e}, relative {err / scale:.3e}")
+
+    def time_pair(label, name, kernel_fn, plain_fn, n_out):
+        ms = {"torch": [], "cuda": []}
+        for impl in ("torch", "cuda", "cuda", "torch"):
+            fn = kernel_fn if impl == "cuda" else plain_fn
+            ms[impl].append(cuda_ms(fn, 10 if impl == "cuda" else 3))
+        gb = n_out * 8 / 1e9
+        log(f"[kfold-chunk] {label}: {name} kernel {ms['cuda']} ms, plain "
+            f"{ms['torch']} ms (plain, kernel, kernel, plain); "
+            f"{gb:.3f} GB out, kernel writes "
+            f"{gb / min(ms['cuda']) * 1e3:.1f} GB/s  [{card}]")
+        return min(ms["cuda"]), min(ms["torch"])
+
+    # Each route's first full-width chunk of the phase 7 sweeps, through
+    # the kernel and the twin: held at the bound, then timed.
+    chunk_times = {}
+    idx, _, bs_p, _ = chunk_idx(25_000)
+    ops, _ = TB.prepare_fold_operands(cfg, st, idx[:bs_p])
+    buf = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
+    label = f"P=25,000 chunk of {bs_p} folds x L=4"
+    run = {impl: (lambda impl=impl: TB.downdate_from_operands(
+        ops, impl=impl, out=buf if impl == "cuda" else None))
+        for impl in ("cuda", "torch")}
+    hold(label, "fold_packed", run["cuda"](), run["torch"]())
+    chunk_times["fold_packed"] = time_pair(label, "fold_packed", run["cuda"],
+                                           run["torch"], buf.numel())
+    del ops, run
+    for p in (1_000, 10_000):
+        idx, _, bs_p, _ = chunk_idx(p)
+        src = TB.prepare_ozaki_sources(cfg, st, idx[:bs_p])
+        buf = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
+        label = f"P={p:,} chunk of {bs_p} folds x L={idx.shape[1]}"
+        run = {impl: (lambda impl=impl: TB.ozaki_v3_from_sources(
+            cfg, src, return_XTY=True, impl=impl,
+            out=buf if impl == "cuda" else None))
+            for impl in ("cuda", "torch")}
+        hold(label, "fold_v3", run["cuda"](), run["torch"]())
+        chunk_times["fold_v3"] = time_pair(label, "fold_v3", run["cuda"],
+                                           run["torch"], buf.numel())
+        del src, run
+    total = torch.cat([st.XTX, st.XTY], dim=1)
+    flags = TB._stat_flags(cfg, True, True)
+    for p, name in ((100, "fold_ozaki_df64"), (10, "fold_epilogue"),
+                    (3, "fold_epilogue")):
+        idx, mask, bs_p, _ = chunk_idx(p)
+        rows, mask_d = TB._rows_mask(cfg, st, idx[:bs_p],
+                                     None if mask is None else mask[:bs_p])
+        label = (f"P={p:,} chunk of {bs_p} folds x L={idx.shape[1]}"
+                 f"{', masked' if mask is not None else ''}")
+        like = st.X.new_empty((bs_p, 0))
+        if name == "fold_ozaki_df64":
+            stats5 = TB._summed_stats(cfg, st, rows, mask_d, **flags)
+            kvec, cvec = TB._reference_vectors(cfg, st, stats5, like, True,
+                                                True)
+            buf = torch.empty((bs_p, K, K + M), dtype=torch.float64,
+                              device=dev)
+            run = {impl: (lambda impl=impl: FD.fold_ozaki_df64(
+                total, st.WX, st.X, st.Y, rows, mask_d, kvec, cvec,
+                impl=impl, out=buf if impl == "cuda" else None))
+                for impl in ("cuda", "torch")}
+            hold(label, name, run["cuda"](), run["torch"]())
+            chunk_times[name] = time_pair(label, name, run["cuda"],
+                                          run["torch"], buf.numel())
+            del run
+            continue
+        blocks, stats5 = TB._gather_and_stats(cfg, st, rows, mask_d, True,
+                                              True)
+        kvec, cvec = TB._reference_vectors(cfg, st, stats5, like, True, True)
+        prod = torch.bmm(blocks.Xv_w.mT,
+                         torch.cat([blocks.Xv_u, blocks.Yv_u], dim=2))
+        # in place: each side rewrites its own copy of the product
+        hold(label, name,
+             FD.fold_epilogue(total, prod.clone(), kvec, cvec, impl="cuda"),
+             FD.fold_epilogue(total, prod.clone(), kvec, cvec, impl="torch"))
+        if p == 10:
+            chunk_times[name] = time_pair(
+                label + ", epilogue over the product", name,
+                lambda: FD.fold_epilogue(total, prod, kvec, cvec,
+                                         impl="cuda"),
+                lambda: FD.fold_epilogue(total, prod, kvec, cvec,
+                                         impl="torch"), prod.numel())
+        del prod, blocks, stats5
+    buf = None
+
+    # ---- 7. K-fold path at full width ----------------------------------------
+    kfold_launches = {w: 0 for w in ROUTE_WRAPPER.values()}
+    probes = {}
+    log(f"[kfold] weighted TTTT f64 N={N} K={K} M={M}, "
+        f"Partitioner(np.arange(N) % P)  [{card}]")
+    for p, expect in KFOLD_P:
+        idx, mask, bs_p, n_chunks_p = chunk_idx(p)
+
+        def cv(idx=idx, mask=mask):
+            return float(materialize_cv(cfg, Xd, Yd, wd, idx, mask))
+
+        t_warm, _ = wall(cv)
+        FD.reset_launch_counts()
+        fused_loocv.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t_total, probe = wall(cv)
+        counts = FD.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if (counts[expect] != n_chunks_p or fused_loocv.launches
+                or any(v for n, v in counts.items() if n != expect)):
+            raise AssertionError(
+                f"P={p}: launches {counts}, fused_loocv "
+                f"{fused_loocv.launches}; expected {n_chunks_p} of {expect}")
+        if not np.isfinite(probe):
+            raise AssertionError(f"P={p}: probe is not finite: {probe}")
+        kfold_launches[expect] += counts[expect]
+        sweeps = {"torch": [], "cuda": []}
+        for impl in ("torch", "cuda"):
+            sweeps[impl].append(wall(lambda impl=impl: float(
+                materialize_sweep(cfg, st, idx, mask, impl=impl)))[0])
+        gb = p * K * (K + M) * 8 / 1e9
+        floor_s = gb * 1e9 / 3.35e12
+        log(f"[kfold] P={p:,} (L={idx.shape[1]}{', masked' if mask is not None else ''}"
+            f", {n_chunks_p} chunks of {bs_p}): total {t_total:.4f} s "
+            f"(warm-up {t_warm:.4f} s) -> {p / t_total:,.0f} folds/s; "
+            f"{expect} launches {counts[expect]}; {gb:.2f} GB written, "
+            f"write floor {floor_s:.4f} s = {floor_s / t_total:.1%} of the "
+            f"total; peak {peak_gb:.2f} GB; sweep alone: kernel "
+            f"{sweeps['cuda'][0]:.4f} s, plain {sweeps['torch'][0]:.4f} s; "
+            f"probe {probe!r}")
+        probes[p] = (probe, idx, mask, min((n_chunks_p - 1) * bs_p, p - 1))
+
+    # ---- 8. K-fold oracle -----------------------------------------------------
+    for p, (probe, idx, mask, f) in probes.items():
+        rows_f = idx[f] if mask is None else idx[f][mask[f] > 0]
+        (xtx, xty), _ = naive.training_XTX_XTY(np.delete(all_rows, rows_f))
+        ref = np.concatenate([xtx, xty], axis=1)
+        expect = float(ref[0, 0] + ref[0, K])
+        if not abs(probe - expect) <= ORACLE_RTOL * abs(expect):
+            raise AssertionError(f"P={p}: probe {probe!r} vs oracle "
+                                 f"{expect!r} (fold {f})")
+        got = batch(cfg, st, idx[f:f + 1],
+                    None if mask is None else mask[f:f + 1], True, True,
+                    "cuda")[0].cpu().numpy()
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got, ref, rtol=ORACLE_RTOL,
+                                   atol=ORACLE_RTOL * scale)
+        log(f"[oracle] P={p:,} fold {f} ({rows_f.size} rows): probe "
+            f"relative {abs(probe - expect) / abs(expect):.3e}; "
+            f"max|port - oracle| {np.abs(got - ref).max():.3e} "
+            f"(max|oracle| {scale:.3e})")
+
+    # ---- 9. result -----------------------------------------------------------
+    entries = [("fused_loocv", launches, worst_abs, kernel_ms, plain_ms)]
+    for name in ROUTE_WRAPPER.values():
+        entries.append((name, kfold_launches[name], fold_err[name],
+                        *chunk_times[name]))
     print(json.dumps({"kernels": [{
-        "name": "fused_loocv",
+        "name": name,
         "route": "cuda",
-        "source": "cvmatrix_tpu_torch/csrc/loocv.cu",
-        "replaces": "cvmatrix_tpu/ops/kernels.py:892",
-        "launches": launches,
-        "max_abs_err": worst_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        "source": KERNEL_SOURCES[name][0],
+        "replaces": KERNEL_SOURCES[name][1],
+        "launches": n_launch,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": pms,
+    } for name, n_launch, err, ms, pms in entries]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,10 +1,18 @@
-"""Batched leave-one-out operands and the LOOCV kernel route, PyTorch port.
+"""Batched fold operands, kernel routing and the fold-batch engine, PyTorch port.
 
-Counterpart of the LOOCV part of :mod:`cvmatrix_tpu.core.batch`
-(``loocv_single_tile_ok``, ``_fold_scalar_stream``, ``prepare_loocv_sources``,
-``loocv_from_sources``). The JAX package packs these operands as padded
-f32 (hi, lo) pairs for its TPU kernel; the port keeps them as unpadded
-tensors in the config dtype, which the H100 kernel reads directly.
+Counterpart of :mod:`cvmatrix_tpu.core.batch`: the routing gates
+(:func:`route_kernel`), the LOOCV sources, the packed factor-form operands
+(:func:`prepare_fold_operands`), the v3 sources
+(:func:`prepare_ozaki_sources`), the large-fold path and
+:func:`training_matrices_batched`. The JAX package packs these operands as
+padded f32 (hi, lo) pairs and int8 mantissa slices for its TPU kernels; the
+port keeps them as unpadded tensors in the config dtype, which the H100
+kernels read directly. Padding survives only inside the gates, so that both
+packages send the same fold batch to the same kernel.
+
+Fold rows are range-checked on the host once (``ops.loocv.check_rows``)
+and the kernel routes skip the per-fold validity raises (the JAX package's
+``check=False``), so no route synchronises the device per chunk.
 """
 
 from __future__ import annotations
@@ -15,15 +23,36 @@ import numpy as np
 import torch
 
 from ..config import CVConfig
+from ..ops import fold_downdate as _fd
 from ..ops import loocv as _loocv
+from .fold import (
+    FoldBlocks,
+    _compute_training_stats,
+    gather_val_blocks,
+    training_matrices,
+)
 from .state import FitState
 
 __all__ = [
+    "FUSED_LARGE_FOLD_ROWS",
+    "LARGE_FOLD_ROWS",
+    "TPU_KERNELS",
+    "FoldOperands",
     "LoocvSources",
-    "loocv_single_tile_ok",
-    "prepare_loocv_sources",
+    "OzakiSources",
+    "downdate_from_operands",
+    "large_fold_threshold",
     "loocv_from_sources",
-    "unported_kernel",
+    "loocv_single_tile_ok",
+    "ozaki_trim_groups",
+    "ozaki_v3_from_sources",
+    "ozaki_v3_ok",
+    "prepare_fold_operands",
+    "prepare_loocv_sources",
+    "prepare_ozaki_sources",
+    "route_kernel",
+    "slice_operands",
+    "training_matrices_batched",
 ]
 
 
@@ -69,30 +98,28 @@ def loocv_single_tile_ok(config: CVConfig, state: FitState, return_XTX: bool,
     return kp == cp and cp <= 1024
 
 
-def unported_kernel(state: FitState, n_l: int, return_XTY: bool) -> str:
-    """The TPU kernel the JAX package routes a non-LOOCV fold batch to,
-    none of which has a CUDA port yet (named in NotImplementedError)."""
-    c = state.K + ((state.M or 0) if return_XTY else 0)
-    if n_l < 10:
-        return "fused_downdate_df64_packed (cvmatrix_tpu/ops/kernels.py:382)"
-    if n_l <= 1024 and c <= 512:
-        return "fused_ozaki_downdate_v3 (cvmatrix_tpu/ops/kernels.py:2333)"
-    return "fused_epilogue_df64 (cvmatrix_tpu/ops/kernels.py:531)"
-
-
 def _fold_scalar_stream(config: CVConfig, state: FitState,
-                        rows: torch.Tensor) -> torch.Tensor:
-    """(F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` for one-row
-    folds: the scalars of ``fold._train_weight_scalars`` and
-    ``fold._std_divisor`` with reciprocals taken outside the kernel.
-    The divisor stays in floating point (``count_nonzero`` is int64)."""
+                        rows: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` for fold rows
+    (F,) or (F, L) and an optional (F, L) mask: the scalars of
+    ``fold._train_weight_scalars`` and ``fold._std_divisor`` with
+    reciprocals taken outside the kernels. The divisor stays in floating
+    point (``count_nonzero`` is int64)."""
     dt = config.torch_dtype
+    rows = rows.reshape(rows.shape[0], -1)
+    f_folds, n_l = rows.shape
     if state.weights is not None:
         wv = state.weights[rows, 0]
-        sw_t = state.sum_w - wv
-        nnz_t = (state.num_nonzero_w - (wv != 0).to(torch.int64)).to(dt)
+        if mask is not None:
+            wv = wv * mask
+        sw_t = state.sum_w - wv.sum(dim=1)
+        nnz_t = (state.num_nonzero_w - torch.count_nonzero(wv, dim=1)).to(dt)
+    elif mask is not None:
+        sw_t = state.sum_w - mask.sum(dim=1)
+        nnz_t = sw_t
     else:
-        sw_t = torch.full((rows.shape[0],), state.N - 1, dtype=dt,
+        sw_t = torch.full((f_folds,), state.N - n_l, dtype=dt,
                           device=state.device)
         nnz_t = sw_t
     divisor = (nnz_t - config.ddof) * sw_t / nnz_t
@@ -187,3 +214,643 @@ def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
         impl=impl,
         out=out,
     )
+
+
+# --------------------------------------------------------------------------- #
+# Routing: the JAX package's gates, so both packages pick the same kernel     #
+# --------------------------------------------------------------------------- #
+
+# Folds of at least this many rows leave the packed route (JAX
+# batch.py:970-971): 10 where the fused Ozaki kernels apply, else 32.
+LARGE_FOLD_ROWS = 32
+FUSED_LARGE_FOLD_ROWS = 10
+# The Ozaki slice width and the default trim budget (the JAX package's
+# precise._T_BITS and policy.ozaki_budget_log2): they gate v3 by fold size.
+_OZAKI_T_BITS = 6
+_OZAKI_BUDGET_LOG2 = -31
+
+# route_kernel's routes and the TPU kernel each one ports
+TPU_KERNELS = {
+    "loocv": "fused_loocv_df64 (cvmatrix_tpu/ops/kernels.py:892)",
+    "packed": "fused_downdate_df64_packed (cvmatrix_tpu/ops/kernels.py:382)",
+    "v3": "fused_ozaki_downdate_v3 (cvmatrix_tpu/ops/kernels.py:2333)",
+    "ozaki_df64": "fused_ozaki_downdate_df64 (cvmatrix_tpu/ops/kernels.py:1385)",
+    "epilogue": "fused_epilogue_df64 (cvmatrix_tpu/ops/kernels.py:531)",
+}
+
+
+def _is_f64(config: CVConfig) -> bool:
+    return np.dtype(config.dtype).itemsize == 8
+
+
+def _exact(config: CVConfig) -> bool:
+    # The JAX package's _use_exact on its TPU, where "auto" is exact for f64.
+    return config.matmul_mode in ("auto", "exact")
+
+
+def ozaki_trim_groups(n_l: int, *, n_slices: int = 10,
+                      budget_log2: int = _OZAKI_BUDGET_LOG2) -> int:
+    """Slice-product groups the JAX v3 kernel keeps for a fold of ``n_l``
+    rows (JAX ``ops/kernels.py:2083``); only the v3 gate reads it here."""
+    lp = _round_up(max(n_l, 1), 32)
+    for sp in range(2, n_slices):
+        if (1.2 * (sp + 1) * lp * 2.0 ** (-_OZAKI_T_BITS * sp)
+                <= 2.0 ** budget_log2):
+            return sp
+    return n_slices
+
+
+def _padded_dims(state: FitState, return_XTX: bool, return_XTY: bool):
+    """``(k, c, kp, cp)``: the JAX large-fold kernels' padded geometry."""
+    k = state.K
+    c = (k if return_XTX else 0) + ((state.M or 0) if return_XTY else 0)
+    blk = 128 if max(k, c) > 4096 else 512
+    kp = _round_up(max(k, 8), 128)
+    cp = _round_up(max(c, 8), 128)
+    return k, c, _round_up(kp, min(blk, kp)), _round_up(cp, min(blk, cp))
+
+
+def _fused_ozaki_eligible(config, state, return_XTX, return_XTY) -> bool:
+    k = state.K
+    c = k + ((state.M or 0) if return_XTY else 0)
+    kp = _round_up(max(k, 8), 128)
+    cp = _round_up(max(c, 8), 128)
+    return (return_XTX and kp == cp and kp <= 512 and _is_f64(config)
+            and _exact(config))
+
+
+def large_fold_threshold(config: CVConfig, state: FitState,
+                         return_XTX: bool, return_XTY: bool) -> int:
+    """Fold rows from which a batch leaves the packed route."""
+    if _fused_ozaki_eligible(config, state, return_XTX, return_XTY):
+        return FUSED_LARGE_FOLD_ROWS
+    return LARGE_FOLD_ROWS
+
+
+def ozaki_v3_ok(config: CVConfig, state: FitState, return_XTX: bool,
+                return_XTY: bool, n_l: int) -> bool:
+    """The v3 gate: one square tile of at most 512 and a fold size whose
+    TPU group sums stay exact in f32 (``Sp * Lp * 65^2 < 2^24``)."""
+    lp = _round_up(n_l, 32)
+    return (
+        loocv_single_tile_ok(config, state, return_XTX, return_XTY)
+        and _is_f64(config) and _exact(config)
+        and _round_up(max(state.K, 8), 128) <= 512
+        and ozaki_trim_groups(n_l) * lp * 65 * 65 < 2 ** 24
+    )
+
+
+def _use_fused(config, state, return_XTX, return_XTY, n_l) -> bool:
+    """The ``use_fused`` test of the JAX large-fold path (batch.py:1097)."""
+    _, _, kp, cp = _padded_dims(state, return_XTX, return_XTY)
+    return kp == cp and kp <= 512 and n_l <= 1024 and _exact(config)
+
+
+def route_kernel(config: CVConfig, state: FitState, n_l: int,
+                 return_XTX: bool, return_XTY: bool, masked: bool) -> str:
+    """The route, by its TPU kernel, of a batch of folds of ``n_l`` rows.
+
+    A key of :data:`TPU_KERNELS` (which names each route's kernel), chosen by
+    the JAX package's gates: one-row unmasked folds on one tile take the
+    LOOCV kernel; folds under :func:`large_fold_threshold` the packed
+    kernel; then v3 where :func:`ozaki_v3_ok`, the Ozaki-df64 kernel where
+    the large-fold path fuses, else a product plus the epilogue kernel.
+    Float32 fold batches other than LOOCV raise NotImplementedError naming
+    their TPU kernel, which is not ported yet.
+    """
+    if n_l == 1 and not masked and loocv_single_tile_ok(
+            config, state, return_XTX, return_XTY):
+        return "loocv"
+    if not _is_f64(config):
+        kernel = ("fused_downdate (cvmatrix_tpu/ops/kernels.py:105)"
+                  if n_l >= LARGE_FOLD_ROWS else
+                  "fused_downdate_f32_packed (cvmatrix_tpu/ops/kernels.py:630)")
+        raise NotImplementedError(
+            f"float32 fold batches of {n_l} rows need {kernel}, which is not "
+            "ported yet: use float64, or impl='torch' for the plain engine."
+        )
+    if n_l < large_fold_threshold(config, state, return_XTX, return_XTY):
+        return "packed"
+    if ozaki_v3_ok(config, state, return_XTX, return_XTY, n_l):
+        return "v3"
+    if _use_fused(config, state, return_XTX, return_XTY, n_l):
+        return "ozaki_df64"
+    return "epilogue"
+
+
+def _route_or_plain(config, state, n_l, return_XTX, return_XTY, masked,
+                    plain: bool) -> Optional[str]:
+    """:func:`route_kernel`'s route, or ``None`` where a float32 batch with
+    no ported kernel runs the per-fold engine (``plain``: on the CPU or
+    with ``impl="torch"``)."""
+    if plain and not _is_f64(config) and not (
+            n_l == 1 and not masked
+            and loocv_single_tile_ok(config, state, return_XTX, return_XTY)):
+        return None
+    return route_kernel(config, state, n_l, return_XTX, return_XTY, masked)
+
+
+# --------------------------------------------------------------------------- #
+# Gathers and statistics                                                      #
+# --------------------------------------------------------------------------- #
+
+
+def _stat_flags(config: CVConfig, return_XTX: bool, return_XTY: bool):
+    """Cross-coupled stat gating (the per-fold engine's rule)."""
+    return dict(
+        return_X_mean=config.center_X or (return_XTY and config.center_Y),
+        return_X_std=config.scale_X,
+        return_Y_mean=return_XTY and (config.center_X or config.center_Y),
+        return_Y_std=return_XTY and config.scale_Y,
+    )
+
+
+def _gather_and_stats(config, state, rows, mask, return_XTX, return_XTY):
+    """Batched blocks and ``(X_mean, X_std, Y_mean, Y_std, sum_w_train)``
+    of (F, L) device rows already checked on the host; no validity raise."""
+    blocks = gather_val_blocks(config, state, rows, mask, return_XTY)
+    stats5 = _compute_training_stats(
+        config, state, blocks, check=False,
+        **_stat_flags(config, return_XTX, return_XTY))
+    return blocks, stats5
+
+
+def _summed_stats(config, state, rows, mask, **flags):
+    """``_compute_training_stats`` of (F, L) device rows, gathering each
+    side's unweighted rows once, for the routes whose kernels gather the
+    rows themselves.
+
+    A fold's sums are a batched mat-vec of its rows with each row's weight
+    times mask (``Xv_w = X[v] w m``); the squared sums square the gather
+    in place. Against :func:`_gather_and_stats` (four blocks, two of them
+    weighted) this took 1.03 against 1.51 ms and 0.41 against 1.22 GB for
+    100 folds of 1,000 rows at N=100,000, K=500, M=10 (NVIDIA H100 80GB
+    HBM3, 700 W).
+    """
+    w_val = coef = None
+    if state.weights is not None:
+        w_val = state.weights[rows]
+        if mask is not None:
+            w_val = w_val * mask[..., None]
+        coef = w_val.mT
+    elif mask is not None:
+        coef = mask[:, None]
+
+    def fold_sum(t):  # (F, L, W) -> (F, 1, W)
+        return t.sum(dim=1, keepdim=True) if coef is None else torch.bmm(
+            coef, t)
+
+    # Y stats are requested only where the weighted Y side is WY
+    # (config.needs_WY), so both sides take the same coefficients.
+    val_sums = [None] * 4
+    for i, (table, mean, std) in enumerate((
+            (state.X, flags["return_X_mean"], flags["return_X_std"]),
+            (state.Y, flags["return_Y_mean"], flags["return_Y_std"]))):
+        if mean or std:
+            v = table[rows]
+            val_sums[2 * i] = fold_sum(v)
+            if std:
+                val_sums[2 * i + 1] = fold_sum(v.square_())
+    blocks = FoldBlocks(Xv_w=state.X.new_empty((*rows.shape, 0)), Xv_u=None,
+                        Yv_w=None, Yv_u=None, w_val=w_val, mask=mask)
+    return _compute_training_stats(config, state, blocks, check=False,
+                                   val_sums=val_sums, **flags)
+
+
+def _rows_mask(config, state, idx_batch, mask_batch):
+    """(F, L) int64 rows and the optional mask on the state's device. Host
+    rows are range-checked; device rows are taken as checked."""
+    rows = _fd.device_rows(idx_batch, state.N, state.device)
+    mask = None if mask_batch is None else torch.as_tensor(
+        mask_batch, dtype=config.torch_dtype, device=state.device
+    ).reshape(rows.shape).contiguous()
+    return rows, mask
+
+
+def _total(state: FitState, return_XTX: bool, return_XTY: bool):
+    if return_XTX and return_XTY:
+        return torch.cat([state.XTX, state.XTY], dim=1)
+    return (state.XTX if return_XTX else state.XTY).contiguous()
+
+
+def _xy_concat(x_part, y_part):
+    parts = [t for t in (x_part, y_part) if t is not None]
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
+def _pack_kc_vectors(like, k, c, *, i1=None, i2=None, p_vec=None,
+                     q_vec=None):
+    """``kvec`` (F, 2, K) = [p, i1] and ``cvec`` (F, 2, C) = [q, i2]; p, q
+    default to 0 and i1, i2 to 1, so every epilogue applies all four."""
+    f_folds = like.shape[0]
+    kvec = like.new_zeros((f_folds, 2, k))
+    cvec = like.new_zeros((f_folds, 2, c))
+    kvec[:, 1] = 1.0 if i1 is None else i1
+    cvec[:, 1] = 1.0 if i2 is None else i2
+    if p_vec is not None:
+        kvec[:, 0] = p_vec
+    if q_vec is not None:
+        cvec[:, 0] = q_vec
+    return kvec, cvec
+
+
+# --------------------------------------------------------------------------- #
+# Packed route (fused_downdate_df64_packed)                                   #
+# --------------------------------------------------------------------------- #
+
+
+class FoldOperands(NamedTuple):
+    """Factor-form operands of the packed kernel for a batch of folds.
+
+    ``total`` (K, C); ``u`` (F, L, K) the weighted, masked X rows times
+    r1; ``v`` (F, L, C) the unweighted ``[X | Y]`` rows times
+    ``[r1 | r2]``; ``kvec`` (F, 2, K) ``[p, i1]`` with p = sw mX r1;
+    ``cvec`` (F, 2, C) ``[q, i2]`` with q the means times r (zeroed per
+    side that is not centred). r is 1/std, or 1 where a side is unscaled.
+    """
+
+    total: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    kvec: torch.Tensor
+    cvec: torch.Tensor
+
+
+FoldOperands.PER_FOLD = ("u", "v", "kvec", "cvec")
+
+
+def prepare_fold_operands(
+    config: CVConfig,
+    state: FitState,
+    idx_batch,
+    mask_batch=None,
+    *,
+    return_XTX: bool = True,
+    return_XTY: bool = True,
+):
+    """``(FoldOperands, stats)`` for a batch of folds.
+
+    Gathers, downdated statistics, reciprocal stds and factor scaling run
+    here, once: sweeps build the operands for every fold and slice the
+    fold axis per chunk (:func:`slice_operands`). The math is the factor
+    form of the reference epilogue::
+
+        out = total (.) (r1 (x) r2) - sum_l (xv_l r1) (x) (m2_l r2)
+            - (sw mean1 r1) (x) (mean2 r2)
+    """
+    rows, mask = _rows_mask(config, state, idx_batch, mask_batch)
+    blocks, (X_mean, X_std, Y_mean, Y_std, sw) = _gather_and_stats(
+        config, state, rows, mask, return_XTX, return_XTY)
+    k = state.K
+    m = (state.M or 0) if return_XTY else 0
+    c = (k if return_XTX else 0) + m
+    f_folds = blocks.Xv_w.shape[0]
+    r1 = 1.0 / X_std if config.scale_X else None                # (F, 1, K)
+    r2y = 1.0 / Y_std if (return_XTY and config.scale_Y) else None
+    center_xtx = config.center_X
+    center_xty = config.center_X or config.center_Y
+    center = (return_XTX and center_xtx) or (return_XTY and center_xty)
+    scale = config.scale_X or (return_XTY and config.scale_Y)
+
+    def times(rows_, r):
+        return rows_ if r is None else rows_ * r
+
+    u = times(blocks.Xv_w, r1).contiguous()
+    v = _xy_concat(
+        times(blocks.Xv_u, r1) if return_XTX else None,
+        times(blocks.Yv_u, r2y) if return_XTY else None,
+    ).contiguous()
+    ones = u.new_ones((f_folds, 1))
+    i1 = i2 = p_vec = q_vec = None
+    if scale:
+        i1 = None if r1 is None else r1[:, 0]
+        i2 = _xy_concat(
+            (ones.expand(-1, k) if r1 is None else r1[:, 0])
+            if return_XTX else None,
+            (ones.expand(-1, m) if r2y is None else r2y[:, 0])
+            if return_XTY else None,
+        )
+    if center:
+        mX = X_mean[:, 0]
+        p_vec = times(sw.reshape(-1, 1) * mX, None if r1 is None else r1[:, 0])
+        qy = None
+        if return_XTY:
+            qy = (times(Y_mean[:, 0], None if r2y is None else r2y[:, 0])
+                  if center_xty else ones.new_zeros((f_folds, m)))
+        q_vec = _xy_concat(
+            (times(mX, None if r1 is None else r1[:, 0]) if center_xtx
+             else ones.new_zeros((f_folds, k))) if return_XTX else None,
+            qy,
+        )
+    kvec, cvec = _pack_kc_vectors(u, k, c, i1=i1, i2=i2, p_vec=p_vec,
+                                  q_vec=q_vec)
+    ops = FoldOperands(_total(state, return_XTX, return_XTY), u, v, kvec,
+                       cvec)
+    return ops, (X_mean, X_std, Y_mean, Y_std)
+
+
+def downdate_from_operands(ops: FoldOperands, *, impl: str = "auto",
+                           out=None) -> torch.Tensor:
+    """The packed downdate of prepared operands -> (F, K, C)."""
+    return _fd.fold_packed(ops.total, ops.u, ops.v, ops.kvec, ops.cvec,
+                           impl=impl, out=out)
+
+
+def slice_operands(ops, start: int, size: int):
+    """Fold-axis slice of :class:`FoldOperands` or :class:`OzakiSources`
+    (views: no copy)."""
+    return ops._replace(**{
+        name: getattr(ops, name)[start:start + size]
+        for name in ops.PER_FOLD if getattr(ops, name) is not None
+    })
+
+
+# --------------------------------------------------------------------------- #
+# v3 route (fused_ozaki_downdate_v3)                                          #
+# --------------------------------------------------------------------------- #
+
+
+class OzakiSources(NamedTuple):
+    """Operands of the v3 kernel.
+
+    Dataset-wide: ``total`` (K, C), ``xw``/``xu`` the (N, K) weighted and
+    unweighted X rows, ``yu`` the (N, M) Y rows (``None`` without the XTY
+    side), ``gx`` (2, K) ``[sum_X, sum_sq_X]`` (zeros where unused). Per
+    fold: ``rows`` (F, L) int64 and ``mask`` (F, L) or ``None``, ``sxv``
+    (F, K) exact column sums of the weighted, masked rows, ``yvec`` (F, 2,
+    C) whose Y columns hold the q part and the i2 part, ``scal`` (F, 3).
+    The JAX package's int8 dataset planes, their scales and the 32-row
+    padding have no counterpart: the kernel gathers float64 rows.
+    """
+
+    total: torch.Tensor
+    xw: torch.Tensor
+    xu: torch.Tensor
+    yu: Optional[torch.Tensor]
+    gx: torch.Tensor
+    rows: torch.Tensor
+    mask: Optional[torch.Tensor]
+    sxv: torch.Tensor
+    yvec: torch.Tensor
+    scal: torch.Tensor
+
+
+OzakiSources.PER_FOLD = ("rows", "mask", "sxv", "yvec", "scal")
+
+
+def prepare_ozaki_sources(
+    config: CVConfig,
+    state: FitState,
+    idx_batch,
+    mask_batch=None,
+    *,
+    return_XTX: bool = True,
+    return_XTY: bool = True,
+) -> OzakiSources:
+    """Build the v3 kernel's operands for the folds ``idx_batch`` (F, L).
+
+    The X-side column sums, the (M-wide) Y-side statistics and the O(F)
+    scalars are computed here, per fold; the kernel derives the X-side
+    squared sums, means and stds itself.
+    """
+    if not return_XTX:
+        raise ValueError("the v3 route requires return_XTX=True; check "
+                         "route_kernel before preparing sources")
+    if return_XTY and state.Y is None:
+        raise ValueError("Response variables `Y` are not provided.")
+    rows, mask = _rows_mask(config, state, idx_batch, mask_batch)
+    f_folds = rows.shape[0]
+    k = state.K
+    m = state.M if return_XTY else 0
+    c = k + m
+    weighted = state.weights is not None
+    with_y = return_XTY
+    xw = state.WX if weighted else state.X
+    center = config.center_X or (with_y and config.center_Y)
+    need_x_mean = center or config.scale_X
+    need_y_stats = with_y and (
+        config.center_X or config.center_Y or config.scale_Y
+    )
+
+    sxv = xw.new_zeros((f_folds, k))
+    gx = xw.new_zeros((2, k))
+    if need_x_mean:
+        # Per-fold row sums without an (F, L, K) gather. Fits v3's folds
+        # of at most a few hundred rows: per 910 folds of 10 rows 0.031 ms
+        # against 0.044 ms for gather and sum, but 16 ms against 0.7 ms for
+        # 3 folds of 33,334 rows (K=500, NVIDIA H100 80GB HBM3, 700 W).
+        sxv = torch.nn.functional.embedding_bag(
+            rows, xw, per_sample_weights=mask, mode="sum")
+        gx[0] = state.sum_X[0]
+    if config.scale_X:
+        gx[1] = state.sum_sq_X[0]
+
+    yvec = xw.new_zeros((f_folds, 2, c))
+    if need_y_stats:
+        _, _, Y_mean, Y_std, _ = _summed_stats(
+            config, state, rows, mask, return_X_mean=False,
+            return_X_std=False, return_Y_mean=True,
+            return_Y_std=config.scale_Y)
+        if config.center_X or config.center_Y:
+            yvec[:, 0, k:] = Y_mean[:, 0]
+        yvec[:, 1, k:] = 1.0 / Y_std[:, 0] if config.scale_Y else 1.0
+    elif with_y and config.scale_X:
+        yvec[:, 1, k:] = 1.0  # i2's Y part is 1 when only X is scaled
+
+    scal = (
+        _fold_scalar_stream(config, state, rows, mask)
+        if (need_x_mean or need_y_stats)
+        else xw.new_zeros((f_folds, 3))
+    )
+    return OzakiSources(
+        _total(state, True, return_XTY), xw.contiguous(),
+        state.X.contiguous(),
+        state.Y.contiguous() if return_XTY else None, gx, rows, mask, sxv,
+        yvec, scal,
+    )
+
+
+def ozaki_v3_from_sources(config: CVConfig, src: OzakiSources, *,
+                          return_XTY: bool, impl: str = "auto",
+                          out=None) -> torch.Tensor:
+    """Run the v3 downdate on (a slice of) prepared sources -> (F, K, C)."""
+    return _fd.fold_v3(
+        src.total, src.xw, src.xu, src.yu, src.rows, src.mask, src.gx,
+        src.sxv, src.yvec, src.scal,
+        center_xtx=config.center_X,
+        center_xty=config.center_X or config.center_Y,
+        scale_x=config.scale_X, scale_y=config.scale_Y, with_y=return_XTY,
+        resolution=config.resolution, impl=impl, out=out,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Large-fold routes (fused_ozaki_downdate_df64, fused_epilogue_df64)          #
+# --------------------------------------------------------------------------- #
+
+
+def _reference_vectors(config, state, stats5, like, return_XTX,
+                       return_XTY):
+    """Reference-form ``kvec`` = [p, i1] and ``cvec`` = [q, i2] of the
+    large-fold kernels: p = sw mX and q the means, unscaled; i1, i2 the
+    reciprocal stds (1 on an unscaled side)."""
+    X_mean, X_std, Y_mean, Y_std, sw = stats5
+    f_folds = like.shape[0]
+    k = state.K
+    m = (state.M or 0) if return_XTY else 0
+    c = (k if return_XTX else 0) + m
+    center_xtx = config.center_X
+    center_xty = config.center_X or config.center_Y
+    center = (return_XTX and center_xtx) or (return_XTY and center_xty)
+    scale = config.scale_X or (return_XTY and config.scale_Y)
+
+    ones = like.new_ones((f_folds, 1))
+    i1 = i2 = p_vec = q_vec = None
+    if scale:
+        r1 = 1.0 / X_std[:, 0] if config.scale_X else None
+        i1 = r1
+        i2 = _xy_concat(
+            (ones.expand(-1, k) if r1 is None else r1)
+            if return_XTX else None,
+            (1.0 / Y_std[:, 0] if config.scale_Y else ones.expand(-1, m))
+            if return_XTY else None,
+        )
+    if center:
+        mX = X_mean[:, 0]
+        p_vec = sw.reshape(-1, 1) * mX
+        q_vec = _xy_concat(
+            (mX if center_xtx else ones.new_zeros((f_folds, k)))
+            if return_XTX else None,
+            (Y_mean[:, 0] if center_xty else ones.new_zeros((f_folds, m)))
+            if return_XTY else None,
+        )
+    return _pack_kc_vectors(like, k, c, i1=i1, i2=i2, p_vec=p_vec,
+                            q_vec=q_vec)
+
+
+def _large_fold_path(config, state, rows, mask, *, return_XTX, return_XTY,
+                     impl="auto", out=None):
+    """``(out, stats)`` of large folds in the reference form.
+
+    ``(total - D - sw m1 (x) m2) (.) (r1 (x) r2)`` with ``D = Xv_w^T
+    [Xv_u | Yv_u]``: where the JAX large-fold path fuses (one square tile
+    of at most 512, at most 1024 rows, exact mode) the Ozaki-df64 kernel
+    port gathers the rows and forms D itself, and the statistics come from
+    :func:`_summed_stats`; otherwise D is a float64 ``torch.bmm`` of the
+    gathered blocks into ``out`` and the epilogue kernel rewrites it in
+    place. The JAX path's opt-in SYRK product and its column-blocked
+    product for very wide K (a TPU memory workaround) are not ported.
+    """
+    total = _total(state, return_XTX, return_XTY)
+    fused = _use_fused(config, state, return_XTX, return_XTY, rows.shape[1])
+    if fused:
+        stats5 = _summed_stats(config, state, rows, mask,
+                               **_stat_flags(config, return_XTX, return_XTY))
+    else:
+        blocks, stats5 = _gather_and_stats(config, state, rows, mask,
+                                           return_XTX, return_XTY)
+    kvec, cvec = _reference_vectors(config, state, stats5,
+                                    state.X.new_empty((rows.shape[0], 0)),
+                                    return_XTX, return_XTY)
+    if fused:
+        xw = state.X if state.weights is None else state.WX
+        out = _fd.fold_ozaki_df64(
+            total, xw, state.X, state.Y if return_XTY else None, rows, mask,
+            kvec, cvec, with_x=return_XTX, impl=impl, out=out)
+        return out, stats5[:4]
+    m2 = _xy_concat(blocks.Xv_u if return_XTX else None,
+                    blocks.Yv_u if return_XTY else None)
+    prod = torch.bmm(blocks.Xv_w.mT, m2, out=out)
+    return _fd.fold_epilogue(total, prod, kvec, cvec, impl=impl), stats5[:4]
+
+
+# --------------------------------------------------------------------------- #
+# The fold-batch engine                                                       #
+# --------------------------------------------------------------------------- #
+
+
+def _split(out, k: int, return_XTX: bool, return_XTY: bool):
+    if return_XTX and return_XTY:
+        return out[:, :, :k], out[:, :, k:]
+    return out
+
+
+def training_matrices_batched(
+    config: CVConfig,
+    state: FitState,
+    idx_batch,
+    mask_batch=None,
+    *,
+    return_XTX: bool = True,
+    return_XTY: bool = True,
+    impl: str = "auto",
+):
+    """Training matrices for an (F, L) batch of folds.
+
+    Returns ``(mats, (X_mean, X_std, Y_mean, Y_std))`` shaped like the
+    per-fold engine's batched result: ``mats`` is ``(XTX, XTY)`` of (F, K,
+    K) and (F, K, M) or the one requested matrix, statistics (F, 1, K) or
+    (F, 1, M) or ``None``. Float64 batches take the kernel route of
+    :func:`route_kernel`, which follows the JAX package's gates (its mesh
+    entry ``batched_matrices_from_blocks`` routes the same way; its
+    ``training_matrices_batched`` sends one-row and v3-sized folds to the
+    packed and Ozaki-df64 kernels instead, with the same result).
+    ``impl``: ``"auto"`` (the kernel on CUDA, the twin on the CPU),
+    ``"cuda"`` or ``"torch"`` (the twin). Float32 batches run the per-fold
+    engine on the CPU or with ``impl="torch"``. The JAX package's
+    ``pair_output`` and ``trim_output`` return double-float pairs and
+    padded tiles, which the port does not have, so they are not ported.
+    """
+    if impl not in _loocv.IMPLS:
+        raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
+    if not return_XTX and not return_XTY:
+        raise ValueError(
+            "At least one of `return_XTX` and `return_XTY` must be True."
+        )
+    if return_XTY and state.Y is None:
+        raise ValueError("Response variables `Y` are not provided.")
+    device = state.device
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors; the state is on "
+                         f"{device}.")
+    idx = np.asarray(idx_batch.cpu() if isinstance(idx_batch, torch.Tensor)
+                     else idx_batch)
+    if idx.ndim == 1:
+        idx = idx[:, None]
+    mask_np = None if mask_batch is None else np.asarray(mask_batch)
+    route = _route_or_plain(config, state, idx.shape[1], return_XTX,
+                            return_XTY, mask_np is not None,
+                            plain=device.type == "cpu" or impl == "torch")
+    if route is None:
+        return training_matrices(config, state, idx, mask_np,
+                                 return_XTX=return_XTX,
+                                 return_XTY=return_XTY)
+    flags = _stat_flags(config, return_XTX, return_XTY)
+    if route == "loocv":
+        # The LOOCV route checks its host rows itself.
+        src = prepare_loocv_sources(config, state, idx[:, 0],
+                                    return_XTX=return_XTX,
+                                    return_XTY=return_XTY)
+        out = loocv_from_sources(config, src, idx[:, 0],
+                                 return_XTY=return_XTY, impl=impl)
+        rows = torch.from_numpy(idx.astype(np.int64)).to(device)
+        stats = _summed_stats(config, state, rows, None, **flags)[:4]
+        return _split(out, state.K, return_XTX, return_XTY), stats
+    rows, mask = _rows_mask(config, state, idx, mask_np)
+    if route == "packed":
+        ops, stats = prepare_fold_operands(config, state, rows, mask,
+                                           return_XTX=return_XTX,
+                                           return_XTY=return_XTY)
+        out = downdate_from_operands(ops, impl=impl)
+    elif route == "v3":
+        src = prepare_ozaki_sources(config, state, rows, mask,
+                                    return_XTX=return_XTX,
+                                    return_XTY=return_XTY)
+        out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
+                                    impl=impl)
+        stats = _summed_stats(config, state, rows, mask, **flags)[:4]
+    else:
+        out, stats = _large_fold_path(config, state, rows, mask,
+                                      return_XTX=return_XTX,
+                                      return_XTY=return_XTY, impl=impl)
+    return _split(out, state.K, return_XTX, return_XTY), stats

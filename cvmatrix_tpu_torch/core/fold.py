@@ -102,9 +102,12 @@ def gather_val_blocks(
     return FoldBlocks(Xv_w, Xv_u, Yv_w, Yv_u, w_val, mask)
 
 
-def _train_weight_scalars(state: FitState, blocks: FoldBlocks):
+def _train_weight_scalars(state: FitState, blocks: FoldBlocks, *,
+                          check: bool = True):
     """Training-set weight sum and nonzero count, shaped to broadcast
-    against ``(..., 1, K)`` row vectors."""
+    against ``(..., 1, K)`` row vectors. ``check=False`` skips the
+    device-syncing validity raise (the kernel routes' rule, as the JAX
+    package's traced path)."""
     if blocks.w_val is None:
         if blocks.mask is None:
             sum_w_val = blocks.Xv_w.shape[-2]
@@ -118,7 +121,7 @@ def _train_weight_scalars(state: FitState, blocks: FoldBlocks):
         num_nonzero_w_train = state.num_nonzero_w - (
             blocks.w_val != 0
         ).sum(dim=(-2, -1), keepdim=True)
-    if bool((num_nonzero_w_train == 0).any()):
+    if check and bool((num_nonzero_w_train == 0).any()):
         raise ValueError(
             "The number of non-zero weights in the training set must be "
             "greater than zero."
@@ -126,8 +129,9 @@ def _train_weight_scalars(state: FitState, blocks: FoldBlocks):
     return sum_w_train, num_nonzero_w_train
 
 
-def _std_divisor(config: CVConfig, sum_w_train, num_nonzero_w_train):
-    if bool((num_nonzero_w_train <= config.ddof).any()):
+def _std_divisor(config: CVConfig, sum_w_train, num_nonzero_w_train, *,
+                 check: bool = True):
+    if check and bool((num_nonzero_w_train <= config.ddof).any()):
         raise ValueError(
             "The number of non-zero weights in the training set must be "
             "greater than `ddof`."
@@ -156,28 +160,48 @@ def _compute_training_stats(
     return_X_std: bool,
     return_Y_mean: bool,
     return_Y_std: bool,
+    check: bool = True,
+    val_sums=None,
 ):
     """Downdated training means/stds: ``(X_mean, X_std, Y_mean, Y_std,
-    sum_w_train)`` with ``None`` for statistics not requested."""
+    sum_w_train)`` with ``None`` for statistics not requested.
+
+    ``val_sums``, if given, is ``(sum_X_val, sum_sq_X_val, sum_Y_val,
+    sum_sq_Y_val)``, the validation rows' sums already reduced to (..., 1,
+    width) (``None`` where unused); the blocks then only supply the
+    weights, the mask and the fold size.
+    """
     if not (return_X_mean or return_X_std or return_Y_mean or return_Y_std):
         return None, None, None, None, None
-    sum_w_train, num_nonzero_w_train = _train_weight_scalars(state, blocks)
+    if val_sums is None:
+        val_sums = (
+            blocks.Xv_w.sum(dim=-2, keepdim=True)
+            if (return_X_mean or return_X_std) else None,
+            (blocks.Xv_w * blocks.Xv_u).sum(dim=-2, keepdim=True)
+            if return_X_std else None,
+            blocks.Yv_w.sum(dim=-2, keepdim=True)
+            if (return_Y_mean or return_Y_std) else None,
+            (blocks.Yv_w * blocks.Yv_u).sum(dim=-2, keepdim=True)
+            if return_Y_std else None,
+        )
+    sum_X_val, sum_sq_X_val, sum_Y_val, sum_sq_Y_val = val_sums
+    sum_w_train, num_nonzero_w_train = _train_weight_scalars(state, blocks,
+                                                             check=check)
     X_mean = X_std = Y_mean = Y_std = None
     sum_X_train = sum_Y_train = None
     if return_X_mean or return_X_std:
-        sum_X_train = state.sum_X - blocks.Xv_w.sum(dim=-2, keepdim=True)
+        sum_X_train = state.sum_X - sum_X_val
         X_mean = sum_X_train / sum_w_train
     if return_Y_mean or return_Y_std:
-        sum_Y_train = state.sum_Y - blocks.Yv_w.sum(dim=-2, keepdim=True)
+        sum_Y_train = state.sum_Y - sum_Y_val
         Y_mean = sum_Y_train / sum_w_train
     if return_X_std or return_Y_std:
-        divisor = _std_divisor(config, sum_w_train, num_nonzero_w_train)
+        divisor = _std_divisor(config, sum_w_train, num_nonzero_w_train,
+                               check=check)
     if return_X_std:
-        sum_sq_X_val = (blocks.Xv_w * blocks.Xv_u).sum(dim=-2, keepdim=True)
         X_std = _train_std(config, state.sum_sq_X - sum_sq_X_val, X_mean,
                            sum_X_train, sum_w_train, divisor)
     if return_Y_std:
-        sum_sq_Y_val = (blocks.Yv_w * blocks.Yv_u).sum(dim=-2, keepdim=True)
         Y_std = _train_std(config, state.sum_sq_Y - sum_sq_Y_val, Y_mean,
                            sum_Y_train, sum_w_train, divisor)
     return (

@@ -1,0 +1,322 @@
+// K-fold downdates in float64 for Hopper (sm_90a).
+//
+// Replaces three TPU kernels of cvmatrix_tpu/ops/kernels.py, all of which
+// compute, per fold f of L validation rows, the product
+//
+//   D[f] = Xv_w[f]^T [Xv_u[f] | Yv_u[f]]                          (K, C)
+//
+// and then an epilogue on the fold's (K, C) output:
+//
+//   cvm_fold_packed_f64       <- fused_downdate_df64_packed (factor form)
+//       out = total (.) (i1 (x) i2) - (D + p (x) q),  D = sum_l u_l (x) v_l
+//       over the prepared factor-scaled streams u (F, L, K), v (F, L, C).
+//   cvm_fold_ozaki_df64_f64   <- fused_ozaki_downdate_df64 (reference form)
+//       out = (total - (D + p (x) q)) (.) (i1 (x) i2)
+//       rows gathered by index: Xv_w = xw[rows] * mask, [xu | yu][rows].
+//   cvm_fold_v3_f64           <- fused_ozaki_downdate_v3
+//       the reference form above, after a vector phase that derives the
+//       fold's X-side vectors as the TPU kernel does (see below).
+//
+// kvec (F, 2, K) holds [p, i1] and cvec (F, 2, C) holds [q, i2]; p, q are
+// zero without centring and i1, i2 one without scaling, so every epilogue
+// applies all four and the tile kernel needs no flags. The TPU kernels
+// carry float64 as f32 pairs and form D from int8 mantissa slices on the
+// MXU because the TPU has no float64; the H100 has, so D is accumulated
+// here with FP64 FMA on the unpadded shape and each output is written once
+// with row stride C.
+//
+// What bounds it: per fold the product costs 2 L K C flops and the output
+// K C * 8 bytes of writes, so folds of a few rows (the packed route, the
+// v3 route at L = 10) are bound by device-memory writes and folds of
+// hundreds of rows by FP64 throughput. The tile kernel covers both: one
+// block of 256 threads per (fold, 64 x 64 output tile), each thread holding
+// a 4 x 4 block of the tile in registers; row blocks of up to 16 rows of
+// both operands are staged in shared memory, so each staged value feeds 4
+// FMAs from registers; the epilogue reads total (2 MB at K=500, M=10,
+// resident in L2) and stores with an evict-first hint. Two choices measured
+// on the card: blocks are numbered tile-major within a fold, so blocks that
+// run together write neighbouring pieces of the same rows (rows of C = 510
+// doubles are not 128-byte aligned, and a fold-major order left partial
+// sectors to be evicted apart), and registers are capped at 64 for four
+// blocks per SM (a few bytes spill); together they cut a chunk's time by
+// 27-37% at L = 4-1,000 (K=500, M=10, H100 80GB HBM3 at 700 W). Edge tiles
+// (C = 510 is no multiple of 64) are guarded on load and store.
+//
+// v3's vector phase (grid F) forms, per fold and X column j, the weighted
+// squared sum sum_l mask xw xu of the gathered rows (the X-block diagonal of
+// D, which the TPU kernel reads off its product), then the downdated mean
+// (g_sum - sxv) / sw, the clamped reciprocal std, p = sw mX, q = [mX | the
+// Y part of yvec], i1 = r1 and i2 = [r1 | the Y part of yvec], into kvec
+// and cvec scratch that the tile phase then reads.
+//
+// Rows are int64 and range-checked on the host before any launch.
+// Plain C interface, bound with ctypes (cvmatrix_tpu_torch/ops/
+// fold_downdate.py); every entry launches on the caller's stream and
+// returns the cudaError_t of its launches.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;       // output tile edge (K and C)
+constexpr int kStage = 16;      // rows per shared-memory stage
+constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kBlocksPerSM = 4;  // caps registers at 64 for occupancy
+constexpr int kVecThreads = 256;
+
+constexpr int kCenterXTX = 1;
+constexpr int kCenterXTY = 2;
+constexpr int kScaleX = 4;
+constexpr int kScaleY = 8;
+constexpr int kWithY = 16;
+
+struct TileArgs {
+  const double* total;  // (K, C)
+  const double* a;      // packed: u (F, L, K);  gather: xw (N, K)
+  const double* b;      // packed: v (F, L, C);  gather: xu (N, K) or null
+  const double* yb;     // gather: yu (N, M) or null
+  const int64_t* rows;  // gather: (F, L)
+  const double* mask;   // gather: (F, L) or null
+  const double* kvec;   // (F, 2, K): [p, i1]
+  const double* cvec;   // (F, 2, C): [q, i2]
+  double* out;          // (F, K, C)
+  int64_t L, K, C, KX, M;
+};
+
+// Block b writes tile t = b % (kt * ct) of fold f = b / (kt * ct), tiles in
+// row-major order: out[f][k0 .. +64][c0 .. +64]. Neighbouring blocks, which
+// run at nearly the same time, so write neighbouring parts of the same rows.
+template <bool kGather>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
+  __shared__ double sa[kStage][kTile];
+  __shared__ double sb[kStage][kTile];
+  __shared__ int64_t srow[kStage];
+  __shared__ double smask[kStage];
+
+  const int64_t f = blockIdx.x / n_tiles;
+  const int64_t t = blockIdx.x % n_tiles;
+  const int64_t k0 = (t / n_ct) * kTile;
+  const int64_t c0 = (t % n_ct) * kTile;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int64_t L = p.L, K = p.K, C = p.C;
+
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+
+  for (int64_t l0 = 0; l0 < L; l0 += kStage) {
+    const int nl = static_cast<int>(L - l0 < kStage ? L - l0 : kStage);
+    if (kGather) {
+      if (threadIdx.x < kStage) {
+        const int li = threadIdx.x;
+        const int64_t fl = f * L + l0 + li;
+        srow[li] = li < nl ? p.rows[fl] : 0;
+        smask[li] = li < nl ? (p.mask ? p.mask[fl] : 1.0) : 0.0;
+      }
+      __syncthreads();
+    }
+    // Only the stage's live rows are staged: the FMA loop reads no others.
+    for (int e = threadIdx.x; e < nl * kTile; e += kThreads) {
+      const int li = e / kTile;
+      const int j = e % kTile;
+      const int64_t ka = k0 + j;
+      const int64_t cb = c0 + j;
+      double va = 0.0;
+      double vb = 0.0;
+      if (kGather) {
+        const int64_t r = srow[li];
+        if (ka < K) va = __ldg(p.a + r * K + ka) * smask[li];
+        if (cb < C) {
+          vb = cb < p.KX ? __ldg(p.b + r * K + cb)
+                         : __ldg(p.yb + r * p.M + (cb - p.KX));
+        }
+      } else {
+        const int64_t fl = f * L + l0 + li;
+        if (ka < K) va = __ldg(p.a + fl * K + ka);
+        if (cb < C) vb = __ldg(p.b + fl * C + cb);
+      }
+      sa[li][j] = va;
+      sb[li][j] = vb;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int li = 0; li < nl; ++li) {
+      double av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = sa[li][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = sb[li][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const double* kv = p.kvec + 2 * K * f;
+  const double* cv = p.cvec + 2 * C * f;
+  double* of = p.out + K * C * f;
+  double qc[4], i2c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t c = c0 + tx + 16 * j;
+    qc[j] = c < C ? __ldg(cv + c) : 0.0;
+    i2c[j] = c < C ? __ldg(cv + C + c) : 0.0;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t k = k0 + ty + 16 * i;
+    if (k >= K) continue;
+    const double pk = __ldg(kv + k);
+    const double i1 = __ldg(kv + K + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t c = c0 + tx + 16 * j;
+      if (c >= C) continue;
+      const double d = fma(pk, qc[j], acc[i][j]);
+      const double t = __ldg(p.total + k * C + c);
+      const double val =
+          kGather ? (t - d) * i1 * i2c[j] : t * (i1 * i2c[j]) - d;
+      __stcs(of + k * C + c, val);
+    }
+  }
+}
+
+struct V3Args {
+  const double* xw;     // (N, K)
+  const double* xu;     // (N, K)
+  const int64_t* rows;  // (F, L)
+  const double* mask;   // (F, L) or null
+  const double* gx;     // (2, K): [sum_X, sum_sq_X]
+  const double* sxv;    // (F, K): column sums of the fold's weighted rows
+  const double* yvec;   // (F, 2, C): Y columns hold [q part, i2 part]
+  const double* scal;   // (F, 3): [sw, 1/sw, 1/divisor]
+  double* kvec;         // (F, 2, K) out
+  double* cvec;         // (F, 2, C) out
+  int64_t L, K, C;
+  int flags;
+  double resolution;
+};
+
+// v3 vector phase: block f writes kvec[f] and cvec[f].
+__global__ void v3_vectors_kernel(const V3Args p) {
+  const int64_t f = blockIdx.x;
+  const int64_t L = p.L, K = p.K, C = p.C;
+  const double sw = p.scal[3 * f];
+  const double rsw = p.scal[3 * f + 1];
+  const double rdv = p.scal[3 * f + 2];
+  const bool center_xtx = p.flags & kCenterXTX;
+  const bool with_y = p.flags & kWithY;
+  const bool center_xty = with_y && (p.flags & kCenterXTY);
+  const bool scale_x = p.flags & kScaleX;
+  const bool scale = scale_x || (with_y && (p.flags & kScaleY));
+  const bool center = center_xtx || center_xty;
+  const int64_t* rows = p.rows + f * L;
+  const double* mask = p.mask ? p.mask + f * L : nullptr;
+  double* kv = p.kvec + 2 * K * f;
+  double* cv = p.cvec + 2 * C * f;
+  const double* yv = p.yvec + 2 * C * f;
+
+  for (int64_t j = threadIdx.x; j < C; j += blockDim.x) {
+    if (j < K) {
+      double m = 0.0;
+      double r = 1.0;
+      if (center || scale_x) {
+        const double st = p.gx[j] - p.sxv[f * K + j];
+        m = st * rsw;
+        if (scale_x) {
+          double sq = 0.0;
+          for (int64_t l = 0; l < L; ++l) {
+            const int64_t row = rows[l];
+            const double w = mask ? mask[l] : 1.0;
+            sq = fma(__ldg(p.xw + row * K + j) * w, __ldg(p.xu + row * K + j),
+                     sq);
+          }
+          const double ss = p.gx[K + j] - sq;
+          const double var = (-2.0 * m * st + sw * (m * m) + ss) * rdv;
+          // NaN propagates, as in torch.clamp and the JAX kernel.
+          const double sd = sqrt(var < 0.0 ? 0.0 : var);
+          r = sd <= p.resolution ? 1.0 : 1.0 / sd;
+        }
+      }
+      kv[j] = center ? sw * m : 0.0;
+      kv[K + j] = r;
+      cv[j] = center_xtx ? m : 0.0;
+      cv[C + j] = r;
+    } else {
+      cv[j] = center_xty ? yv[j] : 0.0;
+      cv[C + j] = scale ? yv[C + j] : 1.0;
+    }
+  }
+}
+
+template <bool kGather>
+int launch_tile(const TileArgs& a, int64_t F, int device, void* stream) {
+  if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_ct = (a.C + kTile - 1) / kTile;
+  const int64_t n_tiles = n_ct * ((a.K + kTile - 1) / kTile);
+  if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  fold_tile_kernel<kGather><<<static_cast<unsigned>(F * n_tiles), kThreads,
+                              0, static_cast<cudaStream_t>(stream)>>>(
+      a, n_ct, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Factor-form downdate of the prepared streams (port of
+// fused_downdate_df64_packed). All pointers are device pointers.
+extern "C" int cvm_fold_packed_f64(
+    const double* total, const double* u, const double* v,
+    const double* kvec, const double* cvec, double* out, int64_t F,
+    int64_t L, int64_t K, int64_t C, int device, void* stream) {
+  TileArgs a{total, u, v, nullptr, nullptr, nullptr, kvec, cvec, out,
+             L, K, C, 0, 0};
+  return launch_tile<false>(a, F, device, stream);
+}
+
+// Gathered product + reference-form epilogue (port of
+// fused_ozaki_downdate_df64). The product's right side is [xu | yu] with
+// KX (K or 0) X columns and M Y columns; xu may be null when KX is 0, yu
+// when M is 0; mask may be null.
+extern "C" int cvm_fold_ozaki_df64_f64(
+    const double* total, const double* xw, const double* xu,
+    const double* yu, const int64_t* rows, const double* mask,
+    const double* kvec, const double* cvec, double* out, int64_t F,
+    int64_t L, int64_t K, int64_t KX, int64_t M, int device, void* stream) {
+  TileArgs a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
+             L, K, KX + M, KX, M};
+  return launch_tile<true>(a, F, device, stream);
+}
+
+// v3 (port of fused_ozaki_downdate_v3): the vector phase into the
+// caller's kvec (F, 2, K) and cvec (F, 2, K + M) scratch, then the
+// gathered tile phase. yu may be null when M is 0, mask may be null.
+extern "C" int cvm_fold_v3_f64(
+    const double* total, const double* xw, const double* xu,
+    const double* yu, const int64_t* rows, const double* mask,
+    const double* gx, const double* sxv, const double* yvec,
+    const double* scal, double* kvec, double* cvec, double* out, int64_t F,
+    int64_t L, int64_t K, int64_t M, int flags, double resolution,
+    int device, void* stream) {
+  if (F <= 0 || K <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t C = K + M;
+  V3Args v{xw, xu, rows, mask, gx, sxv, yvec, scal, kvec, cvec,
+           L, K, C, flags, resolution};
+  v3_vectors_kernel<<<static_cast<unsigned>(F), kVecThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(v);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TileArgs a{total, xw, xu, yu, rows, mask, kvec, cvec, out, L, K, C, K, M};
+  return launch_tile<true>(a, F, device, stream);
+}

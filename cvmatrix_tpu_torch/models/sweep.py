@@ -7,12 +7,16 @@ scalar. The chunk size follows the JAX package's rule (a 4 GB budget, at
 most 2000 folds, chunks equalised and the last fold repeated to fill the
 last chunk).
 
-One-row folds without a mask whose ``[X | Y]`` fits one tile run the LOOCV
-route (:func:`~cvmatrix_tpu_torch.core.batch.loocv_from_sources`): the
-hand-written kernel on CUDA, its plain twin on the CPU or with
-``impl="torch"``. Every other fold batch runs the per-fold engine
-(:mod:`~cvmatrix_tpu_torch.core.fold`) on the CPU or with ``impl="torch"``;
-on CUDA its kernels are not ported yet and it raises NotImplementedError.
+Every float64 fold batch takes the kernel route that
+:func:`~cvmatrix_tpu_torch.core.batch.route_kernel` picks by the JAX
+package's gates: the hand-written kernel on CUDA, its plain twin on the CPU
+or with ``impl="torch"``. The LOOCV, packed and v3 routes build their
+operands once for all folds and slice them per chunk; the large-fold
+routes gather and reduce chunk by chunk (hoisting L-row blocks for every
+fold would hold the whole dataset twice). Float32 fold batches other than
+LOOCV run the per-fold engine (:mod:`~cvmatrix_tpu_torch.core.fold`) on the
+CPU or with ``impl="torch"``; on CUDA their kernels are not ported yet and
+they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,10 +28,16 @@ import torch
 
 from ..config import CVConfig
 from ..core.batch import (
+    _large_fold_path,
+    _route_or_plain,
+    _rows_mask,
+    downdate_from_operands,
     loocv_from_sources,
-    loocv_single_tile_ok,
+    ozaki_v3_from_sources,
+    prepare_fold_operands,
     prepare_loocv_sources,
-    unported_kernel,
+    prepare_ozaki_sources,
+    slice_operands,
 )
 from ..core.fit import fit
 from ..core.fold import training_matrices
@@ -102,38 +112,61 @@ def materialize_sweep(
                             batch_size, hbm_budget_bytes)
     idx, mask = _pad_folds(idx, mask, bs)
 
-    if (mask is None and idx.shape[1] == 1
-            and loocv_single_tile_ok(config, state, return_XTX, return_XTY)):
+    route = _route_or_plain(config, state, idx.shape[1], return_XTX,
+                            return_XTY, mask is not None,
+                            plain=device.type == "cpu" or impl == "torch")
+    if route is None:
+        out = None
+        for c in range(n_chunks):
+            sl = slice(c * bs, (c + 1) * bs)
+            out, _ = training_matrices(
+                config, state, idx[sl], None if mask is None else mask[sl],
+                return_XTX=return_XTX, return_XTY=return_XTY,
+            )
+        mats = out if isinstance(out, tuple) else (out,)
+        return sum(a[0, 0, 0] for a in mats)
+
+    buf = torch.empty((bs, k, (k if return_XTX else 0) + m),
+                      dtype=config.torch_dtype, device=device)
+    if route == "loocv":
         rows = check_rows(idx[:, 0], state.N)
         if device.type == "cuda":
             rows = rows.pin_memory()  # asynchronous per-chunk copies
         src = prepare_loocv_sources(config, state, rows,
                                     return_XTX=return_XTX,
                                     return_XTY=return_XTY)
-        buf = torch.empty((bs, k, k + m), dtype=config.torch_dtype,
-                          device=device)
         for c in range(n_chunks):
             sl = slice(c * bs, (c + 1) * bs)
             loocv_from_sources(config, src, rows[sl], src.scal[sl],
                                return_XTY=return_XTY, impl=impl, out=buf)
-        return buf[0, 0, 0] + buf[0, 0, k] if return_XTY else buf[0, 0, 0]
-
-    if device.type == "cuda" and impl != "torch":
-        raise NotImplementedError(
-            f"the CUDA route for these folds (L={idx.shape[1]}"
-            f"{', masked' if mask is not None else ''}, K={k}, M={m}) needs "
-            f"{unported_kernel(state, idx.shape[1], return_XTY)}, which is not "
-            "ported yet; pass impl='torch' for the plain engine."
-        )
-    out = None
-    for c in range(n_chunks):
-        sl = slice(c * bs, (c + 1) * bs)
-        out, _ = training_matrices(
-            config, state, idx[sl], None if mask is None else mask[sl],
-            return_XTX=return_XTX, return_XTY=return_XTY,
-        )
-    mats = out if isinstance(out, tuple) else (out,)
-    return sum(a[0, 0, 0] for a in mats)
+    else:
+        # Checked on the host once, then moved whole to the device.
+        rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
+        if route == "packed":
+            ops, _ = prepare_fold_operands(config, state, rows, mask_d,
+                                           return_XTX=return_XTX,
+                                           return_XTY=return_XTY)
+            for c in range(n_chunks):
+                downdate_from_operands(slice_operands(ops, c * bs, bs),
+                                       impl=impl, out=buf)
+        elif route == "v3":
+            src = prepare_ozaki_sources(config, state, rows, mask_d,
+                                        return_XTX=return_XTX,
+                                        return_XTY=return_XTY)
+            for c in range(n_chunks):
+                ozaki_v3_from_sources(config, slice_operands(src, c * bs, bs),
+                                      return_XTY=return_XTY, impl=impl,
+                                      out=buf)
+        else:
+            for c in range(n_chunks):
+                sl = slice(c * bs, (c + 1) * bs)
+                _large_fold_path(config, state, rows[sl],
+                                 None if mask_d is None else mask_d[sl],
+                                 return_XTX=return_XTX,
+                                 return_XTY=return_XTY, impl=impl, out=buf)
+    if return_XTX and return_XTY:
+        return buf[0, 0, 0] + buf[0, 0, k]
+    return buf[0, 0, 0]
 
 
 def materialize_cv(

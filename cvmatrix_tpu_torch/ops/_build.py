@@ -63,34 +63,38 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on failure.
 
     The compiler's ``-Xptxas -v`` report (registers, spills) is kept in
-    ``BUILD_LOG[name]`` for the build that ran in this process.
+    ``BUILD_LOG[name]`` for the build that ran in this process. No lock is
+    held while ``nvcc`` runs, so calls from several threads build several
+    libraries at once; each build writes its own temporary file and moves
+    it into place atomically.
     """
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
-        src = os.path.join(_CSRC, f"{name}.cu")
-        nvcc = find_nvcc()
-        with open(src, "rb") as f:
-            key = hashlib.sha256(
-                f.read() + repr(NVCC_FLAGS).encode()
-                + _nvcc_version(nvcc).encode()
-            ).hexdigest()[:16]
-        so_path = os.path.join(build_dir(), f"{name}_{key}.so")
-        if not os.path.exists(so_path):
-            tmp = f"{so_path}.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, src, "-o", tmp]
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True,
-                                     timeout=600)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {src} (exit {res.returncode}):\n"
-                        f"{res.stderr}"
-                    )
-                BUILD_LOG[name] = res.stderr
-                os.replace(tmp, so_path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        _LIBS[name] = ctypes.CDLL(so_path)
-        return _LIBS[name]
+    src = os.path.join(_CSRC, f"{name}.cu")
+    nvcc = find_nvcc()
+    with open(src, "rb") as f:
+        key = hashlib.sha256(
+            f.read() + repr(NVCC_FLAGS).encode()
+            + _nvcc_version(nvcc).encode()
+        ).hexdigest()[:16]
+    so_path = os.path.join(build_dir(), f"{name}_{key}.so")
+    if not os.path.exists(so_path):
+        tmp = f"{so_path}.tmp{os.getpid()}_{threading.get_ident()}"
+        cmd = [nvcc, *NVCC_FLAGS, src, "-o", tmp]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=600)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {src} (exit {res.returncode}):\n"
+                    f"{res.stderr}"
+                )
+            BUILD_LOG[name] = res.stderr
+            os.replace(tmp, so_path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(so_path)
+    with _LOCK:
+        return _LIBS.setdefault(name, lib)

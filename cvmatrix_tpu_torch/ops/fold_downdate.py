@@ -1,0 +1,384 @@
+"""The K-fold downdates: plain PyTorch twins, CUDA kernel wrappers, dispatch.
+
+Counterpart of the JAX package's four float64 fold-batch kernels
+(``cvmatrix_tpu/ops/kernels.py``), each computing, per fold of L validation
+rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
+
+- :func:`fold_packed` ports ``fused_downdate_df64_packed`` (factor form,
+  from the prepared streams ``u`` (F, L, K) and ``v`` (F, L, C))::
+
+      out = total (.) (i1 (x) i2) - (sum_l u_l (x) v_l + p (x) q)
+
+- :func:`fold_ozaki_df64` ports ``fused_ozaki_downdate_df64`` and
+  :func:`fold_v3` ports ``fused_ozaki_downdate_v3`` (reference form, rows
+  gathered by index from the dataset, masked rows zeroed on the weighted
+  side)::
+
+      out = (total - D - p (x) q) (.) (i1 (x) i2)
+
+  The v3 kernel derives its per-fold X-side vectors itself (the weighted
+  squared sums of the gathered rows, the downdated mean, the clamped
+  reciprocal std), from the column sums ``sxv``, the global sums ``gx``,
+  the Y-side vectors ``yvec`` and the scalars ``scal``;
+  :func:`fold_ozaki_df64` takes ``kvec``/``cvec`` precomputed.
+- :func:`fold_epilogue` ports ``fused_epilogue_df64``: the reference-form
+  epilogue in place over a product computed outside the kernel.
+
+``kvec`` is (F, 2, K) holding ``[p, i1]``, ``cvec`` (F, 2, C) holding
+``[q, i2]``: p and q are zero without centring, i1 and i2 one without
+scaling, so every epilogue applies all four. The TPU kernels' double-float
+pairs, int8 slices and 128-padding are not carried over: the H100 computes
+in float64 on the unpadded (K, C) shape. Kernels: ``csrc/fold_downdate.cu``
+and ``csrc/fold_epilogue.cu``.
+
+Every wrapper dispatches like :func:`cvmatrix_tpu_torch.ops.loocv.fused_loocv`:
+``impl="auto"`` launches the kernel for CUDA tensors and runs the twin for
+CPU tensors; ``"cuda"`` always launches; ``"torch"`` always runs the twin.
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from .loocv import _FLAG_BITS, IMPLS, _ptr, check_rows
+
+__all__ = [
+    "packed_reference",
+    "ozaki_df64_reference",
+    "v3_vectors",
+    "v3_reference",
+    "epilogue_reference",
+    "fold_packed",
+    "fold_ozaki_df64",
+    "fold_v3",
+    "fold_epilogue",
+    "device_rows",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+
+# --------------------------------------------------------------------------- #
+# Plain twins                                                                 #
+# --------------------------------------------------------------------------- #
+
+
+def _pq(kvec, cvec):
+    return kvec[:, 0, :, None] * cvec[:, 0, None, :]
+
+
+def _i12(kvec, cvec):
+    return kvec[:, 1, :, None] * cvec[:, 1, None, :]
+
+
+def packed_reference(total, u, v, kvec, cvec) -> torch.Tensor:
+    """Factor form: ``total (.) (i1 (x) i2) - (sum_l u_l (x) v_l + p (x) q)``."""
+    d = torch.einsum("flk,flc->fkc", u, v)
+    return total * _i12(kvec, cvec) - (d + _pq(kvec, cvec))
+
+
+def epilogue_reference(total, prod, kvec, cvec) -> torch.Tensor:
+    """Reference form: ``(total - prod - p (x) q) (.) (i1 (x) i2)``."""
+    return (total - (prod + _pq(kvec, cvec))) * _i12(kvec, cvec)
+
+
+def _gather(xw, xu, yu, rows, mask, with_x: bool):
+    """``(Xv_w, [Xv_u | Yv_u])`` of fold rows (F, L); the mask zeroes the
+    weighted side only."""
+    a = xw[rows]
+    if mask is not None:
+        a = a * mask[..., None]
+    parts = ([xu[rows]] if with_x else []) + ([yu[rows]] if yu is not None
+                                              else [])
+    return a, (torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0])
+
+
+def ozaki_df64_reference(total, xw, xu, yu, rows, mask, kvec, cvec, *,
+                         with_x: bool = True) -> torch.Tensor:
+    """Gather, ``bmm``, reference-form epilogue. ``with_x=False`` drops the
+    X columns from the product's right side (the XTY-only batch)."""
+    a, b = _gather(xw, xu, yu, rows, mask, with_x)
+    return epilogue_reference(total, torch.bmm(a.mT, b), kvec, cvec)
+
+
+def v3_vectors(xw, xu, rows, mask, gx, sxv, yvec, scal, *, c: int,
+               center_xtx: bool, center_xty: bool, scale_x: bool,
+               scale_y: bool, with_y: bool, resolution: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The v3 kernel's per-fold ``kvec`` (F, 2, K) and ``cvec`` (F, 2, C).
+
+    X side from the fold's rows: the downdated mean from the column sums
+    ``sxv`` and the clamped reciprocal std from the weighted squared sums
+    ``sum_l mask xw xu`` (the X-block diagonal of the product, which the
+    TPU kernel reads off its product). Y side from ``yvec`` (F, 2, C):
+    its Y columns hold the q part and the i2 part.
+    """
+    center_xty = with_y and center_xty
+    center = center_xtx or center_xty
+    scale = scale_x or (with_y and scale_y)
+    sw, rsw, rdv = scal[:, 0:1], scal[:, 1:2], scal[:, 2:3]
+    f_folds, k = sxv.shape
+    mx = torch.zeros_like(sxv)
+    r1 = torch.ones_like(sxv)
+    if center or scale_x:
+        st = gx[0] - sxv
+        mx = st * rsw
+        if scale_x:
+            a, b = _gather(xw, xu, None, rows, mask, True)
+            ss = gx[1] - (a * b).sum(dim=1)
+            var = (-2.0 * mx * st + sw * (mx * mx) + ss) * rdv
+            sd = torch.sqrt(torch.clamp(var, min=0.0))
+            r1 = torch.where(sd <= resolution, torch.ones_like(sd), 1.0 / sd)
+    zeros = torch.zeros_like(sxv)
+    p = sw * mx if center else zeros
+    q = torch.zeros((f_folds, c), dtype=sxv.dtype, device=sxv.device)
+    i2 = torch.ones_like(q)
+    if center_xtx:
+        q[:, :k] = mx
+    if center_xty:
+        q[:, k:] = yvec[:, 0, k:]
+    if scale:
+        i2[:, :k] = r1
+        i2[:, k:] = yvec[:, 1, k:]
+    return torch.stack([p, r1], dim=1), torch.stack([q, i2], dim=1)
+
+
+def v3_reference(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal,
+                 **flags) -> torch.Tensor:
+    """Plain twin of the v3 kernel: its vectors, then gather, ``bmm`` and
+    the reference-form epilogue."""
+    kvec, cvec = v3_vectors(xw, xu, rows, mask, gx, sxv, yvec, scal,
+                            c=total.shape[1], **flags)
+    return ozaki_df64_reference(total, xw, xu, yu, rows, mask, kvec, cvec)
+
+
+# --------------------------------------------------------------------------- #
+# Dispatch and launches                                                       #
+# --------------------------------------------------------------------------- #
+
+
+def _use_kernel(name: str, impl: str, device: torch.device) -> bool:
+    """True to launch the kernel, False to run the twin (see module doc)."""
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"impl='cuda' needs CUDA tensors; the operands are on {device}."
+        )
+    if impl == "torch" or (impl == "auto" and device.type == "cpu"):
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for device {device}.")
+    return True
+
+
+def _check(name: str, device, tensors, dtype=torch.float64) -> None:
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name} operands must be {dtype} on {device}; "
+                             f"got {t.dtype} on {t.device}.")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous.")
+
+
+def _shape(name: str, t, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}.")
+
+
+def _out(name: str, out, shape, device) -> torch.Tensor:
+    if out is None:
+        return torch.empty(shape, dtype=torch.float64, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float64
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous float64 "
+                         f"{tuple(shape)} tensor on {device}.")
+    return out
+
+
+def device_rows(rows, n: int, device) -> torch.Tensor:
+    """Fold rows (F, L) as int64 on ``device``. Host rows are range-checked
+    here; device rows must have been checked on the host before they were
+    moved (a check here would stall the stream once per chunk)."""
+    if isinstance(rows, torch.Tensor) and rows.device.type != "cpu":
+        if rows.dtype != torch.int64 or rows.ndim != 2:
+            raise ValueError("device fold rows must be an (F, L) int64 "
+                             "tensor.")
+        return rows.contiguous()
+    r = torch.as_tensor(rows)
+    if r.ndim != 2:
+        raise ValueError(f"fold rows must be (F, L), got {tuple(r.shape)}.")
+    return check_rows(r, n).reshape(r.shape).to(device)
+
+
+def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int, tail=()):
+    from . import _build
+
+    fn = getattr(_build.load_library(lib_name), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int
+                   + list(tail) + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _run(name: str, fn, *args, device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*args, device.index, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def fold_packed(total, u, v, kvec, cvec, *, impl: str = "auto",
+                out=None) -> torch.Tensor:
+    """Factor-form downdate of the prepared streams -> (F, K, C)."""
+    device = u.device
+    if not _use_kernel("fold_packed", impl, device):
+        res = packed_reference(total, u, v, kvec, cvec)
+        return res if out is None else out.copy_(res)
+    f_folds, n_l, k = u.shape
+    c = total.shape[1]
+    _check("fold_packed", device, (total, u, v, kvec, cvec))
+    _shape("fold_packed total", total, (k, c))
+    _shape("fold_packed v", v, (f_folds, n_l, c))
+    _shape("fold_packed kvec", kvec, (f_folds, 2, k))
+    _shape("fold_packed cvec", cvec, (f_folds, 2, c))
+    out = _out("fold_packed", out, (f_folds, k, c), device)
+    fn = _fn("fold_downdate", "cvm_fold_packed_f64", 6, 4)
+    _run("fold_packed", fn, _ptr(total), _ptr(u), _ptr(v), _ptr(kvec),
+         _ptr(cvec), _ptr(out), f_folds, n_l, k, c, device=device)
+    fold_packed.launches += 1
+    return out
+
+
+def _gather_operands(name, total, xw, xu, yu, rows, mask, with_x):
+    """Checked shapes ``(rows, F, L, K, KX, M, C)`` of a gather kernel."""
+    device = xw.device
+    n, k = xw.shape
+    m = 0 if yu is None else yu.shape[1]
+    kx = k if with_x else 0
+    c = kx + m
+    rows = device_rows(rows, n, device)
+    f_folds, n_l = rows.shape
+    _check(name, device, (total, xw, xu if with_x else None, yu, mask))
+    _shape(f"{name} total", total, (k, c))
+    if with_x:
+        _shape(f"{name} xu", xu, (n, k))
+    if yu is not None:
+        _shape(f"{name} yu", yu, (n, m))
+    if mask is not None:
+        _shape(f"{name} mask", mask, (f_folds, n_l))
+    if c == 0:
+        raise ValueError(f"{name}: the product has no columns.")
+    return rows, f_folds, n_l, k, kx, m, c
+
+
+def fold_ozaki_df64(total, xw, xu, yu, rows, mask, kvec, cvec, *,
+                    with_x: bool = True, impl: str = "auto",
+                    out=None) -> torch.Tensor:
+    """Gathered product plus reference-form epilogue -> (F, K, C).
+
+    ``xw``/``xu`` are the (N, K) weighted and unweighted X rows, ``yu`` the
+    (N, M) Y rows or ``None``; ``rows`` the (F, L) fold rows and ``mask``
+    an optional (F, L) 0/1 float64 mask. ``with_x=False`` leaves the X
+    columns out of the output (C = M).
+    """
+    device = xw.device
+    if not _use_kernel("fold_ozaki_df64", impl, device):
+        rows = device_rows(rows, xw.shape[0], device)
+        res = ozaki_df64_reference(total, xw, xu, yu, rows, mask, kvec, cvec,
+                                   with_x=with_x)
+        return res if out is None else out.copy_(res)
+    rows, f_folds, n_l, k, kx, m, c = _gather_operands(
+        "fold_ozaki_df64", total, xw, xu, yu, rows, mask, with_x)
+    _check("fold_ozaki_df64", device, (kvec, cvec))
+    _shape("fold_ozaki_df64 kvec", kvec, (f_folds, 2, k))
+    _shape("fold_ozaki_df64 cvec", cvec, (f_folds, 2, c))
+    out = _out("fold_ozaki_df64", out, (f_folds, k, c), device)
+    fn = _fn("fold_downdate", "cvm_fold_ozaki_df64_f64", 9, 5)
+    _run("fold_ozaki_df64", fn, _ptr(total), _ptr(xw),
+         _ptr(xu if with_x else None), _ptr(yu), _ptr(rows), _ptr(mask),
+         _ptr(kvec), _ptr(cvec), _ptr(out), f_folds, n_l, k, kx, m,
+         device=device)
+    fold_ozaki_df64.launches += 1
+    return out
+
+
+def fold_v3(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal, *,
+            center_xtx: bool, center_xty: bool, scale_x: bool,
+            scale_y: bool, with_y: bool, resolution: float,
+            impl: str = "auto", out=None) -> torch.Tensor:
+    """The v3 downdate -> (F, K, C): per-fold X-side vectors from the
+    gathered rows (see :func:`v3_vectors`), then the gathered product and
+    the reference-form epilogue. ``gx`` is (2, K) ``[sum_X, sum_sq_X]``,
+    ``sxv`` (F, K), ``yvec`` (F, 2, C), ``scal`` (F, 3)."""
+    flags = dict(center_xtx=center_xtx, center_xty=center_xty,
+                 scale_x=scale_x, scale_y=scale_y, with_y=with_y,
+                 resolution=resolution)
+    device = xw.device
+    if not _use_kernel("fold_v3", impl, device):
+        rows = device_rows(rows, xw.shape[0], device)
+        res = v3_reference(total, xw, xu, yu if with_y else None, rows, mask,
+                           gx, sxv, yvec, scal, **flags)
+        return res if out is None else out.copy_(res)
+    rows, f_folds, n_l, k, _, m, c = _gather_operands(
+        "fold_v3", total, xw, xu, yu if with_y else None, rows, mask, True)
+    _check("fold_v3", device, (gx, sxv, yvec, scal))
+    _shape("fold_v3 gx", gx, (2, k))
+    _shape("fold_v3 sxv", sxv, (f_folds, k))
+    _shape("fold_v3 yvec", yvec, (f_folds, 2, c))
+    _shape("fold_v3 scal", scal, (f_folds, 3))
+    out = _out("fold_v3", out, (f_folds, k, c), device)
+    kvec = torch.empty((f_folds, 2, k), dtype=torch.float64, device=device)
+    cvec = torch.empty((f_folds, 2, c), dtype=torch.float64, device=device)
+    bits = sum(b for name, b in _FLAG_BITS.items() if flags[name])
+    fn = _fn("fold_downdate", "cvm_fold_v3_f64", 13, 4,
+             tail=(ctypes.c_int, ctypes.c_double))
+    _run("fold_v3", fn, _ptr(total), _ptr(xw), _ptr(xu),
+         _ptr(yu if with_y else None), _ptr(rows), _ptr(mask), _ptr(gx),
+         _ptr(sxv), _ptr(yvec), _ptr(scal), _ptr(kvec), _ptr(cvec),
+         _ptr(out), f_folds, n_l, k, m, bits, float(resolution),
+         device=device)
+    fold_v3.launches += 1
+    return out
+
+
+def fold_epilogue(total, prod, kvec, cvec, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """Reference-form epilogue written in place into ``prod`` (F, K, C),
+    which is returned (the JAX kernel aliases its output to the product)."""
+    device = prod.device
+    if not _use_kernel("fold_epilogue", impl, device):
+        return prod.copy_(epilogue_reference(total, prod, kvec, cvec))
+    f_folds, k, c = prod.shape
+    _check("fold_epilogue", device, (total, prod, kvec, cvec))
+    _shape("fold_epilogue total", total, (k, c))
+    _shape("fold_epilogue kvec", kvec, (f_folds, 2, k))
+    _shape("fold_epilogue cvec", cvec, (f_folds, 2, c))
+    fn = _fn("fold_epilogue", "cvm_fold_epilogue_f64", 4, 3)
+    _run("fold_epilogue", fn, _ptr(total), _ptr(prod), _ptr(kvec),
+         _ptr(cvec), f_folds, k, c, device=device)
+    fold_epilogue.launches += 1
+    return prod
+
+
+for _w in (fold_packed, fold_ozaki_df64, fold_v3, fold_epilogue):
+    _w.launches = 0
+del _w
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: launches}`` of the four fold kernels."""
+    return {w.__name__: w.launches for w in (fold_packed, fold_ozaki_df64,
+                                             fold_v3, fold_epilogue)}
+
+
+def reset_launch_counts() -> None:
+    for w in (fold_packed, fold_ozaki_df64, fold_v3, fold_epilogue):
+        w.launches = 0

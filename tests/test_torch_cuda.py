@@ -13,6 +13,7 @@ import torch
 import cvmatrix_tpu_torch as T
 from cvmatrix_tpu_torch.core import batch as TB
 from cvmatrix_tpu_torch.models import sweep as TS
+from cvmatrix_tpu_torch.ops import fold_downdate as TFD
 from cvmatrix_tpu_torch.ops import loocv as TL
 
 pytestmark = pytest.mark.cuda
@@ -64,15 +65,111 @@ def test_sweep_probe_matches_cpu(dev):
 
 
 def test_unported_cuda_routes_raise(dev):
+    """Float32 routes other than LOOCV still raise naming their TPU kernel;
+    every float64 K-fold batch runs."""
     X, Y, w = _data(2)
     cfg32 = T.CVConfig(dtype=np.float32)
     st32 = T.fit(cfg32, X, Y, w, device=dev)
     src = TB.prepare_loocv_sources(cfg32, st32, np.arange(4))
     with pytest.raises(NotImplementedError, match="fused_loocv_f32"):
         TB.loocv_from_sources(cfg32, src, np.arange(4), return_XTY=True)
-    st = T.fit(T.CVConfig(), X, Y, w, device=dev)
-    with pytest.raises(NotImplementedError, match="fused_downdate_df64_packed"):
-        TS.materialize_sweep(T.CVConfig(), st, np.arange(N).reshape(-1, 3))
+    with pytest.raises(NotImplementedError, match="fused_downdate_f32_packed"):
+        TS.materialize_sweep(cfg32, st32, np.arange(N).reshape(-1, 3))
+    with pytest.raises(NotImplementedError, match=r"fused_downdate \("):
+        TB.training_matrices_batched(cfg32, st32, np.arange(N).reshape(-1, 50))
     # the plain engine stays available on the card when asked for
-    TS.materialize_sweep(T.CVConfig(), st, np.arange(N).reshape(-1, 3),
+    TS.materialize_sweep(cfg32, st32, np.arange(N).reshape(-1, 3),
                          impl="torch")
+    st = T.fit(T.CVConfig(), X, Y, w, device=dev)
+    for n_l in (3, 50):
+        TS.materialize_sweep(T.CVConfig(), st, np.arange(N).reshape(-1, n_l))
+
+
+# fold rows -> the kernel the route launches (K=40, M=5: one 128-tile)
+ROUTE_CASES = [(4, "fold_packed"), (20, "fold_v3"), (150, "fold_v3"),
+               (500, "fold_ozaki_df64")]
+N_ROUTES = 700
+
+
+def _folds(n_l, n_folds, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.choice(N_ROUTES, n_l, replace=False)
+                     for _ in range(n_folds)])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("xtx,xty", [(True, True), (True, False),
+                                     (False, True)])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_fold_routes_match_twin(dev, flags, xtx, xty, masked):
+    """Each float64 K-fold route through its kernel against its twin, with
+    the launch counter of that kernel moving by one."""
+    rng = np.random.default_rng(3)
+    X, Y = rng.random((N_ROUTES, K)), rng.random((N_ROUTES, M))
+    w = rng.random(N_ROUTES)
+    w[::9] = 0.0
+    cfg = T.CVConfig(*flags)
+    st = T.fit(cfg, X, Y if xty else None, w, device=dev)
+    for n_l, name in ROUTE_CASES:
+        idx = _folds(n_l, 5, n_l)
+        mask = None
+        if masked:
+            mask = np.ones(idx.shape)
+            mask[:, -2:] = 0.0
+        route = TB.route_kernel(cfg, st, n_l, xtx, xty, masked)
+        before = TFD.launch_counts()
+        got, gs = TB.training_matrices_batched(cfg, st, idx, mask,
+                                               return_XTX=xtx,
+                                               return_XTY=xty)
+        after = TFD.launch_counts()
+        launched = {k for k in after if after[k] != before[k]}
+        expect = {"packed": "fold_packed", "v3": "fold_v3",
+                  "ozaki_df64": "fold_ozaki_df64",
+                  "epilogue": "fold_epilogue"}[route]
+        assert launched == {expect}, (n_l, route, launched)
+        if xtx:
+            assert expect == name
+        ref, rs = TB.training_matrices_batched(cfg, st, idx, mask,
+                                               return_XTX=xtx,
+                                               return_XTY=xty, impl="torch")
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert (a - b).abs().max().item() <= (
+                1e-12 * b.abs().max().item())
+        for a, b in zip(gs, rs):
+            assert (a is None) == (b is None)
+
+
+def test_epilogue_route_matches_twin(dev):
+    """Folds over 1024 rows: torch.bmm product, then the in-place epilogue
+    kernel."""
+    rng = np.random.default_rng(4)
+    n = 1500
+    X, Y, w = rng.random((n, K)), rng.random((n, M)), rng.random(n)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx = np.stack([rng.choice(n, 1100, replace=False) for _ in range(2)])
+    assert TB.route_kernel(cfg, st, 1100, True, True, False) == "epilogue"
+    before = TFD.fold_epilogue.launches
+    (gx, gy), _ = TB.training_matrices_batched(cfg, st, idx)
+    assert TFD.fold_epilogue.launches == before + 1
+    (rx, ry), _ = TB.training_matrices_batched(cfg, st, idx, impl="torch")
+    torch.cuda.synchronize()
+    for a, b in ((gx, rx), (gy, ry)):
+        assert (a - b).abs().max().item() <= 1e-12 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("n_l", [1, 4, 7, 13, 110])
+def test_kfold_sweep_probe_matches_cpu(dev, n_l):
+    """materialize_cv on the card against the same sweep on the CPU
+    (the twins): LOOCV, packed, masked packed, masked v3 and v3."""
+    X, Y, w = _data(5)
+    keys, idx, mask = T.Partitioner(np.arange(N) % (N // n_l)).padded_batches()
+    cfg = T.CVConfig()
+    got = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7,
+                            device=dev)
+    ref = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7)
+    assert abs(float(got) - float(ref)) <= 1e-10 * abs(float(ref))

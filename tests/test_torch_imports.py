@@ -42,7 +42,8 @@ def test_sources_never_import_jax(path):
 
 
 def test_kernel_source_ships_with_the_package():
-    assert (ROOT / "cvmatrix_tpu_torch" / "csrc" / "loocv.cu").is_file()
+    for name in ("loocv.cu", "fold_downdate.cu", "fold_epilogue.cu"):
+        assert (ROOT / "cvmatrix_tpu_torch" / "csrc" / name).is_file()
     assert "cvmatrix_tpu_torch" in (ROOT / "pyproject.toml").read_text()
 
 

@@ -132,9 +132,20 @@ def test_unported_routes_raise_naming_kernel():
     with pytest.raises(NotImplementedError, match="fused_smallfold_df64"):
         TB.prepare_loocv_sources(T.CVConfig(), st, IDX[:, None],
                                  np.ones((len(IDX), 1)))
-    assert "fused_downdate_df64_packed" in TB.unported_kernel(st, 1, True)
-    assert "fused_ozaki_downdate_v3" in TB.unported_kernel(st, 100, True)
-    assert "fused_epilogue_df64" in TB.unported_kernel(st, 5000, True)
+    def kernel(n_l, masked=False):
+        return TB.TPU_KERNELS[TB.route_kernel(T.CVConfig(), st, n_l, True,
+                                              True, masked)]
+
+    assert kernel(1).startswith("fused_loocv_df64")
+    assert kernel(1, masked=True).startswith("fused_downdate_df64_packed")
+    assert kernel(100).startswith("fused_ozaki_downdate_v3")
+    assert kernel(1000).startswith("fused_ozaki_downdate_df64")
+    assert kernel(5000).startswith("fused_epilogue_df64")
+    cfg32 = T.CVConfig(dtype=np.float32)
+    with pytest.raises(NotImplementedError, match="fused_downdate_f32_packed"):
+        TB.route_kernel(cfg32, st, 4, True, True, False)
+    with pytest.raises(NotImplementedError, match=r"fused_downdate \("):
+        TB.route_kernel(cfg32, st, 100, True, True, True)
 
 
 def test_rows_out_of_range_rejected_before_launch():

@@ -1,6 +1,7 @@
-"""The port's materialising sweep against the JAX package's, and the whole
-LOOCV slice (fit -> Partitioner -> sources -> chunked downdate) against
-the NumPy oracle."""
+"""The port's materialising sweep against the JAX package's, the K-fold
+routes' probes against the per-fold engine, and the whole LOOCV slice
+(fit -> Partitioner -> sources -> chunked downdate) against the NumPy
+oracle."""
 
 import numpy as np
 import pytest
@@ -58,6 +59,53 @@ def test_fold_engine_probe_matches_jax(masked):
         mask = None
     got, ref = probes((True, True, True, True), idx, mask, batch_size=3)
     assert_allclose(got, ref, atol=1e-8, rtol=0)
+
+
+X_K, Y_K, FOLDS_K, W_K = make_dataset(n=200, k=5, m=2)
+
+# name: (fold batch, mask, matmul_mode, return_XTX, the port's route)
+KFOLD_CASES = {
+    "packed": (np.arange(200).reshape(50, 4), None, "auto", True, "packed"),
+    "packed_masked": (np.arange(200).reshape(40, 5), "drop1", "auto", True,
+                      "packed"),
+    "v3": (np.arange(200).reshape(10, 20), None, "auto", True, "v3"),
+    "v3_masked": (None, "folds", "auto", True, "v3"),
+    "ozaki_df64_xty": (np.arange(200).reshape(5, 40), None, "auto", False,
+                       "ozaki_df64"),
+    "epilogue_masked": (np.arange(200).reshape(5, 40), "drop1", "native",
+                        True, "epilogue"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KFOLD_CASES))
+def test_kfold_probe_matches_jax_and_fold_engine(case):
+    """K-fold sweeps through each route (the twins on the CPU): the probe
+    against the JAX package's XLA sweep and against the per-fold engine
+    on the probe fold."""
+    idx, mask, mode, xtx, route = KFOLD_CASES[case]
+    if mask == "folds":
+        _, idx, mask = T.Partitioner(FOLDS_K).padded_batches()
+    elif mask == "drop1":
+        mask = np.ones(idx.shape)
+        mask[::3, -1] = 0.0
+    flags = (True, True, True, True)
+    w = zero_fraction(W_K)
+    cfg = T.CVConfig(*flags, matmul_mode=mode)
+    st = T.fit(cfg, X_K, Y_K, w)
+    assert TB.route_kernel(cfg, st, idx.shape[1], xtx, True,
+                           mask is not None) == route
+    kw = dict(batch_size=3, return_XTX=xtx)
+    got = TS.materialize_cv(cfg, X_K, Y_K, w, idx, mask, **kw)
+    ref = JS.materialize_cv(J.CVConfig(*flags, matmul_mode=mode), X_K, Y_K,
+                            w, idx, mask, impl="xla", **kw)
+    assert_allclose(float(got), float(ref), atol=1e-8, rtol=0)
+    bs, n_chunks = TS.chunking(idx.shape[0], 5, (5 if xtx else 0) + 2, 3)
+    f = min((n_chunks - 1) * bs, idx.shape[0] - 1)
+    mats, _ = T.training_matrices(cfg, st, idx[f],
+                                  None if mask is None else mask[f],
+                                  return_XTX=xtx)
+    expect = (mats[0][0, 0] + mats[1][0, 0]) if xtx else mats[0, 0]
+    assert_allclose(float(got), float(expect), atol=1e-10, rtol=0)
 
 
 def test_chunking_rule():
