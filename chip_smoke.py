@@ -40,8 +40,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the kernels and through the plain twins.
 8. K-fold oracle: each P's probe and its probe fold's full matrices
    against ``tests/oracle.py`` at 1e-10.
-9. Prints the kernels' JSON line, the card's name and power limit, and as
-   the last line ``{"ok": true, "device": {...}}``.
+9. Float32 kernels against their twins: 16 flag sets x weighted and
+   unweighted x [XTX | XTY], XTX alone and XTY alone at N=2,000, K=500,
+   M=10, through ``training_matrices_batched``: L=1 (LOOCV, or packed for
+   XTY alone), L=4 and masked L=1 (packed f32), L=100 and masked L=1,025
+   (``fused_downdate``); every call must launch its route's kernel and no
+   other; bound 1e-4 max|twin| (sums in float32 in another order).
+10. Float32 LOOCV main path: phase 4's configuration and data cast to
+    float32, all 100,000 folds through ``materialize_cv``, warm-up and
+    timed, one ``fused_loocv_f32`` launch per chunk and no other kernel;
+    the first chunk against its twin and timed through both; the probe and
+    two folds against ``tests/oracle.py`` at 1e-3 max|oracle|.
+11. Float32 K-fold at full width: the same data over P = 25,000 (L=4,
+    packed f32), 1,000 (L=100) and 3 (L=33,334, masked; both
+    ``fused_downdate``): warm-up and timed totals with the launch counts,
+    each P's first chunk against its twin and timed through both, each
+    probe fold against the oracle at 1e-3 max|oracle|.
+12. TF32: the float32 fit under ``torch.set_float32_matmul_precision(
+    "high")`` is bit for bit the fit under "highest" (a bare float32
+    product under "high" is not).
+13. Prints the kernels' JSON line (eight kernels), the card's name and power
+    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -80,7 +99,22 @@ KERNEL_SOURCES = {
                         "cvmatrix_tpu/ops/kernels.py:1385"),
     "fold_epilogue": ("cvmatrix_tpu_torch/csrc/fold_epilogue.cu",
                       "cvmatrix_tpu/ops/kernels.py:531"),
+    "fused_loocv_f32": ("cvmatrix_tpu_torch/csrc/loocv.cu",
+                        "cvmatrix_tpu/ops/kernels.py:1826"),
+    "fold_packed_f32": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                        "cvmatrix_tpu/ops/kernels.py:630"),
+    "fold_downdate_f32": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                          "cvmatrix_tpu/ops/kernels.py:105"),
 }
+# Float32: kernel against twin at the JAX package's f32 interpret bound, and
+# against the float64 oracle at its "f32 grade", of the largest entry.
+F32_TWIN_RTOL = 1e-4
+F32_ORACLE_RTOL = 1e-3
+ROUTE_WRAPPER_F32 = {"loocv": "fused_loocv_f32",
+                     "packed_f32": "fold_packed_f32",
+                     "downdate_f32": "fold_downdate_f32"}
+KFOLD_P32 = ((25_000, "fold_packed_f32"), (1_000, "fold_downdate_f32"),
+             (3, "fold_downdate_f32"))
 
 
 def log(*a) -> None:
@@ -117,6 +151,17 @@ def wall(fn):
     res = fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, res
+
+
+def launch_counts(FD, fused_loocv) -> dict:
+    """Every kernel's launch count, by the kernels line's names."""
+    return {**FD.launch_counts(), "fused_loocv": fused_loocv.launches,
+            "fused_loocv_f32": fused_loocv.launches_f32}
+
+
+def reset_launch_counts(FD, fused_loocv) -> None:
+    FD.reset_launch_counts()
+    fused_loocv.launches = fused_loocv.launches_f32 = 0
 
 
 def main() -> int:
@@ -366,27 +411,27 @@ def main() -> int:
         bs_p, n_chunks_p = chunking(p, K, K + M)
         return idx, mask, bs_p, n_chunks_p
 
-    def hold(label, name, got, ref):
+    def hold(label, name, got, ref, rtol=TWIN_RTOL):
         """A full-width chunk through the kernel against its twin; the
         error joins the kernel's worst case."""
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
-        if not err <= TWIN_RTOL * scale:
+        if not err <= rtol * scale:
             raise AssertionError(
                 f"{label}: {name} kernel vs twin max|diff| {err:.3e} > "
-                f"{TWIN_RTOL:g} * {scale:.3e}")
+                f"{rtol:g} * {scale:.3e}")
         fold_err[name] = max(fold_err[name], err)
         fold_rel[name] = max(fold_rel[name], err / scale)
         log(f"[kfold-chunk] {label}: {name} kernel vs twin max|diff| "
             f"{err:.3e}, relative {err / scale:.3e}")
 
-    def time_pair(label, name, kernel_fn, plain_fn, n_out):
+    def time_pair(label, name, kernel_fn, plain_fn, n_out, itemsize=8):
         ms = {"torch": [], "cuda": []}
         for impl in ("torch", "cuda", "cuda", "torch"):
             fn = kernel_fn if impl == "cuda" else plain_fn
             ms[impl].append(cuda_ms(fn, 10 if impl == "cuda" else 3))
-        gb = n_out * 8 / 1e9
+        gb = n_out * itemsize / 1e9
         log(f"[kfold-chunk] {label}: {name} kernel {ms['cuda']} ms, plain "
             f"{ms['torch']} ms (plain, kernel, kernel, plain); "
             f"{gb:.3f} GB out, kernel writes "
@@ -526,9 +571,241 @@ def main() -> int:
             f"max|port - oracle| {np.abs(got - ref).max():.3e} "
             f"(max|oracle| {scale:.3e})")
 
-    # ---- 9. result -----------------------------------------------------------
+    # ---- 9. float32 kernels against twins ------------------------------------
+    for name in ROUTE_WRAPPER_F32.values():
+        fold_err[name] = fold_rel[name] = 0.0
+    rng = np.random.default_rng(SEED + 2)
+
+    def folds(n_l, n_folds):
+        return np.stack([rng.choice(n_small, n_l, replace=False)
+                         for _ in range(n_folds)])
+
+    one = np.sort(rng.choice(n_small, 64, replace=False))[:, None]
+    mask_one = np.ones(one.shape)
+    mask_one[::4] = 0.0
+    big = folds(1025, 2)
+    mask_big = np.ones(big.shape)
+    mask_big[::2, -100:] = 0.0
+    f32_batches = [(one, None), (one, mask_one), (folds(4, 16), None),
+                   (folds(100, 8), None), (big, mask_big)]
+    Xs32, Ys32, ws32 = (a.astype(np.float32) for a in (Xs, Ys, ws))
+    cases = 0
+    for flags in itertools.product([True, False], repeat=4):
+        for w in (ws32, None):
+            cfg_s = CVConfig(*flags, ddof=1, dtype=np.float32)
+            st_s = fit(cfg_s, Xs32, Ys32, w, device=dev)
+            for (xtx, xty), (idx, mask) in itertools.product(
+                    ((True, True), (True, False), (False, True)),
+                    f32_batches):
+                route = TB.route_kernel(cfg_s, st_s, idx.shape[1], xtx, xty,
+                                        mask is not None)
+                name = ROUTE_WRAPPER_F32[route]
+                before = launch_counts(FD, fused_loocv)
+                got = batch(cfg_s, st_s, idx, mask, xtx, xty, "cuda")
+                after = launch_counts(FD, fused_loocv)
+                ref = batch(cfg_s, st_s, idx, mask, xtx, xty, "torch")
+                torch.cuda.synchronize()
+                launched = {n for n in after if after[n] != before[n]}
+                if launched != {name} or got.dtype != torch.float32:
+                    raise AssertionError(
+                        f"f32 L={idx.shape[1]} ({route}) launched {launched}"
+                        f", output {got.dtype}")
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                if not err <= F32_TWIN_RTOL * scale:
+                    raise AssertionError(
+                        f"{route} kernel vs twin: max|diff| {err:.3e} > "
+                        f"{F32_TWIN_RTOL:g} * {scale:.3e} ({cfg_s}, L="
+                        f"{idx.shape[1]}, mask={mask is not None}, "
+                        f"xtx={xtx}, xty={xty})")
+                fold_err[name] = max(fold_err[name], err)
+                fold_rel[name] = max(fold_rel[name], err / scale)
+                cases += 1
+    log(f"[f32-twin] {cases} cases (N={n_small}; L=1, masked L=1, L=4, 100, "
+        f"masked L=1,025): worst max|diff| "
+        f"{ {n: fold_err[n] for n in ROUTE_WRAPPER_F32.values()} }, worst "
+        f"relative { {n: fold_rel[n] for n in ROUTE_WRAPPER_F32.values()} }")
+
+    # ---- 10. float32 LOOCV main path -----------------------------------------
+    cfg32 = CVConfig(True, True, True, True, ddof=1, dtype=np.float32)
+    X32, Y32, w32 = (a.astype(np.float32) for a in (X, Y, weights))
+    Xd32, Yd32, wd32 = (torch.from_numpy(a).to(dev) for a in (X32, Y32, w32))
+    st32 = fit(cfg32, Xd32, Yd32, wd32, copy=False)
+    src = prepare_loocv_sources(cfg32, st32, rows_chunk)
+    buf = torch.empty((bs, K, K + M), dtype=torch.float32, device=dev)
+    run = {impl: (lambda impl=impl: loocv_from_sources(
+        cfg32, src, rows_chunk, return_XTY=True, impl=impl,
+        out=buf if impl == "cuda" else None))
+        for impl in ("cuda", "torch")}
+    label = f"f32 LOOCV chunk of {bs} folds"
+    hold(label, "fused_loocv_f32", run["cuda"](), run["torch"](),
+         F32_TWIN_RTOL)
+    chunk_times["fused_loocv_f32"] = time_pair(
+        label, "fused_loocv_f32", run["cuda"], run["torch"], buf.numel(), 4)
+    del src, buf, run
+
+    idx_loo = Partitioner(np.arange(N)).padded_batches()[1]
+
+    def total_cv32():
+        return float(materialize_cv(cfg32, Xd32, Yd32, wd32, idx_loo))
+
+    t_warm, _ = wall(total_cv32)
+    reset_launch_counts(FD, fused_loocv)
+    torch.cuda.reset_peak_memory_stats()
+    t_total, probe32 = wall(total_cv32)
+    counts = launch_counts(FD, fused_loocv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if counts["fused_loocv_f32"] != n_chunks or any(
+            v for n, v in counts.items() if n != "fused_loocv_f32"):
+        raise AssertionError(f"f32 LOOCV main path launches {counts}; "
+                             f"expected {n_chunks} of fused_loocv_f32")
+    if not np.isfinite(probe32):
+        raise AssertionError(f"f32 main-path probe is not finite: {probe32}")
+    kfold_launches["fused_loocv_f32"] = counts["fused_loocv_f32"]
+    t_fit, st32 = wall(lambda: fit(cfg32, Xd32, Yd32, wd32, copy=False))
+    sweeps = {"torch": [], "cuda": []}
+    for impl in ("torch", "cuda", "cuda", "torch"):
+        sweeps[impl].append(wall(lambda: float(
+            materialize_sweep(cfg32, st32, idx_loo, impl=impl)))[0])
+    gb = N * K * (K + M) * 4 / 1e9
+    floor_s = gb * 1e9 / 3.35e12
+    log(f"[main-f32] weighted TTTT f32 N={N} K={K} M={M} P={N} (LOOCV), "
+        f"{n_chunks} chunks of {bs}  [{card}]")
+    log(f"[main-f32] materialize_cv: warm-up {t_warm:.4f} s, timed total "
+        f"{t_total:.4f} s -> {N / t_total:,.0f} folds/s; probe {probe32!r}; "
+        f"fused_loocv_f32 launches {counts['fused_loocv_f32']}; {gb:.2f} GB "
+        f"written, write floor {floor_s:.4f} s = {floor_s / t_total:.1%} of "
+        f"the total; peak device memory {peak_gb:.2f} GB")
+    log(f"[main-f32] fit alone {t_fit:.4f} s; fold sweep alone: kernel "
+        f"{sweeps['cuda']} s, plain twin {sweeps['torch']} s (plain, kernel, "
+        f"kernel, plain)")
+
+    naive32 = NaiveOracle(True, True, True, True, ddof=1).fit(
+        *(a.astype(np.float64) for a in (X32, Y32, w32)))
+
+    def oracle32(rows_out):
+        (xtx, xty), _ = naive32.training_XTX_XTY(np.delete(all_rows, rows_out))
+        return np.concatenate([xtx, xty], axis=1)
+
+    def near_oracle32(label, probe, got, ref):
+        """A sweep's probe and its probe fold's full matrices against the
+        float64 oracle, at 1e-3 of the oracle's largest entry."""
+        scale = np.abs(ref).max()
+        expect = float(ref[0, 0] + ref[0, K])
+        err = np.abs(got - ref).max()
+        if not (abs(probe - expect) <= F32_ORACLE_RTOL * scale
+                and err <= F32_ORACLE_RTOL * scale):
+            raise AssertionError(
+                f"{label}: probe {probe!r} vs oracle {expect!r}, max|port - "
+                f"oracle| {err:.3e}; bound {F32_ORACLE_RTOL:g} * {scale:.3e}")
+        log(f"[oracle-f32] {label}: probe {probe!r} vs oracle {expect!r}; "
+            f"max|port - oracle| {err:.3e} = {err / scale:.3e} of "
+            f"max|oracle| {scale:.3e}")
+
+    # the probe fold, then the first and the last fold
+    folds3 = np.array([f_probe, 0, N - 1])
+    src = prepare_loocv_sources(cfg32, st32, folds3)
+    got = loocv_from_sources(cfg32, src, folds3, return_XTY=True,
+                             impl="cuda").cpu().numpy()
+    for fold, got_f, probe in zip(folds3, got, (
+            probe32, *(float(g[0, 0] + g[0, K]) for g in got[1:]))):
+        near_oracle32(f"LOOCV fold {fold}", probe, got_f, oracle32(fold))
+    del src
+
+    # ---- 11. float32 K-fold at full width ------------------------------------
+    total32 = torch.cat([st32.XTX, st32.XTY], dim=1)
+    log(f"[kfold-f32] weighted TTTT f32 N={N} K={K} M={M}, "
+        f"Partitioner(np.arange(N) % P)  [{card}]")
+    for p, expect in KFOLD_P32:
+        idx, mask, bs_p, n_chunks_p = chunk_idx(p)
+        masked = "" if mask is None else ", masked"
+        label = f"f32 P={p:,} chunk of {bs_p} folds x L={idx.shape[1]}{masked}"
+        rows, mask_d = TB._rows_mask(cfg32, st32, idx[:bs_p],
+                                     None if mask is None else mask[:bs_p])
+        buf = torch.empty((bs_p, K, K + M), dtype=torch.float32, device=dev)
+        if expect == "fold_packed_f32":
+            ops, _ = TB.prepare_fold_operands(cfg32, st32, rows, mask_d)
+            run = {impl: (lambda impl=impl: TB.downdate_from_operands(
+                ops, impl=impl, out=buf if impl == "cuda" else None))
+                for impl in ("cuda", "torch")}
+        else:
+            blocks, stats5 = TB._gather_and_stats(cfg32, st32, rows, mask_d,
+                                                  True, True)
+            kvec, cvec = TB._reference_vectors(
+                cfg32, st32, stats5, st32.X.new_empty((bs_p, 0)), True, True)
+            m2 = torch.cat([blocks.Xv_u, blocks.Yv_u], dim=2)
+            run = {impl: (lambda impl=impl: FD.fold_downdate_f32(
+                total32, blocks.Xv_w, m2, kvec, cvec, impl=impl,
+                out=buf if impl == "cuda" else None))
+                for impl in ("cuda", "torch")}
+        hold(label, expect, run["cuda"](), run["torch"](), F32_TWIN_RTOL)
+        pair = time_pair(label, expect, run["cuda"], run["torch"],
+                         buf.numel(), 4)
+        if p != 3:  # the kernels line times the unmasked route's chunk
+            chunk_times[expect] = pair
+        run = buf = ops = blocks = m2 = None
+
+        def cv32(idx=idx, mask=mask):
+            return float(materialize_cv(cfg32, Xd32, Yd32, wd32, idx, mask))
+
+        t_warm, _ = wall(cv32)
+        reset_launch_counts(FD, fused_loocv)
+        torch.cuda.reset_peak_memory_stats()
+        t_total, probe = wall(cv32)
+        counts = launch_counts(FD, fused_loocv)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if counts[expect] != n_chunks_p or any(
+                v for n, v in counts.items() if n != expect):
+            raise AssertionError(f"f32 P={p}: launches {counts}; expected "
+                                 f"{n_chunks_p} of {expect}")
+        if not np.isfinite(probe):
+            raise AssertionError(f"f32 P={p}: probe is not finite: {probe}")
+        kfold_launches[expect] = kfold_launches.get(expect, 0) + counts[expect]
+        sweeps = {impl: wall(lambda impl=impl: float(materialize_sweep(
+            cfg32, st32, idx, mask, impl=impl)))[0]
+            for impl in ("torch", "cuda")}
+        gb = p * K * (K + M) * 4 / 1e9
+        floor_s = gb * 1e9 / 3.35e12
+        log(f"[kfold-f32] P={p:,} (L={idx.shape[1]}{masked}, {n_chunks_p} "
+            f"chunks of {bs_p}): total {t_total:.4f} s (warm-up "
+            f"{t_warm:.4f} s) -> {p / t_total:,.0f} folds/s; {expect} "
+            f"launches {counts[expect]}; {gb:.2f} GB written, write floor "
+            f"{floor_s:.4f} s = {floor_s / t_total:.1%} of the total; peak "
+            f"{peak_gb:.2f} GB; sweep alone: kernel {sweeps['cuda']:.4f} s, "
+            f"plain {sweeps['torch']:.4f} s; probe {probe!r}")
+        f = min((n_chunks_p - 1) * bs_p, p - 1)
+        rows_f = idx[f] if mask is None else idx[f][mask[f] > 0]
+        got = batch(cfg32, st32, idx[f:f + 1],
+                    None if mask is None else mask[f:f + 1], True, True,
+                    "cuda")[0].cpu().numpy()
+        near_oracle32(f"P={p:,} fold {f} ({rows_f.size} rows)", probe, got,
+                      oracle32(rows_f))
+
+    # ---- 12. TF32 ----------------------------------------------------------
+    prev = torch.get_float32_matmul_precision()
+    states, bare = {}, {}
+    try:
+        for prec in ("high", "highest"):
+            torch.set_float32_matmul_precision(prec)
+            states[prec] = fit(cfg32, Xd32, Yd32, wd32, copy=False)
+            bare[prec] = torch.matmul(Xd32.T, Xd32)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    fields = [n for n, v in vars(states["highest"]).items()
+              if isinstance(v, torch.Tensor)]
+    differ = [n for n in fields if not torch.equal(
+        getattr(states["high"], n), getattr(states["highest"], n))]
+    if differ:
+        raise AssertionError(f"the float32 fit under 'high' differs from "
+                             f"'highest' in {differ}")
+    bare_diff = (bare["high"] - bare["highest"]).abs().max().item()
+    log(f"[tf32] float32 fit under 'high' equals 'highest' bit for bit "
+        f"({len(fields)} tensors); a bare float32 torch.matmul differs by "
+        f"{bare_diff:.3e} between the two settings")
+
+    # ---- 13. result ----------------------------------------------------------
     entries = [("fused_loocv", launches, worst_abs, kernel_ms, plain_ms)]
-    for name in ROUTE_WRAPPER.values():
+    for name in (*ROUTE_WRAPPER.values(), *ROUTE_WRAPPER_F32.values()):
         entries.append((name, kfold_launches[name], fold_err[name],
                         *chunk_times[name]))
     print(json.dumps({"kernels": [{

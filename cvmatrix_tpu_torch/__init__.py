@@ -3,7 +3,8 @@
 A port of :mod:`cvmatrix_tpu` (the JAX reference package in this
 repository) to PyTorch, with hand-written CUDA kernels for the NVIDIA H100
 (``sm_90a``) where the JAX package has Pallas kernels. It computes in native
-float64 and imports neither JAX nor ``cvmatrix_tpu``. Importing it builds
+float64, or in float32 for a float32 config (every float32 product in full
+float32), and imports neither JAX nor ``cvmatrix_tpu``. Importing it builds
 and loads no kernel: each kernel is compiled from ``csrc/`` at first launch.
 
 Public surface: ``CVMatrix`` (the engine facade) and ``Partitioner`` (fold

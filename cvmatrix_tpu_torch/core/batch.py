@@ -3,12 +3,14 @@
 Counterpart of :mod:`cvmatrix_tpu.core.batch`: the routing gates
 (:func:`route_kernel`), the LOOCV sources, the packed factor-form operands
 (:func:`prepare_fold_operands`), the v3 sources
-(:func:`prepare_ozaki_sources`), the large-fold path and
-:func:`training_matrices_batched`. The JAX package packs these operands as
-padded f32 (hi, lo) pairs and int8 mantissa slices for its TPU kernels; the
-port keeps them as unpadded tensors in the config dtype, which the H100
-kernels read directly. Padding survives only inside the gates, so that both
-packages send the same fold batch to the same kernel.
+(:func:`prepare_ozaki_sources`), the large-fold paths (float64 and the
+float32 engine's) and :func:`training_matrices_batched`. The JAX package
+packs these operands as padded f32 (hi, lo) pairs and int8 mantissa slices
+for its TPU kernels; the port keeps them as unpadded tensors in the config
+dtype, which the H100 kernels read directly: a float32 config runs every
+route in float32, as the JAX package's f32 engine does. Padding survives
+only inside the gates, so that both packages send the same fold batch to
+the same kernel.
 
 Fold rows are range-checked on the host once (``ops.loocv.check_rows``)
 and the kernel routes skip the per-fold validity raises (the JAX package's
@@ -25,12 +27,8 @@ import torch
 from ..config import CVConfig
 from ..ops import fold_downdate as _fd
 from ..ops import loocv as _loocv
-from .fold import (
-    FoldBlocks,
-    _compute_training_stats,
-    gather_val_blocks,
-    training_matrices,
-)
+from ..ops.precision import highest_precision
+from .fold import FoldBlocks, _compute_training_stats, gather_val_blocks
 from .state import FitState
 
 __all__ = [
@@ -231,8 +229,12 @@ _OZAKI_BUDGET_LOG2 = -31
 
 # route_kernel's routes and the TPU kernel each one ports
 TPU_KERNELS = {
-    "loocv": "fused_loocv_df64 (cvmatrix_tpu/ops/kernels.py:892)",
+    "loocv": "fused_loocv_df64 (cvmatrix_tpu/ops/kernels.py:892); in "
+             "float32 fused_loocv_f32 (cvmatrix_tpu/ops/kernels.py:1826)",
     "packed": "fused_downdate_df64_packed (cvmatrix_tpu/ops/kernels.py:382)",
+    "packed_f32": "fused_downdate_f32_packed "
+                  "(cvmatrix_tpu/ops/kernels.py:630)",
+    "downdate_f32": "fused_downdate (cvmatrix_tpu/ops/kernels.py:105)",
     "v3": "fused_ozaki_downdate_v3 (cvmatrix_tpu/ops/kernels.py:2333)",
     "ozaki_df64": "fused_ozaki_downdate_df64 (cvmatrix_tpu/ops/kernels.py:1385)",
     "epilogue": "fused_epilogue_df64 (cvmatrix_tpu/ops/kernels.py:531)",
@@ -312,23 +314,18 @@ def route_kernel(config: CVConfig, state: FitState, n_l: int,
 
     A key of :data:`TPU_KERNELS` (which names each route's kernel), chosen by
     the JAX package's gates: one-row unmasked folds on one tile take the
-    LOOCV kernel; folds under :func:`large_fold_threshold` the packed
-    kernel; then v3 where :func:`ozaki_v3_ok`, the Ozaki-df64 kernel where
-    the large-fold path fuses, else a product plus the epilogue kernel.
-    Float32 fold batches other than LOOCV raise NotImplementedError naming
-    their TPU kernel, which is not ported yet.
+    LOOCV kernel (in either dtype). Float32 batches then take the f32
+    engine's kernels: the packed one under ``LARGE_FOLD_ROWS``, else
+    ``fused_downdate``. Float64 batches take the packed kernel under
+    :func:`large_fold_threshold`, then v3 where :func:`ozaki_v3_ok`, the
+    Ozaki-df64 kernel where the large-fold path fuses, else a product plus
+    the epilogue kernel.
     """
     if n_l == 1 and not masked and loocv_single_tile_ok(
             config, state, return_XTX, return_XTY):
         return "loocv"
     if not _is_f64(config):
-        kernel = ("fused_downdate (cvmatrix_tpu/ops/kernels.py:105)"
-                  if n_l >= LARGE_FOLD_ROWS else
-                  "fused_downdate_f32_packed (cvmatrix_tpu/ops/kernels.py:630)")
-        raise NotImplementedError(
-            f"float32 fold batches of {n_l} rows need {kernel}, which is not "
-            "ported yet: use float64, or impl='torch' for the plain engine."
-        )
+        return "downdate_f32" if n_l >= LARGE_FOLD_ROWS else "packed_f32"
     if n_l < large_fold_threshold(config, state, return_XTX, return_XTY):
         return "packed"
     if ozaki_v3_ok(config, state, return_XTX, return_XTY, n_l):
@@ -336,18 +333,6 @@ def route_kernel(config: CVConfig, state: FitState, n_l: int,
     if _use_fused(config, state, return_XTX, return_XTY, n_l):
         return "ozaki_df64"
     return "epilogue"
-
-
-def _route_or_plain(config, state, n_l, return_XTX, return_XTY, masked,
-                    plain: bool) -> Optional[str]:
-    """:func:`route_kernel`'s route, or ``None`` where a float32 batch with
-    no ported kernel runs the per-fold engine (``plain``: on the CPU or
-    with ``impl="torch"``)."""
-    if plain and not _is_f64(config) and not (
-            n_l == 1 and not masked
-            and loocv_single_tile_ok(config, state, return_XTX, return_XTY)):
-        return None
-    return route_kernel(config, state, n_l, return_XTX, return_XTY, masked)
 
 
 # --------------------------------------------------------------------------- #
@@ -375,6 +360,7 @@ def _gather_and_stats(config, state, rows, mask, return_XTX, return_XTY):
     return blocks, stats5
 
 
+@highest_precision()
 def _summed_stats(config, state, rows, mask, **flags):
     """``_compute_training_stats`` of (F, L) device rows, gathering each
     side's unweighted rows once, for the routes whose kernels gather the
@@ -760,8 +746,33 @@ def _large_fold_path(config, state, rows, mask, *, return_XTX, return_XTY,
         return out, stats5[:4]
     m2 = _xy_concat(blocks.Xv_u if return_XTX else None,
                     blocks.Yv_u if return_XTY else None)
-    prod = torch.bmm(blocks.Xv_w.mT, m2, out=out)
+    with highest_precision():
+        prod = torch.bmm(blocks.Xv_w.mT, m2, out=out)
     return _fd.fold_epilogue(total, prod, kvec, cvec, impl=impl), stats5[:4]
+
+
+def _f32_kernel_path(config, state, rows, mask, *, return_XTX, return_XTY,
+                     impl="auto", out=None):
+    """``(out, stats)`` of float32 folds of at least ``LARGE_FOLD_ROWS``
+    rows: the JAX f32 engine's ``_f32_kernel_path`` (JAX batch.py:1211).
+
+    The gathered blocks ``xv = Xv_w`` (F, L, K) and ``m2 = [Xv_u | Yv_u]``
+    (F, L, C) and the statistics, as the JAX path builds them, then the
+    port of ``fused_downdate``: ``((total - xv^T m2) - a1 (x) mb) (.)
+    (inv1 (x) inv2)`` with ``a1 = sw mX``, ``mb`` the means and ``inv`` the
+    reciprocal stds (:func:`_reference_vectors`' ``kvec``/``cvec``).
+    """
+    blocks, stats5 = _gather_and_stats(config, state, rows, mask,
+                                       return_XTX, return_XTY)
+    kvec, cvec = _reference_vectors(config, state, stats5,
+                                    state.X.new_empty((rows.shape[0], 0)),
+                                    return_XTX, return_XTY)
+    m2 = _xy_concat(blocks.Xv_u if return_XTX else None,
+                    blocks.Yv_u if return_XTY else None)
+    out = _fd.fold_downdate_f32(_total(state, return_XTX, return_XTY),
+                                blocks.Xv_w, m2, kvec, cvec, impl=impl,
+                                out=out)
+    return out, stats5[:4]
 
 
 # --------------------------------------------------------------------------- #
@@ -790,16 +801,16 @@ def training_matrices_batched(
     Returns ``(mats, (X_mean, X_std, Y_mean, Y_std))`` shaped like the
     per-fold engine's batched result: ``mats`` is ``(XTX, XTY)`` of (F, K,
     K) and (F, K, M) or the one requested matrix, statistics (F, 1, K) or
-    (F, 1, M) or ``None``. Float64 batches take the kernel route of
-    :func:`route_kernel`, which follows the JAX package's gates (its mesh
-    entry ``batched_matrices_from_blocks`` routes the same way; its
-    ``training_matrices_batched`` sends one-row and v3-sized folds to the
-    packed and Ozaki-df64 kernels instead, with the same result).
-    ``impl``: ``"auto"`` (the kernel on CUDA, the twin on the CPU),
-    ``"cuda"`` or ``"torch"`` (the twin). Float32 batches run the per-fold
-    engine on the CPU or with ``impl="torch"``. The JAX package's
-    ``pair_output`` and ``trim_output`` return double-float pairs and
-    padded tiles, which the port does not have, so they are not ported.
+    (F, 1, M) or ``None``. Every batch, float64 or float32, takes the
+    kernel route of :func:`route_kernel`, which follows the JAX package's
+    gates (its mesh entry ``batched_matrices_from_blocks`` routes the same
+    way; its ``training_matrices_batched`` sends one-row folds to the
+    packed kernels and v3-sized float64 folds to the Ozaki-df64 kernel
+    instead, with the same result). ``impl``: ``"auto"`` (the kernel on
+    CUDA, the twin on the CPU), ``"cuda"`` or ``"torch"`` (the twin). The
+    JAX package's ``pair_output`` and ``trim_output`` return double-float
+    pairs and padded tiles, which the port does not have, so they are not
+    ported.
     """
     if impl not in _loocv.IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
@@ -818,13 +829,8 @@ def training_matrices_batched(
     if idx.ndim == 1:
         idx = idx[:, None]
     mask_np = None if mask_batch is None else np.asarray(mask_batch)
-    route = _route_or_plain(config, state, idx.shape[1], return_XTX,
-                            return_XTY, mask_np is not None,
-                            plain=device.type == "cpu" or impl == "torch")
-    if route is None:
-        return training_matrices(config, state, idx, mask_np,
-                                 return_XTX=return_XTX,
-                                 return_XTY=return_XTY)
+    route = route_kernel(config, state, idx.shape[1], return_XTX, return_XTY,
+                         mask_np is not None)
     flags = _stat_flags(config, return_XTX, return_XTY)
     if route == "loocv":
         # The LOOCV route checks its host rows itself.
@@ -837,7 +843,7 @@ def training_matrices_batched(
         stats = _summed_stats(config, state, rows, None, **flags)[:4]
         return _split(out, state.K, return_XTX, return_XTY), stats
     rows, mask = _rows_mask(config, state, idx, mask_np)
-    if route == "packed":
+    if route in ("packed", "packed_f32"):
         ops, stats = prepare_fold_operands(config, state, rows, mask,
                                            return_XTX=return_XTX,
                                            return_XTY=return_XTY)
@@ -850,7 +856,8 @@ def training_matrices_batched(
                                     impl=impl)
         stats = _summed_stats(config, state, rows, mask, **flags)[:4]
     else:
-        out, stats = _large_fold_path(config, state, rows, mask,
-                                      return_XTX=return_XTX,
-                                      return_XTY=return_XTY, impl=impl)
+        large = (_f32_kernel_path if route == "downdate_f32"
+                 else _large_fold_path)
+        out, stats = large(config, state, rows, mask, return_XTX=return_XTX,
+                           return_XTY=return_XTY, impl=impl)
     return _split(out, state.K, return_XTX, return_XTY), stats

@@ -3,8 +3,10 @@
 Counterpart of :func:`cvmatrix_tpu.core.fit.fit`. The two global products
 ``XTX = WX^T X`` and ``XTY = WX^T Y`` are one GEMM over ``[X | Y]`` so that
 ``WX`` is read once. The JAX package routes that contraction through its
-exact int8-slice path on the TPU; the port runs it as one native float64
-``torch.matmul``.
+exact int8-slice path on the TPU, and a float32 one at
+``Precision.HIGHEST``; the port runs it as one native ``torch.matmul`` in
+the config dtype, a float32 one in full float32 whatever the process's
+TF32 setting (:func:`~cvmatrix_tpu_torch.ops.precision.highest_precision`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import CVConfig
+from ..ops.precision import highest_precision
 from .state import FitState
 
 __all__ = ["fit"]
@@ -79,11 +82,12 @@ def fit(
         WY = Y_arr * w if (Y_arr is not None and config.needs_WY) else None
 
     k = X.shape[1]
-    if Y_arr is not None:
-        prod = torch.matmul(WX.T, torch.cat([X, Y_arr], dim=1))
-        XTX, XTY = prod[:, :k], prod[:, k:]
-    else:
-        XTX, XTY = torch.matmul(WX.T, X), None
+    with highest_precision():
+        if Y_arr is not None:
+            prod = torch.matmul(WX.T, torch.cat([X, Y_arr], dim=1))
+            XTX, XTY = prod[:, :k], prod[:, k:]
+        else:
+            XTX, XTY = torch.matmul(WX.T, X), None
 
     n = X.shape[0]
     sum_w = num_nonzero_w = None

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import CVConfig
+from ..ops.precision import highest_precision
 from .state import FitState
 
 __all__ = [
@@ -226,6 +227,7 @@ def _apply_epilogue(T, mean1, mean2, std1, std2, sum_w_train, center: bool):
     return T
 
 
+@highest_precision()
 def training_matrices_from_blocks(
     config: CVConfig,
     state: FitState,
@@ -234,7 +236,8 @@ def training_matrices_from_blocks(
     return_XTX: bool = True,
     return_XTY: bool = True,
 ):
-    """Fold math given already-gathered validation blocks."""
+    """Fold math given already-gathered validation blocks; float32
+    products in full float32."""
     # The XTY mean cross-term cancels only when both sides are centred, so
     # one-sided centring still needs the other side's mean.
     X_mean, X_std, Y_mean, Y_std, sum_w_train = _compute_training_stats(

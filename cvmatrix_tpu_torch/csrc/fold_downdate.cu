@@ -1,6 +1,6 @@
-// K-fold downdates in float64 for Hopper (sm_90a).
+// K-fold downdates in float64 and float32 for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of cvmatrix_tpu/ops/kernels.py, all of which
+// Replaces five TPU kernels of cvmatrix_tpu/ops/kernels.py, all of which
 // compute, per fold f of L validation rows, the product
 //
 //   D[f] = Xv_w[f]^T [Xv_u[f] | Yv_u[f]]                          (K, C)
@@ -8,8 +8,13 @@
 // and then an epilogue on the fold's (K, C) output:
 //
 //   cvm_fold_packed_f64       <- fused_downdate_df64_packed (factor form)
+//   cvm_fold_packed_f32       <- fused_downdate_f32_packed  (factor form)
 //       out = total (.) (i1 (x) i2) - (D + p (x) q),  D = sum_l u_l (x) v_l
 //       over the prepared factor-scaled streams u (F, L, K), v (F, L, C).
+//   cvm_fold_downdate_f32     <- fused_downdate (reference form)
+//       out = ((total - D) - p (x) q) (.) (i1 (x) i2)
+//       over the contiguous streams xv = Xv_w (F, L, K), weighted and
+//       masked, and m2 = [Xv_u | Yv_u] (F, L, C), unweighted.
 //   cvm_fold_ozaki_df64_f64   <- fused_ozaki_downdate_df64 (reference form)
 //       out = (total - (D + p (x) q)) (.) (i1 (x) i2)
 //       rows gathered by index: Xv_w = xw[rows] * mask, [xu | yu][rows].
@@ -22,13 +27,21 @@
 // applies all four and the tile kernel needs no flags. The TPU kernels
 // carry float64 as f32 pairs and form D from int8 mantissa slices on the
 // MXU because the TPU has no float64; the H100 has, so D is accumulated
-// here with FP64 FMA on the unpadded shape and each output is written once
-// with row stride C.
+// here with FMA in the element type T (float64 or float32) on the unpadded
+// shape and each output is written once with row stride C. One tile kernel,
+// templated on T, on where the rows come from (streams or a gather by
+// index) and on the epilogue form, serves all five entries. The float32
+// entries compute in float32 on FP32 FMA, never on TF32 tensor cores.
+//
+// The reference form is evaluated in two orders. In float64 it is
+// (total - fma(p, q, D)) i1 i2; in float32 it follows fused_downdate's
+// order, ((total - D) - p q)(i1 i2), since in float32 the two orders
+// differ by a few ulps of total.
 //
 // What bounds it: per fold the product costs 2 L K C flops and the output
-// K C * 8 bytes of writes, so folds of a few rows (the packed route, the
-// v3 route at L = 10) are bound by device-memory writes and folds of
-// hundreds of rows by FP64 throughput. The tile kernel covers both: one
+// K C sizeof(T) bytes of writes, so folds of a few rows (the packed routes,
+// the v3 route at L = 10) are bound by device-memory writes and folds of
+// hundreds of rows by FMA throughput. The tile kernel covers both: one
 // block of 256 threads per (fold, 64 x 64 output tile), each thread holding
 // a 4 x 4 block of the tile in registers; row blocks of up to 16 rows of
 // both operands are staged in shared memory, so each staged value feeds 4
@@ -38,9 +51,9 @@
 // run together write neighbouring pieces of the same rows (rows of C = 510
 // doubles are not 128-byte aligned, and a fold-major order left partial
 // sectors to be evicted apart), and registers are capped at 64 for four
-// blocks per SM (a few bytes spill); together they cut a chunk's time by
-// 27-37% at L = 4-1,000 (K=500, M=10, H100 80GB HBM3 at 700 W). Edge tiles
-// (C = 510 is no multiple of 64) are guarded on load and store.
+// blocks per SM (a few bytes spill); together they cut a float64 chunk's
+// time by 27-37% at L = 4-1,000 (K=500, M=10, H100 80GB HBM3 at 700 W).
+// Edge tiles (C = 510 is no multiple of 64) are guarded on load and store.
 //
 // v3's vector phase (grid F) forms, per fold and X column j, the weighted
 // squared sum sum_l mask xw xu of the gathered rows (the X-block diagonal of
@@ -71,29 +84,40 @@ constexpr int kScaleX = 4;
 constexpr int kScaleY = 8;
 constexpr int kWithY = 16;
 
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+template <typename T>
 struct TileArgs {
-  const double* total;  // (K, C)
-  const double* a;      // packed: u (F, L, K);  gather: xw (N, K)
-  const double* b;      // packed: v (F, L, C);  gather: xu (N, K) or null
-  const double* yb;     // gather: yu (N, M) or null
+  const T* total;       // (K, C)
+  const T* a;           // streams: u or xv (F, L, K);  gather: xw (N, K)
+  const T* b;           // streams: v or m2 (F, L, C);  gather: xu (N, K)
+                        // or null
+  const T* yb;          // gather: yu (N, M) or null
   const int64_t* rows;  // gather: (F, L)
-  const double* mask;   // gather: (F, L) or null
-  const double* kvec;   // (F, 2, K): [p, i1]
-  const double* cvec;   // (F, 2, C): [q, i2]
-  double* out;          // (F, K, C)
+  const T* mask;        // gather: (F, L) or null
+  const T* kvec;        // (F, 2, K): [p, i1]
+  const T* cvec;        // (F, 2, C): [q, i2]
+  T* out;               // (F, K, C)
   int64_t L, K, C, KX, M;
 };
 
 // Block b writes tile t = b % (kt * ct) of fold f = b / (kt * ct), tiles in
 // row-major order: out[f][k0 .. +64][c0 .. +64]. Neighbouring blocks, which
 // run at nearly the same time, so write neighbouring parts of the same rows.
-template <bool kGather>
+// kGather: rows gathered by index (else the contiguous (F, L, .) streams);
+// kRefForm: the reference-form epilogue (else the factor form).
+template <typename T, bool kGather, bool kRefForm>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
-  __shared__ double sa[kStage][kTile];
-  __shared__ double sb[kStage][kTile];
+fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
+  __shared__ T sa[kStage][kTile];
+  __shared__ T sb[kStage][kTile];
   __shared__ int64_t srow[kStage];
-  __shared__ double smask[kStage];
+  __shared__ T smask[kStage];
 
   const int64_t f = blockIdx.x / n_tiles;
   const int64_t t = blockIdx.x % n_tiles;
@@ -103,11 +127,11 @@ fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
   const int ty = threadIdx.x / 16;
   const int64_t L = p.L, K = p.K, C = p.C;
 
-  double acc[4][4];
+  T acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
 
   for (int64_t l0 = 0; l0 < L; l0 += kStage) {
     const int nl = static_cast<int>(L - l0 < kStage ? L - l0 : kStage);
@@ -116,7 +140,7 @@ fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
         const int li = threadIdx.x;
         const int64_t fl = f * L + l0 + li;
         srow[li] = li < nl ? p.rows[fl] : 0;
-        smask[li] = li < nl ? (p.mask ? p.mask[fl] : 1.0) : 0.0;
+        smask[li] = li < nl ? (p.mask ? p.mask[fl] : T(1)) : T(0);
       }
       __syncthreads();
     }
@@ -126,8 +150,8 @@ fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
       const int j = e % kTile;
       const int64_t ka = k0 + j;
       const int64_t cb = c0 + j;
-      double va = 0.0;
-      double vb = 0.0;
+      T va = T(0);
+      T vb = T(0);
       if (kGather) {
         const int64_t r = srow[li];
         if (ka < K) va = __ldg(p.a + r * K + ka) * smask[li];
@@ -146,7 +170,7 @@ fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
     __syncthreads();
 #pragma unroll 4
     for (int li = 0; li < nl; ++li) {
-      double av[4], bv[4];
+      T av[4], bv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) av[i] = sa[li][ty + 16 * i];
 #pragma unroll
@@ -154,35 +178,40 @@ fold_tile_kernel(const TileArgs p, int64_t n_ct, int64_t n_tiles) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma_t(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  const double* kv = p.kvec + 2 * K * f;
-  const double* cv = p.cvec + 2 * C * f;
-  double* of = p.out + K * C * f;
-  double qc[4], i2c[4];
+  const T* kv = p.kvec + 2 * K * f;
+  const T* cv = p.cvec + 2 * C * f;
+  T* of = p.out + K * C * f;
+  T qc[4], i2c[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int64_t c = c0 + tx + 16 * j;
-    qc[j] = c < C ? __ldg(cv + c) : 0.0;
-    i2c[j] = c < C ? __ldg(cv + C + c) : 0.0;
+    qc[j] = c < C ? __ldg(cv + c) : T(0);
+    i2c[j] = c < C ? __ldg(cv + C + c) : T(0);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t k = k0 + ty + 16 * i;
     if (k >= K) continue;
-    const double pk = __ldg(kv + k);
-    const double i1 = __ldg(kv + K + k);
+    const T pk = __ldg(kv + k);
+    const T i1 = __ldg(kv + K + k);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int64_t c = c0 + tx + 16 * j;
       if (c >= C) continue;
-      const double d = fma(pk, qc[j], acc[i][j]);
-      const double t = __ldg(p.total + k * C + c);
-      const double val =
-          kGather ? (t - d) * i1 * i2c[j] : t * (i1 * i2c[j]) - d;
+      const T t = __ldg(p.total + k * C + c);
+      T val;
+      if constexpr (!kRefForm) {
+        val = t * (i1 * i2c[j]) - fma_t(pk, qc[j], acc[i][j]);
+      } else if constexpr (sizeof(T) == sizeof(double)) {
+        val = (t - fma_t(pk, qc[j], acc[i][j])) * i1 * i2c[j];
+      } else {
+        val = ((t - acc[i][j]) - pk * qc[j]) * (i1 * i2c[j]);
+      }
       __stcs(of + k * C + c, val);
     }
   }
@@ -256,17 +285,17 @@ __global__ void v3_vectors_kernel(const V3Args p) {
   }
 }
 
-template <bool kGather>
-int launch_tile(const TileArgs& a, int64_t F, int device, void* stream) {
+template <typename T, bool kGather, bool kRefForm>
+int launch_tile(const TileArgs<T>& a, int64_t F, int device, void* stream) {
   if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_ct = (a.C + kTile - 1) / kTile;
   const int64_t n_tiles = n_ct * ((a.K + kTile - 1) / kTile);
   if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  fold_tile_kernel<kGather><<<static_cast<unsigned>(F * n_tiles), kThreads,
-                              0, static_cast<cudaStream_t>(stream)>>>(
-      a, n_ct, n_tiles);
+  fold_tile_kernel<T, kGather, kRefForm>
+      <<<static_cast<unsigned>(F * n_tiles), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(a, n_ct, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,9 +307,31 @@ extern "C" int cvm_fold_packed_f64(
     const double* total, const double* u, const double* v,
     const double* kvec, const double* cvec, double* out, int64_t F,
     int64_t L, int64_t K, int64_t C, int device, void* stream) {
-  TileArgs a{total, u, v, nullptr, nullptr, nullptr, kvec, cvec, out,
-             L, K, C, 0, 0};
-  return launch_tile<false>(a, F, device, stream);
+  TileArgs<double> a{total, u, v, nullptr, nullptr, nullptr, kvec, cvec,
+                     out, L, K, C, 0, 0};
+  return launch_tile<double, false, false>(a, F, device, stream);
+}
+
+// The same factor form in float32 (port of fused_downdate_f32_packed).
+extern "C" int cvm_fold_packed_f32(
+    const float* total, const float* u, const float* v, const float* kvec,
+    const float* cvec, float* out, int64_t F, int64_t L, int64_t K,
+    int64_t C, int device, void* stream) {
+  TileArgs<float> a{total, u, v, nullptr, nullptr, nullptr, kvec, cvec, out,
+                    L, K, C, 0, 0};
+  return launch_tile<float, false, false>(a, F, device, stream);
+}
+
+// Reference-form downdate of the contiguous streams xv (F, L, K) and
+// m2 (F, L, C) in float32 (port of fused_downdate); kvec = [a1, inv1],
+// cvec = [mb, inv2].
+extern "C" int cvm_fold_downdate_f32(
+    const float* total, const float* xv, const float* m2, const float* kvec,
+    const float* cvec, float* out, int64_t F, int64_t L, int64_t K,
+    int64_t C, int device, void* stream) {
+  TileArgs<float> a{total, xv, m2, nullptr, nullptr, nullptr, kvec, cvec,
+                    out, L, K, C, 0, 0};
+  return launch_tile<float, false, true>(a, F, device, stream);
 }
 
 // Gathered product + reference-form epilogue (port of
@@ -292,9 +343,9 @@ extern "C" int cvm_fold_ozaki_df64_f64(
     const double* yu, const int64_t* rows, const double* mask,
     const double* kvec, const double* cvec, double* out, int64_t F,
     int64_t L, int64_t K, int64_t KX, int64_t M, int device, void* stream) {
-  TileArgs a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
-             L, K, KX + M, KX, M};
-  return launch_tile<true>(a, F, device, stream);
+  TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
+                     L, K, KX + M, KX, M};
+  return launch_tile<double, true, true>(a, F, device, stream);
 }
 
 // v3 (port of fused_ozaki_downdate_v3): the vector phase into the
@@ -317,6 +368,7 @@ extern "C" int cvm_fold_v3_f64(
                       static_cast<cudaStream_t>(stream)>>>(v);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  TileArgs a{total, xw, xu, yu, rows, mask, kvec, cvec, out, L, K, C, K, M};
-  return launch_tile<true>(a, F, device, stream);
+  TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
+                     L, K, C, K, M};
+  return launch_tile<double, true, true>(a, F, device, stream);
 }

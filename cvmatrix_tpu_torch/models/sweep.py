@@ -7,16 +7,16 @@ scalar. The chunk size follows the JAX package's rule (a 4 GB budget, at
 most 2000 folds, chunks equalised and the last fold repeated to fill the
 last chunk).
 
-Every float64 fold batch takes the kernel route that
+Every fold batch, float64 or float32, takes the kernel route that
 :func:`~cvmatrix_tpu_torch.core.batch.route_kernel` picks by the JAX
 package's gates: the hand-written kernel on CUDA, its plain twin on the CPU
-or with ``impl="torch"``. The LOOCV, packed and v3 routes build their
-operands once for all folds and slice them per chunk; the large-fold
-routes gather and reduce chunk by chunk (hoisting L-row blocks for every
-fold would hold the whole dataset twice). Float32 fold batches other than
-LOOCV run the per-fold engine (:mod:`~cvmatrix_tpu_torch.core.fold`) on the
-CPU or with ``impl="torch"``; on CUDA their kernels are not ported yet and
-they raise NotImplementedError.
+or with ``impl="torch"``. The LOOCV, packed (both dtypes) and v3 routes
+build their operands once for all folds and slice them per chunk; the
+large-fold routes (Ozaki-df64, ``bmm`` plus epilogue, and the float32
+engine's ``fused_downdate``) gather and reduce chunk by chunk (hoisting
+L-row blocks for every fold would hold the whole dataset twice). A
+float32 sweep computes and writes float32; the chunk rule budgets 8 bytes
+per element in either dtype, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import torch
 
 from ..config import CVConfig
 from ..core.batch import (
+    _f32_kernel_path,
     _large_fold_path,
-    _route_or_plain,
     _rows_mask,
     downdate_from_operands,
     loocv_from_sources,
@@ -37,10 +37,10 @@ from ..core.batch import (
     prepare_fold_operands,
     prepare_loocv_sources,
     prepare_ozaki_sources,
+    route_kernel,
     slice_operands,
 )
 from ..core.fit import fit
-from ..core.fold import training_matrices
 from ..core.state import FitState
 from ..ops.loocv import IMPLS, check_rows
 
@@ -112,20 +112,8 @@ def materialize_sweep(
                             batch_size, hbm_budget_bytes)
     idx, mask = _pad_folds(idx, mask, bs)
 
-    route = _route_or_plain(config, state, idx.shape[1], return_XTX,
-                            return_XTY, mask is not None,
-                            plain=device.type == "cpu" or impl == "torch")
-    if route is None:
-        out = None
-        for c in range(n_chunks):
-            sl = slice(c * bs, (c + 1) * bs)
-            out, _ = training_matrices(
-                config, state, idx[sl], None if mask is None else mask[sl],
-                return_XTX=return_XTX, return_XTY=return_XTY,
-            )
-        mats = out if isinstance(out, tuple) else (out,)
-        return sum(a[0, 0, 0] for a in mats)
-
+    route = route_kernel(config, state, idx.shape[1], return_XTX,
+                         return_XTY, mask is not None)
     buf = torch.empty((bs, k, (k if return_XTX else 0) + m),
                       dtype=config.torch_dtype, device=device)
     if route == "loocv":
@@ -142,7 +130,7 @@ def materialize_sweep(
     else:
         # Checked on the host once, then moved whole to the device.
         rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
-        if route == "packed":
+        if route in ("packed", "packed_f32"):
             ops, _ = prepare_fold_operands(config, state, rows, mask_d,
                                            return_XTX=return_XTX,
                                            return_XTY=return_XTY)
@@ -158,12 +146,14 @@ def materialize_sweep(
                                       return_XTY=return_XTY, impl=impl,
                                       out=buf)
         else:
+            large = (_f32_kernel_path if route == "downdate_f32"
+                     else _large_fold_path)
             for c in range(n_chunks):
                 sl = slice(c * bs, (c + 1) * bs)
-                _large_fold_path(config, state, rows[sl],
-                                 None if mask_d is None else mask_d[sl],
-                                 return_XTX=return_XTX,
-                                 return_XTY=return_XTY, impl=impl, out=buf)
+                large(config, state, rows[sl],
+                      None if mask_d is None else mask_d[sl],
+                      return_XTX=return_XTX, return_XTY=return_XTY,
+                      impl=impl, out=buf)
     if return_XTX and return_XTY:
         return buf[0, 0, 0] + buf[0, 0, k]
     return buf[0, 0, 0]

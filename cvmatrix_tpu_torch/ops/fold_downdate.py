@@ -1,13 +1,21 @@
 """The K-fold downdates: plain PyTorch twins, CUDA kernel wrappers, dispatch.
 
-Counterpart of the JAX package's four float64 fold-batch kernels
+Counterpart of the JAX package's five fold-batch kernels
 (``cvmatrix_tpu/ops/kernels.py``), each computing, per fold of L validation
 rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
 
-- :func:`fold_packed` ports ``fused_downdate_df64_packed`` (factor form,
-  from the prepared streams ``u`` (F, L, K) and ``v`` (F, L, C))::
+- :func:`fold_packed` ports ``fused_downdate_df64_packed`` for float64
+  operands and ``fused_downdate_f32_packed`` for float32 ones (factor
+  form, from the prepared streams ``u`` (F, L, K) and ``v`` (F, L, C))::
 
       out = total (.) (i1 (x) i2) - (sum_l u_l (x) v_l + p (x) q)
+
+- :func:`fold_downdate_f32` ports ``fused_downdate``, the float32 engine's
+  kernel for folds of at least 32 rows (reference form, from the
+  contiguous streams ``xv`` (F, L, K), weighted and masked, and ``m2``
+  (F, L, C), unweighted), in that kernel's order::
+
+      out = ((total - D) - p (x) q) (.) (i1 (x) i2)
 
 - :func:`fold_ozaki_df64` ports ``fused_ozaki_downdate_df64`` and
   :func:`fold_v3` ports ``fused_ozaki_downdate_v3`` (reference form, rows
@@ -28,13 +36,16 @@ rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
 ``[q, i2]``: p and q are zero without centring, i1 and i2 one without
 scaling, so every epilogue applies all four. The TPU kernels' double-float
 pairs, int8 slices and 128-padding are not carried over: the H100 computes
-in float64 on the unpadded (K, C) shape. Kernels: ``csrc/fold_downdate.cu``
-and ``csrc/fold_epilogue.cu``.
+in float64 (or, for the float32 kernels, in float32 on FP32 FMA) on the
+unpadded (K, C) shape. Kernels: ``csrc/fold_downdate.cu`` and
+``csrc/fold_epilogue.cu``. The twins' float32 products run in full float32
+(:func:`~cvmatrix_tpu_torch.ops.precision.highest_precision`).
 
 Every wrapper dispatches like :func:`cvmatrix_tpu_torch.ops.loocv.fused_loocv`:
 ``impl="auto"`` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; ``"cuda"`` always launches; ``"torch"`` always runs the twin.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+:func:`launch_counts` reads each kernel's launches (``<wrapper>.launches``,
+and ``fold_packed.launches_f32`` for the float32 packed kernel).
 """
 
 from __future__ import annotations
@@ -45,14 +56,17 @@ from typing import Tuple
 import torch
 
 from .loocv import _FLAG_BITS, IMPLS, _ptr, check_rows
+from .precision import highest_precision
 
 __all__ = [
     "packed_reference",
+    "downdate_f32_reference",
     "ozaki_df64_reference",
     "v3_vectors",
     "v3_reference",
     "epilogue_reference",
     "fold_packed",
+    "fold_downdate_f32",
     "fold_ozaki_df64",
     "fold_v3",
     "fold_epilogue",
@@ -75,10 +89,19 @@ def _i12(kvec, cvec):
     return kvec[:, 1, :, None] * cvec[:, 1, None, :]
 
 
+@highest_precision()
 def packed_reference(total, u, v, kvec, cvec) -> torch.Tensor:
     """Factor form: ``total (.) (i1 (x) i2) - (sum_l u_l (x) v_l + p (x) q)``."""
     d = torch.einsum("flk,flc->fkc", u, v)
     return total * _i12(kvec, cvec) - (d + _pq(kvec, cvec))
+
+
+@highest_precision()
+def downdate_f32_reference(total, xv, m2, kvec, cvec) -> torch.Tensor:
+    """``fused_downdate``'s reference form in its order:
+    ``((total - sum_l xv_l (x) m2_l) - p (x) q) (.) (i1 (x) i2)``."""
+    d = torch.einsum("flk,flc->fkc", xv, m2)
+    return ((total - d) - _pq(kvec, cvec)) * _i12(kvec, cvec)
 
 
 def epilogue_reference(total, prod, kvec, cvec) -> torch.Tensor:
@@ -97,6 +120,7 @@ def _gather(xw, xu, yu, rows, mask, with_x: bool):
     return a, (torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0])
 
 
+@highest_precision()
 def ozaki_df64_reference(total, xw, xu, yu, rows, mask, kvec, cvec, *,
                          with_x: bool = True) -> torch.Tensor:
     """Gather, ``bmm``, reference-form epilogue. ``with_x=False`` drops the
@@ -176,7 +200,7 @@ def _use_kernel(name: str, impl: str, device: torch.device) -> bool:
     return True
 
 
-def _check(name: str, device, tensors, dtype=torch.float64) -> None:
+def _check(name: str, device, tensors, dtype) -> None:
     for t in tensors:
         if t is None:
             continue
@@ -193,12 +217,12 @@ def _shape(name: str, t, shape) -> None:
                          f"{tuple(t.shape)}.")
 
 
-def _out(name: str, out, shape, device) -> torch.Tensor:
+def _out(name: str, out, shape, device, dtype) -> torch.Tensor:
     if out is None:
-        return torch.empty(shape, dtype=torch.float64, device=device)
-    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float64
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
             or out.device != device or not out.is_contiguous()):
-        raise ValueError(f"{name}: out must be a contiguous float64 "
+        raise ValueError(f"{name}: out must be a contiguous {dtype} "
                          f"{tuple(shape)} tensor on {device}.")
     return out
 
@@ -235,25 +259,52 @@ def _run(name: str, fn, *args, device) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
+def _streams(name, fn_name, total, a, b, kvec, cvec, out, dtype):
+    """Check the (F, L, K) and (F, L, C) stream operands of a tile kernel,
+    then launch ``fn_name`` -> (F, K, C)."""
+    device = a.device
+    f_folds, n_l, k = a.shape
+    c = total.shape[1]
+    _check(name, device, (total, a, b, kvec, cvec), dtype)
+    _shape(f"{name} total", total, (k, c))
+    _shape(f"{name} streams", b, (f_folds, n_l, c))
+    _shape(f"{name} kvec", kvec, (f_folds, 2, k))
+    _shape(f"{name} cvec", cvec, (f_folds, 2, c))
+    out = _out(name, out, (f_folds, k, c), device, dtype)
+    fn = _fn("fold_downdate", fn_name, 6, 4)
+    _run(name, fn, _ptr(total), _ptr(a), _ptr(b), _ptr(kvec), _ptr(cvec),
+         _ptr(out), f_folds, n_l, k, c, device=device)
+    return out
+
+
 def fold_packed(total, u, v, kvec, cvec, *, impl: str = "auto",
                 out=None) -> torch.Tensor:
-    """Factor-form downdate of the prepared streams -> (F, K, C)."""
-    device = u.device
-    if not _use_kernel("fold_packed", impl, device):
+    """Factor-form downdate of the prepared streams -> (F, K, C), in the
+    operands' dtype (all float64 or all float32)."""
+    if not _use_kernel("fold_packed", impl, u.device):
         res = packed_reference(total, u, v, kvec, cvec)
         return res if out is None else out.copy_(res)
-    f_folds, n_l, k = u.shape
-    c = total.shape[1]
-    _check("fold_packed", device, (total, u, v, kvec, cvec))
-    _shape("fold_packed total", total, (k, c))
-    _shape("fold_packed v", v, (f_folds, n_l, c))
-    _shape("fold_packed kvec", kvec, (f_folds, 2, k))
-    _shape("fold_packed cvec", cvec, (f_folds, 2, c))
-    out = _out("fold_packed", out, (f_folds, k, c), device)
-    fn = _fn("fold_downdate", "cvm_fold_packed_f64", 6, 4)
-    _run("fold_packed", fn, _ptr(total), _ptr(u), _ptr(v), _ptr(kvec),
-         _ptr(cvec), _ptr(out), f_folds, n_l, k, c, device=device)
-    fold_packed.launches += 1
+    if u.dtype == torch.float32:
+        out = _streams("fold_packed", "cvm_fold_packed_f32", total, u, v,
+                       kvec, cvec, out, torch.float32)
+        fold_packed.launches_f32 += 1
+    else:
+        out = _streams("fold_packed", "cvm_fold_packed_f64", total, u, v,
+                       kvec, cvec, out, torch.float64)
+        fold_packed.launches += 1
+    return out
+
+
+def fold_downdate_f32(total, xv, m2, kvec, cvec, *, impl: str = "auto",
+                      out=None) -> torch.Tensor:
+    """``fused_downdate``'s reference-form downdate of the float32 streams
+    ``xv`` (F, L, K) and ``m2`` (F, L, C) -> (F, K, C) float32."""
+    if not _use_kernel("fold_downdate_f32", impl, xv.device):
+        res = downdate_f32_reference(total, xv, m2, kvec, cvec)
+        return res if out is None else out.copy_(res)
+    out = _streams("fold_downdate_f32", "cvm_fold_downdate_f32", total, xv,
+                   m2, kvec, cvec, out, torch.float32)
+    fold_downdate_f32.launches += 1
     return out
 
 
@@ -266,7 +317,8 @@ def _gather_operands(name, total, xw, xu, yu, rows, mask, with_x):
     c = kx + m
     rows = device_rows(rows, n, device)
     f_folds, n_l = rows.shape
-    _check(name, device, (total, xw, xu if with_x else None, yu, mask))
+    _check(name, device, (total, xw, xu if with_x else None, yu, mask),
+           torch.float64)
     _shape(f"{name} total", total, (k, c))
     if with_x:
         _shape(f"{name} xu", xu, (n, k))
@@ -297,10 +349,11 @@ def fold_ozaki_df64(total, xw, xu, yu, rows, mask, kvec, cvec, *,
         return res if out is None else out.copy_(res)
     rows, f_folds, n_l, k, kx, m, c = _gather_operands(
         "fold_ozaki_df64", total, xw, xu, yu, rows, mask, with_x)
-    _check("fold_ozaki_df64", device, (kvec, cvec))
+    _check("fold_ozaki_df64", device, (kvec, cvec), torch.float64)
     _shape("fold_ozaki_df64 kvec", kvec, (f_folds, 2, k))
     _shape("fold_ozaki_df64 cvec", cvec, (f_folds, 2, c))
-    out = _out("fold_ozaki_df64", out, (f_folds, k, c), device)
+    out = _out("fold_ozaki_df64", out, (f_folds, k, c), device,
+               torch.float64)
     fn = _fn("fold_downdate", "cvm_fold_ozaki_df64_f64", 9, 5)
     _run("fold_ozaki_df64", fn, _ptr(total), _ptr(xw),
          _ptr(xu if with_x else None), _ptr(yu), _ptr(rows), _ptr(mask),
@@ -329,12 +382,12 @@ def fold_v3(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal, *,
         return res if out is None else out.copy_(res)
     rows, f_folds, n_l, k, _, m, c = _gather_operands(
         "fold_v3", total, xw, xu, yu if with_y else None, rows, mask, True)
-    _check("fold_v3", device, (gx, sxv, yvec, scal))
+    _check("fold_v3", device, (gx, sxv, yvec, scal), torch.float64)
     _shape("fold_v3 gx", gx, (2, k))
     _shape("fold_v3 sxv", sxv, (f_folds, k))
     _shape("fold_v3 yvec", yvec, (f_folds, 2, c))
     _shape("fold_v3 scal", scal, (f_folds, 3))
-    out = _out("fold_v3", out, (f_folds, k, c), device)
+    out = _out("fold_v3", out, (f_folds, k, c), device, torch.float64)
     kvec = torch.empty((f_folds, 2, k), dtype=torch.float64, device=device)
     cvec = torch.empty((f_folds, 2, c), dtype=torch.float64, device=device)
     bits = sum(b for name, b in _FLAG_BITS.items() if flags[name])
@@ -357,7 +410,8 @@ def fold_epilogue(total, prod, kvec, cvec, *,
     if not _use_kernel("fold_epilogue", impl, device):
         return prod.copy_(epilogue_reference(total, prod, kvec, cvec))
     f_folds, k, c = prod.shape
-    _check("fold_epilogue", device, (total, prod, kvec, cvec))
+    _check("fold_epilogue", device, (total, prod, kvec, cvec),
+           torch.float64)
     _shape("fold_epilogue total", total, (k, c))
     _shape("fold_epilogue kvec", kvec, (f_folds, 2, k))
     _shape("fold_epilogue cvec", cvec, (f_folds, 2, c))
@@ -368,17 +422,26 @@ def fold_epilogue(total, prod, kvec, cvec, *,
     return prod
 
 
-for _w in (fold_packed, fold_ozaki_df64, fold_v3, fold_epilogue):
-    _w.launches = 0
-del _w
-
-
-def launch_counts() -> dict:
-    """``{wrapper name: launches}`` of the four fold kernels."""
-    return {w.__name__: w.launches for w in (fold_packed, fold_ozaki_df64,
-                                             fold_v3, fold_epilogue)}
+# kernel -> (wrapper, the attribute that counts its launches)
+_COUNTERS = {
+    "fold_packed": (fold_packed, "launches"),
+    "fold_packed_f32": (fold_packed, "launches_f32"),
+    "fold_downdate_f32": (fold_downdate_f32, "launches"),
+    "fold_ozaki_df64": (fold_ozaki_df64, "launches"),
+    "fold_v3": (fold_v3, "launches"),
+    "fold_epilogue": (fold_epilogue, "launches"),
+}
 
 
 def reset_launch_counts() -> None:
-    for w in (fold_packed, fold_ozaki_df64, fold_v3, fold_epilogue):
-        w.launches = 0
+    for wrapper, attr in _COUNTERS.values():
+        setattr(wrapper, attr, 0)
+
+
+def launch_counts() -> dict:
+    """``{kernel: launches}`` of the six fold kernels."""
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in _COUNTERS.items()}
+
+
+reset_launch_counts()

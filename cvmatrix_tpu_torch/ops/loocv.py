@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``fused_loocv_df64`` family
 (``cvmatrix_tpu/ops/kernels.py``: ``_loocv_vectors``, ``_loocv_fold_math``,
-``fused_loocv_df64_reference`` and the Pallas call ``fused_loocv_df64``).
+``fused_loocv_df64_reference`` and the Pallas call ``fused_loocv_df64``)
+and of its float32 sibling ``fused_loocv_f32`` (``_f32_loocv_body``).
 Per fold with validation row ``r`` and per-fold scalars
 ``scal[f] = (sw, 1/sw, 1/divisor)``::
 
@@ -11,7 +12,9 @@ Per fold with validation row ``r`` and per-fold scalars
 where ``rc = [r1 | r2]`` are clamped reciprocal training stds (1 on a side
 that is not scaled), ``u = xw[r] r1``, ``v = [xu[r] r1 | yu[r] r2]``,
 ``p = sw mX r1`` and ``q = [mX r1 | mY r2]`` (zeroed where that side is not
-centred). See ``cvmatrix_tpu_torch/csrc/loocv.cu`` for the kernel.
+centred). See ``cvmatrix_tpu_torch/csrc/loocv.cu`` for the kernels:
+``cvm_loocv_f64`` for float64 sources and ``cvm_loocv_f32`` for float32
+ones, each computing in its sources' dtype.
 
 :func:`fused_loocv` dispatches: ``impl="auto"`` launches the kernel for CUDA
 tensors and runs :func:`loocv_reference` for CPU tensors; ``"cuda"`` always
@@ -115,11 +118,13 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+_KERNELS = {torch.float64: "cvm_loocv_f64", torch.float32: "cvm_loocv_f32"}
+
+
 def _launch(src, rows, scal, out, flags: int, resolution: float) -> None:
     from . import _build
 
-    lib = _build.load_library("loocv")
-    fn = lib.cvm_loocv_f64
+    fn = getattr(_build.load_library("loocv"), _KERNELS[out.dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 11
                    + [ctypes.c_int64] * 3
@@ -127,7 +132,7 @@ def _launch(src, rows, scal, out, flags: int, resolution: float) -> None:
                       ctypes.c_void_p])
     f_folds, k, c = out.shape
     m = c - k
-    vec = torch.empty((f_folds, 5, c), dtype=torch.float64, device=out.device)
+    vec = torch.empty((f_folds, 5, c), dtype=out.dtype, device=out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = fn(_ptr(rows), _ptr(src.total), _ptr(src.xw), _ptr(src.xu),
              _ptr(src.yu), _ptr(src.yw), _ptr(src.gx), _ptr(src.gy),
@@ -145,9 +150,11 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
 
     ``src`` holds the dataset-wide operands (see
     :class:`cvmatrix_tpu_torch.core.batch.LoocvSources`); ``scal`` the
-    (F, 3) per-fold scalars. ``out``, when given, is a contiguous (F, K, C)
-    buffer that receives the result. ``fused_loocv.launches`` counts the
-    kernel launches.
+    (F, 3) per-fold scalars; every operand float64, or every operand
+    float32. ``out``, when given, is a contiguous (F, K, C) buffer of that
+    dtype that receives the result. ``fused_loocv.launches`` counts the
+    float64 kernel's launches and ``fused_loocv.launches_f32`` the float32
+    kernel's.
     """
     if impl not in IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
@@ -167,18 +174,16 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
         return out.copy_(res)
     if device.type != "cuda":
         raise ValueError(f"fused_loocv has no kernel for device {device}.")
-    if src.xw.dtype != torch.float64:
-        raise NotImplementedError(
-            "fused_loocv_f32 (cvmatrix_tpu/ops/kernels.py:1826), the f32 "
-            "LOOCV kernel, is not ported yet: use float64 or impl='torch'."
-        )
+    dtype = src.xw.dtype
+    if dtype not in _KERNELS:
+        raise ValueError(f"fused_loocv has no kernel for {dtype}.")
 
     f_folds, (k, c) = rows.shape[0], src.total.shape
     m = c - k
     if c > 1024:  # the single-tile gate; the kernel's shared memory
-        raise NotImplementedError(
-            f"[X|Y] width {c} > 1024 needs fused_downdate_df64_packed "
-            "(cvmatrix_tpu/ops/kernels.py:382), which is not ported yet."
+        raise ValueError(
+            f"[X|Y] width {c} > 1024 leaves the LOOCV route; check "
+            "loocv_single_tile_ok (the packed route takes such folds)."
         )
     operands = [src.total, src.xw, src.xu, src.gx, scal]
     if with_y:
@@ -186,24 +191,28 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
     elif m:
         raise ValueError("with_y=False needs XTX-only sources (C == K).")
     for t in operands:
-        if t.device != device or t.dtype != torch.float64:
-            raise ValueError("fused_loocv operands must be float64 on "
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"fused_loocv operands must all be {dtype} on "
                              f"{device}.")
         if not t.is_contiguous():
             raise ValueError("fused_loocv operands must be contiguous.")
     if scal.shape != (f_folds, 3):
         raise ValueError(f"scal must be ({f_folds}, 3), got {tuple(scal.shape)}")
     if out is None:
-        out = torch.empty((f_folds, k, c), dtype=torch.float64, device=device)
-    elif (out.shape != (f_folds, k, c) or out.dtype != torch.float64
+        out = torch.empty((f_folds, k, c), dtype=dtype, device=device)
+    elif (out.shape != (f_folds, k, c) or out.dtype != dtype
           or out.device != device or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous float64 ({f_folds}, {k}, "
+        raise ValueError(f"out must be a contiguous {dtype} ({f_folds}, {k}, "
                          f"{c}) tensor on {device}.")
     bits = sum(b for name, b in _FLAG_BITS.items() if flags[name])
     _launch(src, rows.to(device, non_blocking=True), scal, out, bits,
             resolution)
-    fused_loocv.launches += 1
+    if dtype == torch.float64:
+        fused_loocv.launches += 1
+    else:
+        fused_loocv.launches_f32 += 1
     return out
 
 
 fused_loocv.launches = 0
+fused_loocv.launches_f32 = 0

@@ -65,24 +65,127 @@ def test_sweep_probe_matches_cpu(dev):
 
 
 def test_unported_cuda_routes_raise(dev):
-    """Float32 routes other than LOOCV still raise naming their TPU kernel;
-    every float64 K-fold batch runs."""
+    """Only the masked multi-row LOOCV kernel is still unported; float32
+    batches launch the f32 engine's kernels and every float64 K-fold batch
+    runs."""
     X, Y, w = _data(2)
     cfg32 = T.CVConfig(dtype=np.float32)
     st32 = T.fit(cfg32, X, Y, w, device=dev)
+    with pytest.raises(NotImplementedError, match="fused_smallfold_df64"):
+        TB.prepare_loocv_sources(cfg32, st32, np.arange(8).reshape(4, 2))
     src = TB.prepare_loocv_sources(cfg32, st32, np.arange(4))
-    with pytest.raises(NotImplementedError, match="fused_loocv_f32"):
-        TB.loocv_from_sources(cfg32, src, np.arange(4), return_XTY=True)
-    with pytest.raises(NotImplementedError, match="fused_downdate_f32_packed"):
-        TS.materialize_sweep(cfg32, st32, np.arange(N).reshape(-1, 3))
-    with pytest.raises(NotImplementedError, match=r"fused_downdate \("):
-        TB.training_matrices_batched(cfg32, st32, np.arange(N).reshape(-1, 50))
+    before = TL.fused_loocv.launches_f32
+    out = TB.loocv_from_sources(cfg32, src, np.arange(4), return_XTY=True)
+    assert out.dtype == torch.float32
+    assert TL.fused_loocv.launches_f32 == before + 1
+    idx3 = np.arange(N).reshape(-1, 3)
+    TFD.reset_launch_counts()
+    TS.materialize_sweep(cfg32, st32, idx3, batch_size=25)
+    TB.training_matrices_batched(cfg32, st32, np.arange(N).reshape(-1, 50))
+    counts = TFD.launch_counts()
+    assert counts == {**{n: 0 for n in counts}, "fold_packed_f32": 4,
+                      "fold_downdate_f32": 1}
     # the plain engine stays available on the card when asked for
-    TS.materialize_sweep(cfg32, st32, np.arange(N).reshape(-1, 3),
-                         impl="torch")
+    TS.materialize_sweep(cfg32, st32, idx3, impl="torch")
+    assert TFD.launch_counts() == counts
     st = T.fit(T.CVConfig(), X, Y, w, device=dev)
     for n_l in (3, 50):
         TS.materialize_sweep(T.CVConfig(), st, np.arange(N).reshape(-1, n_l))
+
+
+# float32 fold batches: (fold rows, masked) -> the kernel of its route
+F32_CASES = [(1, False), (1, True), (4, False), (31, True), (32, False),
+             (200, True)]
+F32_KERNEL = {"loocv": "fused_loocv_f32", "packed_f32": "fold_packed_f32",
+              "downdate_f32": "fold_downdate_f32"}
+
+
+def _f32_counts():
+    return {**TFD.launch_counts(), "fused_loocv": TL.fused_loocv.launches,
+            "fused_loocv_f32": TL.fused_loocv.launches_f32}
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("xtx,xty", [(True, True), (True, False),
+                                     (False, True)])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_f32_routes_match_twin(dev, flags, xtx, xty, weighted):
+    """Each float32 route through its kernel against its twin at 1e-4 of
+    the twin's largest entry (float32 sums in another order), with that
+    kernel's launch counter moving by one and no other."""
+    rng = np.random.default_rng(6)
+    X, Y = rng.random((N_ROUTES, K)), rng.random((N_ROUTES, M))
+    w = rng.random(N_ROUTES) if weighted else None
+    cfg = T.CVConfig(*flags, dtype=np.float32)
+    st = T.fit(cfg, X, Y if xty else None, w, device=dev)
+    for n_l, masked in F32_CASES:
+        idx = _folds(n_l, 5, n_l)
+        mask = None
+        if masked:
+            mask = np.ones(idx.shape)
+            mask[::2, -1] = 0.0
+        route = TB.route_kernel(cfg, st, n_l, xtx, xty, masked)
+        before = _f32_counts()
+        got, gs = TB.training_matrices_batched(cfg, st, idx, mask,
+                                               return_XTX=xtx,
+                                               return_XTY=xty)
+        after = _f32_counts()
+        launched = {k for k in after if after[k] != before[k]}
+        assert launched == {F32_KERNEL[route]}, (n_l, route, launched)
+        ref, rs = TB.training_matrices_batched(cfg, st, idx, mask,
+                                               return_XTX=xtx,
+                                               return_XTY=xty, impl="torch")
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert a.dtype == torch.float32
+            assert (a - b).abs().max().item() <= (
+                1e-4 * b.abs().max().item()), (n_l, route)
+        for a, b in zip(gs, rs):
+            assert (a is None) == (b is None)
+
+
+@pytest.mark.parametrize("n_l", [1, 4, 7, 40])
+def test_f32_sweep_probe_matches_cpu(dev, n_l):
+    """Float32 materialize_cv on the card against the same sweep on the
+    CPU (the twins): LOOCV, packed f32, masked packed f32 and masked
+    fused_downdate."""
+    X, Y, w = _data(7)
+    _, idx, mask = T.Partitioner(np.arange(N) % (N // n_l)).padded_batches()
+    cfg = T.CVConfig(dtype=np.float32)
+    got = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7,
+                            device=dev)
+    ref = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7)
+    assert got.dtype == torch.float32
+    assert abs(float(got) - float(ref)) <= 1e-4 * abs(float(ref))
+
+
+def test_f32_fit_bit_identical_under_tf32(dev):
+    """The float32 fit under set_float32_matmul_precision("high") and
+    allow_tf32 (TF32 on the H100) equals, bit for bit, the fit under
+    "highest"; a bare float32 product under "high" does not."""
+    rng = np.random.default_rng(8)
+    X = torch.from_numpy(rng.random((4000, 300), dtype=np.float32)).to(dev)
+    Y = torch.from_numpy(rng.random((4000, 10), dtype=np.float32)).to(dev)
+    cfg = T.CVConfig(dtype=np.float32)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        st_high = T.fit(cfg, X, Y)
+        bare_high = X.T @ X
+        assert torch.get_float32_matmul_precision() == "high"
+        torch.set_float32_matmul_precision("highest")
+        st = T.fit(cfg, X, Y)
+        bare = X.T @ X
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    for name, v in vars(st).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, getattr(st_high, name)), name
+    assert not torch.equal(bare, bare_high)
 
 
 # fold rows -> the kernel the route launches (K=40, M=5: one 128-tile)

@@ -141,11 +141,17 @@ def test_unported_routes_raise_naming_kernel():
     assert kernel(100).startswith("fused_ozaki_downdate_v3")
     assert kernel(1000).startswith("fused_ozaki_downdate_df64")
     assert kernel(5000).startswith("fused_epilogue_df64")
+    # float32 batches route to the f32 engine's kernels, LOOCV included
     cfg32 = T.CVConfig(dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="fused_downdate_f32_packed"):
-        TB.route_kernel(cfg32, st, 4, True, True, False)
-    with pytest.raises(NotImplementedError, match=r"fused_downdate \("):
-        TB.route_kernel(cfg32, st, 100, True, True, True)
+
+    def kernel32(n_l, masked=False):
+        return TB.TPU_KERNELS[TB.route_kernel(cfg32, st, n_l, True, True,
+                                              masked)]
+
+    assert "fused_loocv_f32 " in kernel32(1)
+    assert kernel32(4).startswith("fused_downdate_f32_packed")
+    assert kernel32(1, masked=True).startswith("fused_downdate_f32_packed")
+    assert kernel32(100, masked=True).startswith("fused_downdate (")
 
 
 def test_rows_out_of_range_rejected_before_launch():

@@ -6,7 +6,8 @@ the large-fold path over ``_padded_dims`` (with ``matmul_mode="auto"``
 exact, as on the TPU the gates were written for). The lattice covers the
 thresholds of 10 and 32 rows, the v3 bound ``Sp * Lp * 65^2 < 2^24`` (L =
 400 passes and L = 500 fails at K = 500), the 1024-row fusion limit, and
-geometries with square tiles, non-square tiles and no Y.
+geometries with square tiles, non-square tiles and no Y. Float32 batches
+are held against the JAX f32 engine's gates on their own lattice.
 """
 
 from itertools import product
@@ -117,12 +118,61 @@ def test_trim_groups_match_jax():
         assert TB.ozaki_trim_groups(n_l) == JK.ozaki_trim_groups(n_l)
 
 
+# float32 lattice: one-row folds unmasked and masked, then fold sizes
+# around LARGE_FOLD_ROWS; K+M = 1030 > 1024 takes one-row folds off LOOCV
+F32_LS = [(1, False), (1, True), (2, False), (31, False), (32, False),
+          (100, False), (1025, False)]
+F32_SHAPES = [(500, 10), (500, None), (100, 100), (6, 2), (1020, 10)]
+
+
+def jax_route_f32(cfg, js, n_l, xtx, xty, masked):
+    """The JAX f32 engine's choice: the sweep's LOOCV condition
+    (models/sweep.py:614-616), then ``LARGE_FOLD_ROWS`` as
+    ``training_matrices_batched`` applies it (core/batch.py:752-767),
+    which for f32 is also the sweep's ``large_fold_threshold``."""
+    if n_l == 1 and not masked and JB.loocv_single_tile_ok(cfg, js, xtx,
+                                                           xty):
+        return "loocv"
+    assert JB.large_fold_threshold(cfg, js, xtx, xty) == JB.LARGE_FOLD_ROWS
+    return "downdate_f32" if n_l >= JB.LARGE_FOLD_ROWS else "packed_f32"
+
+
+@pytest.mark.parametrize("k,m", F32_SHAPES)
+def test_float32_route_kernel_matches_jax_gates(k, m):
+    x = np.zeros((3, k), np.float32)
+    y = None if m is None else np.zeros((3, m), np.float32)
+    flags = (False, False, False, False)
+    jcfg = J.CVConfig(*flags, dtype=np.float32)
+    js = J.fit(jcfg, x, y)
+    cfg = T.CVConfig(*flags, dtype=np.float32)
+    st = T.FitState.from_numpy({
+        f: None if getattr(js, f) is None else np.asarray(getattr(js, f))
+        for f in js.__dataclass_fields__
+    })
+    assert st.X.dtype == T.CVConfig(dtype=np.float32).torch_dtype
+    sides = [(True, True), (True, False), (False, True)]
+    if m is None:
+        sides = [(True, False)]
+    for (xtx, xty), (n_l, masked) in product(sides, F32_LS):
+        got = TB.route_kernel(cfg, st, n_l, xtx, xty, masked)
+        assert got == jax_route_f32(jcfg, js, n_l, xtx, xty, masked), (
+            k, m, xtx, xty, n_l, masked)
+        assert got in ("loocv", "packed_f32", "downdate_f32")
+    if (k, m) == (1020, 10):  # [X | Y] past one 1024 tile
+        assert TB.route_kernel(cfg, st, 1, True, True, False) == "packed_f32"
+        assert TB.route_kernel(cfg, st, 1, True, False, False) == "loocv"
+
+
 def test_float32_routes_raise_naming_kernel():
+    """Float32 batches no longer raise: each route names the JAX f32
+    engine's kernel it ports."""
     _, _, _, st = both_states(6, 2, "auto")
     cfg32 = T.CVConfig(dtype=np.float32)
-    assert TB.route_kernel(cfg32, st, 1, True, True, False) == "loocv"
-    for n_l, masked, kernel in ((1, True, "fused_downdate_f32_packed"),
-                                (31, False, "fused_downdate_f32_packed"),
-                                (32, False, r"fused_downdate \(")):
-        with pytest.raises(NotImplementedError, match=kernel):
-            TB.route_kernel(cfg32, st, n_l, True, True, masked)
+    for n_l, masked, route, kernel in (
+            (1, False, "loocv", "fused_loocv_f32 "),
+            (1, True, "packed_f32", "fused_downdate_f32_packed "),
+            (31, False, "packed_f32", "fused_downdate_f32_packed "),
+            (32, False, "downdate_f32", "fused_downdate ("),
+            (1025, True, "downdate_f32", "fused_downdate (")):
+        assert TB.route_kernel(cfg32, st, n_l, True, True, masked) == route
+        assert kernel in TB.TPU_KERNELS[route]

@@ -5,6 +5,7 @@ oracle."""
 
 import numpy as np
 import pytest
+import torch
 from numpy.testing import assert_allclose
 
 import cvmatrix_tpu as J
@@ -106,6 +107,59 @@ def test_kfold_probe_matches_jax_and_fold_engine(case):
                                   return_XTX=xtx)
     expect = (mats[0][0, 0] + mats[1][0, 0]) if xtx else mats[0, 0]
     assert_allclose(float(got), float(expect), atol=1e-10, rtol=0)
+
+
+X32, Y32, W32 = (a.astype(np.float32) for a in (X_K, Y_K, zero_fraction(W_K)))
+
+# name: (fold batch, mask, return_XTX, the port's float32 route)
+F32_CASES = {
+    "loocv": (np.arange(200)[:, None], None, True, "loocv"),
+    "packed_f32_xty": (np.arange(200)[:, None], None, False, "packed_f32"),
+    "packed_f32": (np.arange(200).reshape(50, 4), None, True, "packed_f32"),
+    "packed_f32_masked": (np.arange(200).reshape(40, 5), "drop1", True,
+                          "packed_f32"),
+    "downdate_f32": (np.arange(200).reshape(5, 40), None, True,
+                     "downdate_f32"),
+    "downdate_f32_masked": (None, "folds", True, "downdate_f32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_f32_probe_matches_jax_and_fold_engine(case):
+    """Float32 sweeps through each f32 route (the twins on the CPU):
+    materialize_cv and materialize_sweep against the JAX package's XLA
+    f32 sweep, and the probe against the per-fold engine on the probe
+    fold, at 1e-4 relative (float32 sums in another order)."""
+    idx, mask, xtx, route = F32_CASES[case]
+    if mask == "folds":
+        _, idx, mask = T.Partitioner(FOLDS_K).padded_batches()
+    elif mask == "drop1":
+        mask = np.ones(idx.shape, np.float32)
+        mask[::3, -1] = 0.0
+    flags = (True, True, True, True)
+    cfg = T.CVConfig(*flags, dtype=np.float32)
+    jcfg = J.CVConfig(*flags, dtype=np.float32)
+    st = T.fit(cfg, X32, Y32, W32)
+    assert TB.route_kernel(cfg, st, idx.shape[1], xtx, True,
+                           mask is not None) == route
+    kw = dict(batch_size=3, return_XTX=xtx)
+    got = TS.materialize_cv(cfg, X32, Y32, W32, idx, mask, **kw)
+    ref = JS.materialize_cv(jcfg, X32, Y32, W32, idx, mask, impl="xla", **kw)
+    assert got.dtype == torch.float32
+    assert_allclose(float(got), float(ref), rtol=1e-4)
+    js = J.fit(jcfg, X32, Y32, W32)
+    got_sweep = TS.materialize_sweep(cfg, T.FitState.from_numpy({
+        f: None if getattr(js, f) is None else np.asarray(getattr(js, f))
+        for f in js.__dataclass_fields__}), idx, mask, **kw)
+    ref_sweep = JS.materialize_sweep(jcfg, js, idx, mask, impl="xla", **kw)
+    assert_allclose(float(got_sweep), float(ref_sweep), rtol=1e-4)
+    bs, n_chunks = TS.chunking(idx.shape[0], 5, (5 if xtx else 0) + 2, 3)
+    f = min((n_chunks - 1) * bs, idx.shape[0] - 1)
+    mats, _ = T.training_matrices(cfg, st, idx[f],
+                                  None if mask is None else mask[f],
+                                  return_XTX=xtx)
+    expect = (mats[0][0, 0] + mats[1][0, 0]) if xtx else mats[0, 0]
+    assert_allclose(float(got), float(expect), rtol=1e-4)
 
 
 def test_chunking_rule():
