@@ -59,8 +59,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
 12. TF32: the float32 fit under ``torch.set_float32_matmul_precision(
     "high")`` is bit for bit the fit under "highest" (a bare float32
     product under "high" is not).
-13. Prints the kernels' JSON line (eight kernels), the card's name and power
-    limit, and as the last line ``{"ok": true, "device": {...}}``.
+13. The routing policy's kernels against their twins: the two-folds-per-
+    block LOOCV kernels (float64 and float32) over 64 and 63 folds, the
+    symmetric LOOCV kernel, and the symmetric v3 kernel at L=100 unmasked
+    and masked, for 16 flag sets x weighted and unweighted at N=2,000,
+    K=500, M=10; float64 at 1e-12 and float32 at 1e-4 of the twin's
+    largest entry, the x2 kernels equal to one fold per block bit for
+    bit, the symmetric X blocks exactly symmetric; every call launches
+    its kernel and no other. Then each one's full-width chunk against its
+    twin, timed in turns beside the kernel it varies (one fold per block,
+    or the full kernel).
+14. The policy-routed main paths at full width: phase 4's configuration
+    through ``materialize_cv`` under ``set_routing`` (sym LOOCV, sym at
+    P=10,000 and P=1,000, df64x2 LOOCV, f32x2 float32 LOOCV, and sym with
+    df64x2, where sym wins), warm-up and timed, every launch count reset
+    just before the timed run: one launch per chunk of the expected kernel
+    and no other; each probe against ``tests/oracle.py``.
+15. Reduce sweeps at full width: fit plus ``cross_validate_reduce`` over
+    LOOCV with a trace (default policy and ``sym_loocv``), P=25,000 (the
+    packed loop) with a trace, P=1,000 (the v3 loop) with a ridge solve,
+    and P=1,000 under ``hoist_reduce=False``, timed beside the
+    ``materialize_cv`` total of the same P, the launch counts checked, and
+    three folds' reductions against the per-fold engine.
+16. Prints the kernels' JSON line (twelve kernels, each with its bound and
+    the library call's time where one PyTorch call computes the same
+    function), the card's name and power limit, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -105,6 +129,14 @@ KERNEL_SOURCES = {
                         "cvmatrix_tpu/ops/kernels.py:630"),
     "fold_downdate_f32": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
                           "cvmatrix_tpu/ops/kernels.py:105"),
+    "fused_loocv_x2": ("cvmatrix_tpu_torch/csrc/loocv.cu",
+                       "cvmatrix_tpu/ops/kernels.py:1003"),
+    "fused_loocv_f32x2": ("cvmatrix_tpu_torch/csrc/loocv.cu",
+                          "cvmatrix_tpu/ops/kernels.py:1980"),
+    "fused_loocv_sym": ("cvmatrix_tpu_torch/csrc/loocv.cu",
+                        "cvmatrix_tpu/ops/kernels.py:1190"),
+    "fold_v3_sym": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                    "cvmatrix_tpu/ops/kernels.py:2430"),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -115,6 +147,57 @@ ROUTE_WRAPPER_F32 = {"loocv": "fused_loocv_f32",
                      "downdate_f32": "fold_downdate_f32"}
 KFOLD_P32 = ((25_000, "fold_packed_f32"), (1_000, "fold_downdate_f32"),
              (3, "fold_downdate_f32"))
+# The policy-routed full-width sweeps: (label, set_routing knobs, dtype, P,
+# the kernel each chunk must launch).
+POLICY_RUNS = (
+    ("sym_loocv LOOCV", dict(sym_loocv=True), np.float64, N,
+     "fused_loocv_sym"),
+    ("sym_loocv P=10,000", dict(sym_loocv=True), np.float64, 10_000,
+     "fold_v3_sym"),
+    ("sym_loocv P=1,000", dict(sym_loocv=True), np.float64, 1_000,
+     "fold_v3_sym"),
+    ("df64x2 LOOCV", dict(df64x2=True), np.float64, N, "fused_loocv_x2"),
+    ("f32x2 float32 LOOCV", dict(f32x2=True), np.float32, N,
+     "fused_loocv_f32x2"),
+    ("sym_loocv + df64x2 LOOCV", dict(sym_loocv=True, df64x2=True),
+     np.float64, N, "fused_loocv_sym"),
+)
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and
+# FLOP/s of FP64 on the tensor cores and of FP32 outside them (both 67 T).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could take
+    to move ``nbytes`` (each input read once, each output written once) and
+    to do ``flops``, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fold_cost(f: int, n_l: int, item: int, sym: bool = False,
+              gathered: bool = True):
+    """Bytes and FLOPs of F folds of L rows each: the (F, K, C) output
+    written once, the total and the global sums read once, and each fold
+    row once as K + M values and its weight (the kernels' weighted and
+    unweighted copies of a row, and the per-fold vectors, derive from
+    these), plus its int64 index where the kernel gathers rows; the
+    product (2L FLOPs) and a four-FLOP epilogue per computed entry (the
+    symmetric kernels compute the upper triangle and the XTY columns)."""
+    c = K + M
+    nbytes = (item * (f * K * c + K * c + 2 * c + f * n_l * (c + 1))
+              + (8 * f * n_l if gathered else 0))
+    computed = f * (K * (K + 1) // 2 + K * M) if sym else f * K * c
+    return nbytes, (2 * n_l + 4) * computed
+
+
+def epilogue_cost(f: int):
+    """The in-place epilogue: the product read and rewritten, the total
+    and the vectors; four FLOPs per entry."""
+    c = K + M
+    return 8 * (2 * f * K * c + K * c + 2 * f * (K + c)), 4 * f * K * c
 
 
 def log(*a) -> None:
@@ -128,6 +211,10 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def dtype_name(itemsize: int) -> str:
+    return "float64" if itemsize == 8 else "float32"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -153,15 +240,14 @@ def wall(fn):
     return time.perf_counter() - t0, res
 
 
-def launch_counts(FD, fused_loocv) -> dict:
+def launch_counts(FD, TL) -> dict:
     """Every kernel's launch count, by the kernels line's names."""
-    return {**FD.launch_counts(), "fused_loocv": fused_loocv.launches,
-            "fused_loocv_f32": fused_loocv.launches_f32}
+    return {**FD.launch_counts(), **TL.launch_counts()}
 
 
-def reset_launch_counts(FD, fused_loocv) -> None:
+def reset_launch_counts(FD, TL) -> None:
     FD.reset_launch_counts()
-    fused_loocv.launches = fused_loocv.launches_f32 = 0
+    TL.reset_launch_counts()
 
 
 def main() -> int:
@@ -170,7 +256,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA card.", file=sys.stderr)
         return 1
-    from cvmatrix_tpu_torch import CVConfig, Partitioner, fit
+    from cvmatrix_tpu_torch import (
+        CVConfig,
+        Partitioner,
+        fit,
+        policy,
+        set_routing,
+        training_matrices,
+    )
     from cvmatrix_tpu_torch.core import batch as TB
     from cvmatrix_tpu_torch.core.batch import (
         loocv_from_sources,
@@ -178,12 +271,16 @@ def main() -> int:
     )
     from cvmatrix_tpu_torch.models.sweep import (
         chunking,
+        cross_validate_reduce,
         materialize_cv,
         materialize_sweep,
+        sweep_chunking,
     )
     from cvmatrix_tpu_torch.ops import _build
     from cvmatrix_tpu_torch.ops import fold_downdate as FD
+    from cvmatrix_tpu_torch.ops import loocv as TL
     from cvmatrix_tpu_torch.ops.loocv import fused_loocv
+    from cvmatrix_tpu_torch.ops.precision import highest_precision
     from tests.oracle import NaiveOracle
 
     dev = torch.device("cuda", 0)
@@ -283,6 +380,10 @@ def main() -> int:
     for impl in ("torch", "cuda", "cuda", "torch"):
         chunk_ms[impl].append(cuda_ms(run[impl], 20 if impl == "cuda" else 3))
     kernel_ms, plain_ms = min(chunk_ms["cuda"]), min(chunk_ms["torch"])
+    # kernel -> (ms, plain ms, bound ms, bound by, library ms) of the chunk
+    # the kernels line reports
+    chunk_times = {"fused_loocv": (kernel_ms, plain_ms,
+                                   *bound(*fold_cost(bs, 1, 8)), None)}
     chunk_bytes = bs * K * (K + M) * 8
     log(f"[twin] one {bs}-fold chunk at K={K}, M={M} ({chunk_bytes / 1e9:.3f} "
         f"GB out): kernel {chunk_ms['cuda']} ms, plain {chunk_ms['torch']} ms "
@@ -302,6 +403,7 @@ def main() -> int:
     t_total, probe = wall(total_cv)
     launches = fused_loocv.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mat_totals = {(np.float64, N): t_total}  # materialize_cv totals, s
     if launches != n_chunks:
         raise AssertionError(
             f"main path launched the LOOCV kernel {launches} times, expected "
@@ -438,9 +540,18 @@ def main() -> int:
             f"{gb / min(ms['cuda']) * 1e3:.1f} GB/s  [{card}]")
         return min(ms["cuda"]), min(ms["torch"])
 
+    def library_ms(a, b, reps=10):
+        """``torch.bmm`` of the gathered blocks: the one PyTorch call that
+        computes the product (timed here; the port never calls it)."""
+        with highest_precision():
+            return cuda_ms(lambda: torch.bmm(a.mT, b), reps)
+
+    def gathered_blocks(state, rows):
+        rows = torch.as_tensor(rows, device=dev)
+        return state.WX[rows], torch.cat([state.X[rows], state.Y[rows]], 2)
+
     # Each route's first full-width chunk of the phase 7 sweeps, through
     # the kernel and the twin: held at the bound, then timed.
-    chunk_times = {}
     idx, _, bs_p, _ = chunk_idx(25_000)
     ops, _ = TB.prepare_fold_operands(cfg, st, idx[:bs_p])
     buf = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
@@ -449,8 +560,10 @@ def main() -> int:
         ops, impl=impl, out=buf if impl == "cuda" else None))
         for impl in ("cuda", "torch")}
     hold(label, "fold_packed", run["cuda"](), run["torch"]())
-    chunk_times["fold_packed"] = time_pair(label, "fold_packed", run["cuda"],
-                                           run["torch"], buf.numel())
+    chunk_times["fold_packed"] = (
+        *time_pair(label, "fold_packed", run["cuda"], run["torch"],
+                   buf.numel()),
+        *bound(*fold_cost(bs_p, 4, 8, gathered=False)), None)
     del ops, run
     for p in (1_000, 10_000):
         idx, _, bs_p, _ = chunk_idx(p)
@@ -462,8 +575,14 @@ def main() -> int:
             out=buf if impl == "cuda" else None))
             for impl in ("cuda", "torch")}
         hold(label, "fold_v3", run["cuda"](), run["torch"]())
-        chunk_times["fold_v3"] = time_pair(label, "fold_v3", run["cuda"],
-                                           run["torch"], buf.numel())
+        pair = time_pair(label, "fold_v3", run["cuda"], run["torch"],
+                         buf.numel())
+        if p == 1_000:  # the kernels line reports the product-bound chunk
+            lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
+            chunk_times["fold_v3"] = (
+                *pair, *bound(*fold_cost(bs_p, idx.shape[1], 8)), lib)
+            log(f"[kfold-chunk] {label}: torch.bmm of the gathered blocks "
+                f"{lib:.4f} ms  [{card}]")
         del src, run
     total = torch.cat([st.XTX, st.XTY], dim=1)
     flags = TB._stat_flags(cfg, True, True)
@@ -486,8 +605,13 @@ def main() -> int:
                 impl=impl, out=buf if impl == "cuda" else None))
                 for impl in ("cuda", "torch")}
             hold(label, name, run["cuda"](), run["torch"]())
-            chunk_times[name] = time_pair(label, name, run["cuda"],
-                                          run["torch"], buf.numel())
+            lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
+            chunk_times[name] = (
+                *time_pair(label, name, run["cuda"], run["torch"],
+                           buf.numel()),
+                *bound(*fold_cost(bs_p, idx.shape[1], 8)), lib)
+            log(f"[kfold-chunk] {label}: torch.bmm of the gathered blocks "
+                f"{lib:.4f} ms  [{card}]")
             del run
             continue
         blocks, stats5 = TB._gather_and_stats(cfg, st, rows, mask_d, True,
@@ -500,12 +624,13 @@ def main() -> int:
              FD.fold_epilogue(total, prod.clone(), kvec, cvec, impl="cuda"),
              FD.fold_epilogue(total, prod.clone(), kvec, cvec, impl="torch"))
         if p == 10:
-            chunk_times[name] = time_pair(
+            chunk_times[name] = (*time_pair(
                 label + ", epilogue over the product", name,
                 lambda: FD.fold_epilogue(total, prod, kvec, cvec,
                                          impl="cuda"),
                 lambda: FD.fold_epilogue(total, prod, kvec, cvec,
-                                         impl="torch"), prod.numel())
+                                         impl="torch"), prod.numel()),
+                *bound(*epilogue_cost(bs_p)), None)
         del prod, blocks, stats5
     buf = None
 
@@ -535,6 +660,7 @@ def main() -> int:
         if not np.isfinite(probe):
             raise AssertionError(f"P={p}: probe is not finite: {probe}")
         kfold_launches[expect] += counts[expect]
+        mat_totals[(np.float64, p)] = t_total
         sweeps = {"torch": [], "cuda": []}
         for impl in ("torch", "cuda"):
             sweeps[impl].append(wall(lambda impl=impl: float(
@@ -600,9 +726,9 @@ def main() -> int:
                 route = TB.route_kernel(cfg_s, st_s, idx.shape[1], xtx, xty,
                                         mask is not None)
                 name = ROUTE_WRAPPER_F32[route]
-                before = launch_counts(FD, fused_loocv)
+                before = launch_counts(FD, TL)
                 got = batch(cfg_s, st_s, idx, mask, xtx, xty, "cuda")
-                after = launch_counts(FD, fused_loocv)
+                after = launch_counts(FD, TL)
                 ref = batch(cfg_s, st_s, idx, mask, xtx, xty, "torch")
                 torch.cuda.synchronize()
                 launched = {n for n in after if after[n] != before[n]}
@@ -640,8 +766,10 @@ def main() -> int:
     label = f"f32 LOOCV chunk of {bs} folds"
     hold(label, "fused_loocv_f32", run["cuda"](), run["torch"](),
          F32_TWIN_RTOL)
-    chunk_times["fused_loocv_f32"] = time_pair(
-        label, "fused_loocv_f32", run["cuda"], run["torch"], buf.numel(), 4)
+    chunk_times["fused_loocv_f32"] = (
+        *time_pair(label, "fused_loocv_f32", run["cuda"], run["torch"],
+                   buf.numel(), 4),
+        *bound(*fold_cost(bs, 1, 4)), None)
     del src, buf, run
 
     idx_loo = Partitioner(np.arange(N)).padded_batches()[1]
@@ -650,10 +778,10 @@ def main() -> int:
         return float(materialize_cv(cfg32, Xd32, Yd32, wd32, idx_loo))
 
     t_warm, _ = wall(total_cv32)
-    reset_launch_counts(FD, fused_loocv)
+    reset_launch_counts(FD, TL)
     torch.cuda.reset_peak_memory_stats()
     t_total, probe32 = wall(total_cv32)
-    counts = launch_counts(FD, fused_loocv)
+    counts = launch_counts(FD, TL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if counts["fused_loocv_f32"] != n_chunks or any(
             v for n, v in counts.items() if n != "fused_loocv_f32"):
@@ -662,6 +790,7 @@ def main() -> int:
     if not np.isfinite(probe32):
         raise AssertionError(f"f32 main-path probe is not finite: {probe32}")
     kfold_launches["fused_loocv_f32"] = counts["fused_loocv_f32"]
+    mat_totals[(np.float32, N)] = t_total
     t_fit, st32 = wall(lambda: fit(cfg32, Xd32, Yd32, wd32, copy=False))
     sweeps = {"torch": [], "cuda": []}
     for impl in ("torch", "cuda", "cuda", "torch"):
@@ -742,17 +871,24 @@ def main() -> int:
         pair = time_pair(label, expect, run["cuda"], run["torch"],
                          buf.numel(), 4)
         if p != 3:  # the kernels line times the unmasked route's chunk
-            chunk_times[expect] = pair
+            lib = None
+            if expect == "fold_downdate_f32":
+                lib = library_ms(blocks.Xv_w, m2)
+                log(f"[kfold-chunk] {label}: torch.bmm of the blocks "
+                    f"{lib:.4f} ms  [{card}]")
+            chunk_times[expect] = (
+                *pair, *bound(*fold_cost(bs_p, idx.shape[1], 4,
+                                         gathered=False)), lib)
         run = buf = ops = blocks = m2 = None
 
         def cv32(idx=idx, mask=mask):
             return float(materialize_cv(cfg32, Xd32, Yd32, wd32, idx, mask))
 
         t_warm, _ = wall(cv32)
-        reset_launch_counts(FD, fused_loocv)
+        reset_launch_counts(FD, TL)
         torch.cuda.reset_peak_memory_stats()
         t_total, probe = wall(cv32)
-        counts = launch_counts(FD, fused_loocv)
+        counts = launch_counts(FD, TL)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if counts[expect] != n_chunks_p or any(
                 v for n, v in counts.items() if n != expect):
@@ -803,21 +939,406 @@ def main() -> int:
         f"({len(fields)} tensors); a bare float32 torch.matmul differs by "
         f"{bare_diff:.3e} between the two settings")
 
-    # ---- 13. result ----------------------------------------------------------
-    entries = [("fused_loocv", launches, worst_abs, kernel_ms, plain_ms)]
-    for name in (*ROUTE_WRAPPER.values(), *ROUTE_WRAPPER_F32.values()):
-        entries.append((name, kfold_launches[name], fold_err[name],
-                        *chunk_times[name]))
+    # ---- 13. policy-routed kernels against twins ---------------------------
+    default_policy = policy()
+    new_kernels = ("fused_loocv_x2", "fused_loocv_f32x2", "fused_loocv_sym",
+                   "fold_v3_sym")
+    for name in new_kernels:
+        fold_err[name] = fold_rel[name] = 0.0
+
+    def only(before, name, label):
+        after = launch_counts(FD, TL)
+        moved = {n for n in after if after[n] != before[n]}
+        if moved != {name}:
+            raise AssertionError(f"{label}: launched {moved}, expected "
+                                 f"{name}")
+
+    def held(name, got, ref, rtol, label):
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= rtol * scale:
+            raise AssertionError(f"{label}: {name} kernel vs twin max|diff| "
+                                 f"{err:.3e} > {rtol:g} * {scale:.3e}")
+        fold_err[name] = max(fold_err[name], err)
+        fold_rel[name] = max(fold_rel[name], err / scale)
+
+    def symmetric(out, label):
+        x = out[:, :, :K]
+        if not torch.equal(x, x.mT):
+            raise AssertionError(f"{label}: X block not exactly symmetric")
+
+    iu = torch.triu_indices(K, K, device=dev)
+    upper_diff = {"fused_loocv_sym": 0.0, "fold_v3_sym": 0.0}
+
+    def upper_vs_full(name, got, full):
+        """max|sym - full| over the upper triangle and the XTY columns: the
+        same arithmetic, so 0 is expected; logged, not held."""
+        d = max((got[:, iu[0], iu[1]] - full[:, iu[0], iu[1]]).abs().max(),
+                (got[:, :, K:] - full[:, :, K:]).abs().max()).item()
+        upper_diff[name] = max(upper_diff[name], d)
+
+    rng = np.random.default_rng(SEED + 3)
+    rows64 = np.sort(rng.choice(n_small, 64, replace=False))
+    v3_idx = np.stack([rng.choice(n_small, 100, replace=False)
+                       for _ in range(8)])
+    v3_mask = np.ones(v3_idx.shape)
+    v3_mask[::2, -10:] = 0.0
+    cases = 0
+    for flags in itertools.product([True, False], repeat=4):
+        for w in (ws, None):
+            for dtype in (np.float64, np.float32):
+                f64 = dtype == np.float64
+                cfg_s = CVConfig(*flags, ddof=1, dtype=dtype)
+                st_s = fit(cfg_s, Xs.astype(dtype), Ys.astype(dtype),
+                           None if w is None else w.astype(dtype),
+                           device=dev)
+                x2name = "fused_loocv_x2" if f64 else "fused_loocv_f32x2"
+                rtol = TWIN_RTOL if f64 else F32_TWIN_RTOL
+                for rows in (rows64, rows64[:63]):
+                    label = f"{cfg_s}, {len(rows)} folds"
+                    src = prepare_loocv_sources(cfg_s, st_s, rows)
+                    one = loocv_from_sources(cfg_s, src, rows,
+                                             return_XTY=True, impl="cuda")
+                    before = launch_counts(FD, TL)
+                    two = loocv_from_sources(cfg_s, src, rows,
+                                             return_XTY=True,
+                                             two_per_step=True, impl="cuda")
+                    only(before, x2name, label)
+                    ref = loocv_from_sources(cfg_s, src, rows,
+                                             return_XTY=True, impl="torch")
+                    held(x2name, two, ref, rtol, label)
+                    if not torch.equal(one, two):
+                        raise AssertionError(f"{label}: {x2name} differs "
+                                             "from one fold per block")
+                    cases += 1
+                    if not f64:
+                        continue
+                    before = launch_counts(FD, TL)
+                    sym = loocv_from_sources(cfg_s, src, rows,
+                                             return_XTY=True, sym=True,
+                                             impl="cuda")
+                    only(before, "fused_loocv_sym", label)
+                    ref = loocv_from_sources(cfg_s, src, rows,
+                                             return_XTY=True, sym=True,
+                                             impl="torch")
+                    held("fused_loocv_sym", sym, ref, TWIN_RTOL, label)
+                    symmetric(sym, label)
+                    upper_vs_full("fused_loocv_sym", sym, one)
+                    cases += 1
+                if not f64:
+                    continue
+                for mask in (None, v3_mask):
+                    label = f"{cfg_s}, L=100, masked={mask is not None}"
+                    vsrc = TB.prepare_ozaki_sources(cfg_s, st_s, v3_idx, mask)
+                    full = TB.ozaki_v3_from_sources(cfg_s, vsrc,
+                                                    return_XTY=True,
+                                                    impl="cuda")
+                    set_routing(sym_loocv=True)
+                    try:
+                        before = launch_counts(FD, TL)
+                        got = TB.ozaki_v3_from_sources(
+                            cfg_s, vsrc, return_XTY=True, impl="cuda")
+                        only(before, "fold_v3_sym", label)
+                        ref = TB.ozaki_v3_from_sources(
+                            cfg_s, vsrc, return_XTY=True, impl="torch")
+                    finally:
+                        set_routing(sym_loocv=False)
+                    held("fold_v3_sym", got, ref, TWIN_RTOL, label)
+                    symmetric(got, label)
+                    upper_vs_full("fold_v3_sym", got, full)
+                    cases += 1
+    log(f"[policy-twin] {cases} cases (N={n_small}; LOOCV over 64 and 63 "
+        f"folds in both dtypes, v3 L=100 unmasked and masked): worst "
+        f"max|diff| { {n: fold_err[n] for n in new_kernels} }, worst "
+        f"relative { {n: fold_rel[n] for n in new_kernels} }; x2 equal to "
+        f"one fold per block bit for bit; sym X blocks exactly symmetric; "
+        f"sym - full over the computed entries {upper_diff}")
+
+    # Full-width chunks: x2 beside one fold per block, sym beside full.
+    def time_turns(label, fns, reps):
+        """CUDA-event ms of each of ``fns`` ({name: fn}), in turns, there
+        and back; the best of the two."""
+        order = list(fns) + list(fns)[::-1]
+        ms = {n: [] for n in fns}
+        for n in order:
+            ms[n].append(cuda_ms(fns[n], reps[n]))
+        log(f"[policy-chunk] {label}: " + ", ".join(
+            f"{n} {ms[n]} ms" for n in fns) + f" (order {order})  [{card}]")
+        return {n: min(v) for n, v in ms.items()}
+
+    bs_x2 = bs + bs % 2  # the chunk a sweep takes under x2
+    rows_x2 = torch.arange(bs_x2, dtype=torch.int64).pin_memory()
+    for cfg_c, st_c, item, x2name in ((cfg, st, 8, "fused_loocv_x2"),
+                                      (cfg32, st32, 4, "fused_loocv_f32x2")):
+        src = prepare_loocv_sources(cfg_c, st_c, rows_x2)
+        buf1 = torch.empty((bs_x2, K, K + M), dtype=st_c.X.dtype, device=dev)
+        buf2 = torch.empty_like(buf1)
+        fns = {
+            "plain": lambda: loocv_from_sources(
+                cfg_c, src, rows_x2, return_XTY=True, impl="torch"),
+            "one per block": lambda: loocv_from_sources(
+                cfg_c, src, rows_x2, return_XTY=True, impl="cuda", out=buf1),
+            "x2": lambda: loocv_from_sources(
+                cfg_c, src, rows_x2, return_XTY=True, two_per_step=True,
+                impl="cuda", out=buf2),
+        }
+        ref = fns["plain"]()
+        fns["one per block"]()
+        fns["x2"]()
+        held(x2name, buf2, ref, TWIN_RTOL if item == 8 else F32_TWIN_RTOL,
+             f"{x2name} chunk")
+        if not torch.equal(buf1, buf2):
+            raise AssertionError(f"{x2name} chunk differs from one fold per "
+                                 "block")
+        ms = time_turns(
+            f"{x2name}: {bs_x2}-fold LOOCV chunk, {dtype_name(item)}", fns,
+            {"plain": 3, "one per block": 20, "x2": 20})
+        chunk_times[x2name] = (ms["x2"], ms["plain"],
+                               *bound(*fold_cost(bs_x2, 1, item)), None)
+        del src, buf1, buf2, ref
+
+    src = prepare_loocv_sources(cfg, st, rows_chunk)
+    buf1 = torch.empty((bs, K, K + M), dtype=torch.float64, device=dev)
+    buf2 = torch.empty_like(buf1)
+    fns = {
+        "plain sym": lambda: loocv_from_sources(
+            cfg, src, rows_chunk, return_XTY=True, sym=True, impl="torch"),
+        "full kernel": lambda: loocv_from_sources(
+            cfg, src, rows_chunk, return_XTY=True, impl="cuda", out=buf1),
+        "sym kernel": lambda: loocv_from_sources(
+            cfg, src, rows_chunk, return_XTY=True, sym=True, impl="cuda",
+            out=buf2),
+    }
+    ref = fns["plain sym"]()
+    fns["full kernel"]()
+    fns["sym kernel"]()
+    held("fused_loocv_sym", buf2, ref, TWIN_RTOL, "fused_loocv_sym chunk")
+    symmetric(buf2, "fused_loocv_sym chunk")
+    upper_vs_full("fused_loocv_sym", buf2, buf1)
+    ms = time_turns(f"fused_loocv_sym: {bs}-fold LOOCV chunk", fns,
+                    {"plain sym": 3, "full kernel": 20, "sym kernel": 20})
+    chunk_times["fused_loocv_sym"] = (ms["sym kernel"], ms["plain sym"],
+                                      *bound(*fold_cost(bs, 1, 8, sym=True)),
+                                      None)
+    del src, buf1, buf2, ref
+
+    for p in (10_000, 1_000):
+        idx, _, bs_p, _ = chunk_idx(p)
+        src = TB.prepare_ozaki_sources(cfg, st, idx[:bs_p])
+        buf1 = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
+        buf2 = torch.empty_like(buf1)
+
+        def v3(sym, impl, out=None, src=src):
+            set_routing(sym_loocv=sym)
+            try:
+                return TB.ozaki_v3_from_sources(cfg, src, return_XTY=True,
+                                                impl=impl, out=out)
+            finally:
+                set_routing(sym_loocv=False)
+
+        fns = {"plain sym": lambda: v3(True, "torch"),
+               "full kernel": lambda: v3(False, "cuda", buf1),
+               "sym kernel": lambda: v3(True, "cuda", buf2)}
+        label = (f"fold_v3_sym: P={p:,} chunk of {bs_p} folds x "
+                 f"L={idx.shape[1]}")
+        ref = fns["plain sym"]()
+        fns["full kernel"]()
+        fns["sym kernel"]()
+        held("fold_v3_sym", buf2, ref, TWIN_RTOL, label)
+        symmetric(buf2, label)
+        upper_vs_full("fold_v3_sym", buf2, buf1)
+        ms = time_turns(label, fns, {"plain sym": 3, "full kernel": 10,
+                                     "sym kernel": 10})
+        if p == 1_000:
+            lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
+            log(f"[policy-chunk] {label}: torch.bmm of the gathered blocks "
+                f"{lib:.4f} ms  [{card}]")
+            chunk_times["fold_v3_sym"] = (
+                ms["sym kernel"], ms["plain sym"],
+                *bound(*fold_cost(bs_p, idx.shape[1], 8, sym=True)), lib)
+        del src, buf1, buf2, ref
+
+    # ---- 14. policy-routed sweeps at full width -----------------------------
+    policy_launches = {name: 0 for name in new_kernels}
+    log(f"[policy] weighted TTTT N={N} K={K} M={M} through materialize_cv "
+        f"under set_routing  [{card}]")
+    for label, knobs, dtype, p, expect in POLICY_RUNS:
+        f64 = dtype == np.float64
+        cfg_p = cfg if f64 else cfg32
+        data = (Xd, Yd, wd) if f64 else (Xd32, Yd32, wd32)
+        idx, mask, _, _ = chunk_idx(p)
+        set_routing(**knobs)
+        try:
+            bs_p, n_chunks_p = sweep_chunking(cfg_p, p, K, K + M)
+
+            def cv(idx=idx, mask=mask):
+                return float(materialize_cv(cfg_p, *data, idx, mask))
+
+            t_warm, _ = wall(cv)
+            reset_launch_counts(FD, TL)
+            t_total, probe = wall(cv)
+            counts = launch_counts(FD, TL)
+        finally:
+            set_routing(**vars(default_policy))
+        if counts[expect] != n_chunks_p or any(
+                v for n, v in counts.items() if n != expect):
+            raise AssertionError(f"{label}: launches {counts}; expected "
+                                 f"{n_chunks_p} of {expect}")
+        policy_launches[expect] += counts[expect]
+        f = min((n_chunks_p - 1) * bs_p, p - 1)
+        rows_f = idx[f]
+        if f64:
+            (xtx, xty), _ = naive.training_XTX_XTY(np.delete(all_rows,
+                                                             rows_f))
+            expect_probe = float(xtx[0, 0] + xty[0, 0])
+            ok = abs(probe - expect_probe) <= ORACLE_RTOL * abs(expect_probe)
+        else:
+            (xtx, xty), _ = naive32.training_XTX_XTY(np.delete(all_rows,
+                                                               rows_f))
+            expect_probe = float(xtx[0, 0] + xty[0, 0])
+            scale = max(np.abs(xtx).max(), np.abs(xty).max())
+            ok = abs(probe - expect_probe) <= F32_ORACLE_RTOL * scale
+        if not (np.isfinite(probe) and ok):
+            raise AssertionError(f"{label}: probe {probe!r} vs oracle "
+                                 f"{expect_probe!r} (fold {f})")
+        # The default policy's total and this one's, in turns.
+        turns = {"default": [], "knobs": []}
+        for which in ("default", "knobs", "knobs", "default"):
+            set_routing(**(knobs if which == "knobs" else {}))
+            try:
+                turns[which].append(wall(cv)[0])
+            finally:
+                set_routing(**vars(default_policy))
+        log(f"[policy] {label} (L={idx.shape[1]}, {n_chunks_p} chunks of "
+            f"{bs_p}): total {t_total:.4f} s (warm-up {t_warm:.4f} s); in "
+            f"turns default policy {turns['default']} s, {knobs} "
+            f"{turns['knobs']} s; {expect} launches {counts[expect]}; probe "
+            f"{probe!r} vs oracle {expect_probe!r} (fold {f})")
+
+    # ---- 15. reduce sweeps at full width ------------------------------------
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+
+    def trace_fn(mats, stats):
+        return torch.trace(mats[0]) + mats[1][0, 0]
+
+    def ridge_fn(mats, stats):
+        return torch.linalg.solve(mats[0] + 1e-6 * eye, mats[1])
+
+    reduce_runs = (
+        ("LOOCV, trace", {}, N, trace_fn, "fused_loocv"),
+        ("LOOCV under sym_loocv, trace", dict(sym_loocv=True), N, trace_fn,
+         "fused_loocv_sym"),
+        ("P=25,000 (packed loop), trace", {}, 25_000, trace_fn,
+         "fold_packed"),
+        ("P=1,000 (v3 loop), ridge solve", {}, 1_000, ridge_fn, "fold_v3"),
+        ("P=1,000 under hoist_reduce=False, ridge solve",
+         dict(hoist_reduce=False), 1_000, ridge_fn, "fold_v3"),
+    )
+    log(f"[reduce] weighted TTTT f64 N={N} K={K} M={M}: fit + "
+        f"cross_validate_reduce (batch_size 512)  [{card}]")
+    for label, knobs, p, fn, expect in reduce_runs:
+        idx, mask, _, _ = chunk_idx(p)
+        n_chunks_r = -(-p // 512)
+        set_routing(**knobs)
+        try:
+            def run(idx=idx, mask=mask, fn=fn):
+                st_r = fit(cfg, Xd, Yd, wd, copy=False)
+                return cross_validate_reduce(cfg, st_r, idx, mask,
+                                             reduce_fn=fn)
+
+            t_warm, _ = wall(run)
+            reset_launch_counts(FD, TL)
+            t_total, out = wall(run)
+            counts = launch_counts(FD, TL)
+        finally:
+            set_routing(**vars(default_policy))
+        if counts[expect] != n_chunks_r or any(
+                v for n, v in counts.items() if n != expect):
+            raise AssertionError(f"{label}: launches {counts}; expected "
+                                 f"{n_chunks_r} of {expect}")
+        if out.shape[0] != p or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: {tuple(out.shape)} result, or "
+                                 "not finite")
+        worst = 0.0
+        for f in (0, p // 2, p - 1):
+            rows_f = idx[f] if mask is None else idx[f][mask[f] > 0]
+            mats, stats = training_matrices(cfg, st, rows_f)
+            ref = fn(mats, stats)
+            err = (out[f] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if fn is ridge_fn:
+                cond = torch.linalg.cond(mats[0] + 1e-6 * eye).item()
+                limit = 2e-10 * cond * scale
+            else:
+                cond, limit = None, ORACLE_RTOL * scale
+            if not err <= limit:
+                raise AssertionError(f"{label}: fold {f} max|sweep - per-fold "
+                                     f"engine| {err:.3e} > {limit:.3e}")
+            worst = max(worst, err / scale)
+        base = mat_totals.get((np.float64, p))
+        log(f"[reduce] {label}: total {t_total:.4f} s (warm-up {t_warm:.4f} "
+            f"s), materialize_cv at this P {base:.4f} s; {expect} launches "
+            f"{counts[expect]}; folds 0, {p // 2}, {p - 1} against the "
+            f"per-fold engine: worst relative {worst:.3e}")
+        del out
+
+    def device_busy(label, fn):
+        """Run ``fn`` once under ``torch.profiler`` (device activity only:
+        with host activity on, host events carry device time of their own)
+        and log the device time summed over every kernel and copy against
+        the host clock around the call (the profiler's cost included).
+        Only the profiler is guarded: an error of ``fn`` fails the phase."""
+        try:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        except Exception as e:  # a measurement, not a check
+            prof = None
+            log(f"[profile] {label}: not measured (profiler: "
+                f"{type(e).__name__}: {e})")
+        t, _ = wall(fn)
+        if prof is None:
+            return
+        try:
+            prof.stop()
+            busy = sum(e.self_device_time_total
+                       for e in prof.key_averages()) / 1e3
+        except Exception as e:  # a measurement, not a check
+            log(f"[profile] {label}: not measured (profiler: "
+                f"{type(e).__name__}: {e})")
+            return
+        t *= 1e3
+        log(f"[profile] {label}: kernels {busy:.2f} ms of {t:.2f} ms under "
+            f"torch.profiler, device idle {1 - busy / t:.1%}  [{card}]")
+
+    idx_loo = chunk_idx(N)[0]
+    device_busy("materialize_cv LOOCV", lambda: float(materialize_cv(
+        cfg, Xd, Yd, wd, idx_loo)))
+    device_busy("fit + cross_validate_reduce LOOCV, trace",
+                lambda: cross_validate_reduce(
+                    cfg, fit(cfg, Xd, Yd, wd, copy=False), idx_loo,
+                    reduce_fn=trace_fn).sum().item())
+
+    # ---- 16. result ---------------------------------------------------------
+    kernel_launches = {"fused_loocv": launches, **kfold_launches,
+                       **policy_launches}
+    fold_err["fused_loocv"] = worst_abs
+    names = ("fused_loocv", *ROUTE_WRAPPER.values(),
+             *ROUTE_WRAPPER_F32.values(), *new_kernels)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],
-        "launches": n_launch,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": pms,
-    } for name, n_launch, err, ms, pms in entries]}), flush=True)
+        "launches": kernel_launches[name],
+        "max_abs_err": fold_err[name],
+        "ms": chunk_times[name][0],
+        "plain_ms": chunk_times[name][1],
+        "bound_ms": chunk_times[name][2],
+        "bound_by": chunk_times[name][3],
+        "library_ms": chunk_times[name][4],
+    } for name in names]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -9,7 +9,9 @@ and loads no kernel: each kernel is compiled from ``csrc/`` at first launch.
 
 Public surface: ``CVMatrix`` (the engine facade) and ``Partitioner`` (fold
 bookkeeping), plus the functional core (``CVConfig``, ``FitState``, ``fit``,
-``training_*``).
+``training_*``) and the routing policy (``RoutingPolicy``, ``policy``,
+``set_routing``). Entry points given non-tensor inputs run on the CUDA
+card unless the caller passes ``device="cpu"``.
 """
 
 from .config import CVConfig
@@ -23,6 +25,7 @@ from .core import (
     training_XTY,
 )
 from .models import CVMatrix, Partitioner
+from .policy import RoutingPolicy, policy, set_routing
 
 __version__ = "0.1.0"
 
@@ -37,5 +40,8 @@ __all__ = [
     "training_XTY",
     "training_XTX_XTY",
     "training_statistics",
+    "RoutingPolicy",
+    "policy",
+    "set_routing",
     "__version__",
 ]

@@ -15,6 +15,12 @@ the same kernel.
 Fold rows are range-checked on the host once (``ops.loocv.check_rows``)
 and the kernel routes skip the per-fold validity raises (the JAX package's
 ``check=False``), so no route synchronises the device per chunk.
+
+The routing policy (:mod:`cvmatrix_tpu_torch.policy`) is read at each call:
+``sym_loocv`` sends float64 LOOCV and v3 batches to the symmetric kernels,
+``df64x2``/``f32x2`` send LOOCV batches of an even fold count to two folds
+per block, as the JAX package's accessors (``_sym_enabled`` and siblings)
+do at trace time.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..config import CVConfig
 from ..ops import fold_downdate as _fd
 from ..ops import loocv as _loocv
 from ..ops.precision import highest_precision
+from ..policy import policy as _policy
 from .fold import FoldBlocks, _compute_training_stats, gather_val_blocks
 from .state import FitState
 
@@ -42,6 +49,7 @@ __all__ = [
     "large_fold_threshold",
     "loocv_from_sources",
     "loocv_single_tile_ok",
+    "loocv_sym_tile",
     "ozaki_trim_groups",
     "ozaki_v3_from_sources",
     "ozaki_v3_ok",
@@ -49,6 +57,7 @@ __all__ = [
     "prepare_loocv_sources",
     "prepare_ozaki_sources",
     "route_kernel",
+    "run_loocv_route",
     "slice_operands",
     "training_matrices_batched",
 ]
@@ -192,26 +201,42 @@ def prepare_loocv_sources(
     return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal)
 
 
+def _loocv_flags(config: CVConfig, return_XTY: bool) -> dict:
+    return dict(center_xtx=config.center_X,
+                center_xty=config.center_X or config.center_Y,
+                scale_x=config.scale_X, scale_y=config.scale_Y,
+                with_y=return_XTY, resolution=config.resolution)
+
+
 def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
                        scal_slice=None, *, return_XTY: bool,
+                       two_per_step: bool = False, sym: bool = False,
                        impl: str = "auto", out=None) -> torch.Tensor:
     """Run the LOOCV downdate on (a slice of) prepared sources.
 
     Returns (F, K, C) with ``XTX = out[..., :K]`` and ``XTY = out[..., K:]``.
-    ``impl``: ``"auto"`` (the kernel on CUDA, the twin on CPU), ``"cuda"``
-    or ``"torch"``.
+    ``two_per_step`` launches two folds per block (the ports of
+    ``fused_loocv_df64x2`` and ``fused_loocv_f32x2``): the same arithmetic.
+    ``sym`` (float64) runs the port of ``fused_loocv_df64_sym``: the X
+    block's upper triangle computed, its strictly lower part the mirror,
+    the XTY columns computed. ``impl``: ``"auto"`` (the kernel on CUDA, the
+    twin on CPU), ``"cuda"`` or ``"torch"``.
     """
     return _loocv.fused_loocv(
-        src, rows, src.scal if scal_slice is None else scal_slice,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        resolution=config.resolution,
-        impl=impl,
-        out=out,
-    )
+        src, rows, src.scal if scal_slice is None else scal_slice, sym=sym,
+        folds_per_block=2 if two_per_step else 1, impl=impl, out=out,
+        **_loocv_flags(config, return_XTY))
+
+
+def run_loocv_route(config: CVConfig, src: LoocvSources, rows, route: str,
+                    scal_slice=None, *, return_XTY: bool, impl: str = "auto",
+                    out=None) -> torch.Tensor:
+    """One of :func:`route_kernel`'s three LOOCV routes on prepared
+    sources: ``"loocv_sym"``, ``"loocv_x2"`` or ``"loocv"``."""
+    return loocv_from_sources(config, src, rows, scal_slice,
+                              return_XTY=return_XTY,
+                              two_per_step=route == "loocv_x2",
+                              sym=route == "loocv_sym", impl=impl, out=out)
 
 
 # --------------------------------------------------------------------------- #
@@ -222,15 +247,20 @@ def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
 # batch.py:970-971): 10 where the fused Ozaki kernels apply, else 32.
 LARGE_FOLD_ROWS = 32
 FUSED_LARGE_FOLD_ROWS = 10
-# The Ozaki slice width and the default trim budget (the JAX package's
-# precise._T_BITS and policy.ozaki_budget_log2): they gate v3 by fold size.
+# The Ozaki slice width (the JAX package's precise._T_BITS); with the
+# policy's trim budget it gates v3 by fold size.
 _OZAKI_T_BITS = 6
-_OZAKI_BUDGET_LOG2 = -31
 
 # route_kernel's routes and the TPU kernel each one ports
 TPU_KERNELS = {
     "loocv": "fused_loocv_df64 (cvmatrix_tpu/ops/kernels.py:892); in "
              "float32 fused_loocv_f32 (cvmatrix_tpu/ops/kernels.py:1826)",
+    "loocv_x2": "fused_loocv_df64x2 (cvmatrix_tpu/ops/kernels.py:1003); in "
+                "float32 fused_loocv_f32x2 "
+                "(cvmatrix_tpu/ops/kernels.py:1980)",
+    "loocv_sym": "fused_loocv_df64_sym (cvmatrix_tpu/ops/kernels.py:1190)",
+    "v3_sym": "fused_ozaki_downdate_v3_sym "
+              "(cvmatrix_tpu/ops/kernels.py:2430)",
     "packed": "fused_downdate_df64_packed (cvmatrix_tpu/ops/kernels.py:382)",
     "packed_f32": "fused_downdate_f32_packed "
                   "(cvmatrix_tpu/ops/kernels.py:630)",
@@ -250,10 +280,50 @@ def _exact(config: CVConfig) -> bool:
     return config.matmul_mode in ("auto", "exact")
 
 
+def _sym_enabled() -> bool:
+    return _policy().sym_loocv
+
+
+def _f32x2_enabled() -> bool:
+    return _policy().f32x2
+
+
+def _df64x2_enabled() -> bool:
+    return _policy().df64x2
+
+
+def _hoist_reduce_enabled() -> bool:
+    return _policy().hoist_reduce
+
+
+def loocv_sym_tile(kp: int):
+    """The JAX package's tile for its symmetric kernels, or ``None`` where
+    it runs the full ones (JAX ``core/batch.py:631``): at least two tiles
+    per side of the padded width ``kp``. The port mirrors at element
+    granularity and needs no tile; the gate keeps both packages on the
+    same route."""
+    if kp >= 512 and kp % 256 == 0:
+        return 256
+    if kp >= 256 and kp % 128 == 0:
+        return 128
+    return None
+
+
+def _sym_applies(config: CVConfig, k: int) -> bool:
+    """Whether ``sym_loocv`` routes a float64 batch of ``k`` X columns to
+    the symmetric kernels (the width is padded as the JAX sources pad)."""
+    return (_sym_enabled() and _is_f64(config)
+            and loocv_sym_tile(_round_up(max(k, 8), 128)) is not None)
+
+
 def ozaki_trim_groups(n_l: int, *, n_slices: int = 10,
-                      budget_log2: int = _OZAKI_BUDGET_LOG2) -> int:
+                      budget_log2: Optional[int] = None) -> int:
     """Slice-product groups the JAX v3 kernel keeps for a fold of ``n_l``
-    rows (JAX ``ops/kernels.py:2083``); only the v3 gate reads it here."""
+    rows (JAX ``ops/kernels.py:2083``), under the policy's
+    ``ozaki_budget_log2`` unless ``budget_log2`` is given; only the v3
+    gate and the reduce sweep's hoist estimate read it here."""
+    if budget_log2 is None:
+        budget_log2 = _policy().ozaki_budget_log2
     lp = _round_up(max(n_l, 1), 32)
     for sp in range(2, n_slices):
         if (1.2 * (sp + 1) * lp * 2.0 ** (-_OZAKI_T_BITS * sp)
@@ -309,27 +379,38 @@ def _use_fused(config, state, return_XTX, return_XTY, n_l) -> bool:
 
 
 def route_kernel(config: CVConfig, state: FitState, n_l: int,
-                 return_XTX: bool, return_XTY: bool, masked: bool) -> str:
+                 return_XTX: bool, return_XTY: bool, masked: bool, *,
+                 n_folds: Optional[int] = None) -> str:
     """The route, by its TPU kernel, of a batch of folds of ``n_l`` rows.
 
     A key of :data:`TPU_KERNELS` (which names each route's kernel), chosen by
     the JAX package's gates: one-row unmasked folds on one tile take the
-    LOOCV kernel (in either dtype). Float32 batches then take the f32
-    engine's kernels: the packed one under ``LARGE_FOLD_ROWS``, else
-    ``fused_downdate``. Float64 batches take the packed kernel under
-    :func:`large_fold_threshold`, then v3 where :func:`ozaki_v3_ok`, the
-    Ozaki-df64 kernel where the large-fold path fuses, else a product plus
-    the epilogue kernel.
+    LOOCV kernel (in either dtype): ``"loocv_sym"`` in float64 under the
+    policy's ``sym_loocv`` where :func:`loocv_sym_tile` applies (sym wins),
+    else ``"loocv_x2"`` under the dtype's x2 knob when ``n_folds`` is even
+    (``None``: a sweep chunk, which the materialising sweeps bump even),
+    else ``"loocv"``. Float32 batches then take the f32 engine's kernels:
+    the packed one under ``LARGE_FOLD_ROWS``, else ``fused_downdate``.
+    Float64 batches take the packed kernel under
+    :func:`large_fold_threshold`, then v3 where :func:`ozaki_v3_ok`
+    (``"v3_sym"`` under ``sym_loocv`` as for LOOCV), the Ozaki-df64 kernel
+    where the large-fold path fuses, else a product plus the epilogue
+    kernel.
     """
     if n_l == 1 and not masked and loocv_single_tile_ok(
             config, state, return_XTX, return_XTY):
+        if _sym_applies(config, state.K):
+            return "loocv_sym"
+        x2 = _df64x2_enabled() if _is_f64(config) else _f32x2_enabled()
+        if x2 and (n_folds is None or n_folds % 2 == 0):
+            return "loocv_x2"
         return "loocv"
     if not _is_f64(config):
         return "downdate_f32" if n_l >= LARGE_FOLD_ROWS else "packed_f32"
     if n_l < large_fold_threshold(config, state, return_XTX, return_XTY):
         return "packed"
     if ozaki_v3_ok(config, state, return_XTX, return_XTY, n_l):
-        return "v3"
+        return "v3_sym" if _sym_applies(config, state.K) else "v3"
     if _use_fused(config, state, return_XTX, return_XTY, n_l):
         return "ozaki_df64"
     return "epilogue"
@@ -659,15 +740,46 @@ def prepare_ozaki_sources(
 def ozaki_v3_from_sources(config: CVConfig, src: OzakiSources, *,
                           return_XTY: bool, impl: str = "auto",
                           out=None) -> torch.Tensor:
-    """Run the v3 downdate on (a slice of) prepared sources -> (F, K, C)."""
+    """Run the v3 downdate on (a slice of) prepared sources -> (F, K, C).
+
+    Under the policy's ``sym_loocv``, where :func:`loocv_sym_tile` applies,
+    the symmetric v3 kernel runs (port of ``fused_ozaki_downdate_v3_sym``;
+    the JAX switch is in its ``ozaki_v3_from_sources``).
+    """
     return _fd.fold_v3(
         src.total, src.xw, src.xu, src.yu, src.rows, src.mask, src.gx,
         src.sxv, src.yvec, src.scal,
         center_xtx=config.center_X,
         center_xty=config.center_X or config.center_Y,
         scale_x=config.scale_X, scale_y=config.scale_Y, with_y=return_XTY,
-        resolution=config.resolution, impl=impl, out=out,
+        resolution=config.resolution,
+        sym=_sym_applies(config, src.total.shape[0]), impl=impl, out=out,
     )
+
+
+# Device memory a reduce sweep's whole-sweep operand hoist may take (the
+# JAX package's value and estimates, so that both packages take the same
+# loop; the estimates count the JAX package's padded pair and int8 layouts).
+_HOIST_BUDGET_BYTES = 4e9
+
+
+def _hoisted_operand_bytes(state, n_folds, n_l, return_XTX,
+                           return_XTY) -> int:
+    """The JAX estimate of :func:`prepare_fold_operands`' hoisted streams
+    (JAX ``core/batch.py:1006``)."""
+    _, _, kp, cp = _padded_dims(state, return_XTX, return_XTY)
+    return 8 * n_folds * (n_l + 2) * (kp + cp)
+
+
+def _v3_hoist_bytes(state, n_folds, n_l) -> int:
+    """The JAX estimate of a hoisted v3 reduce sweep's resident bytes (JAX
+    ``core/batch.py:1017``)."""
+    kp = _round_up(max(state.K, 8), 128)
+    n_sp = ozaki_trim_groups(n_l)
+    planes = 2 * n_sp * state.N * kp
+    streams = n_folds * (2 * kp + 4 * kp + 128) * 4
+    stats = n_folds * state.K * 8 * 2
+    return planes + streams + stats
 
 
 # --------------------------------------------------------------------------- #
@@ -830,15 +942,15 @@ def training_matrices_batched(
         idx = idx[:, None]
     mask_np = None if mask_batch is None else np.asarray(mask_batch)
     route = route_kernel(config, state, idx.shape[1], return_XTX, return_XTY,
-                         mask_np is not None)
+                         mask_np is not None, n_folds=idx.shape[0])
     flags = _stat_flags(config, return_XTX, return_XTY)
-    if route == "loocv":
-        # The LOOCV route checks its host rows itself.
+    if route.startswith("loocv"):
+        # The LOOCV routes check their host rows themselves.
         src = prepare_loocv_sources(config, state, idx[:, 0],
                                     return_XTX=return_XTX,
                                     return_XTY=return_XTY)
-        out = loocv_from_sources(config, src, idx[:, 0],
-                                 return_XTY=return_XTY, impl=impl)
+        out = run_loocv_route(config, src, idx[:, 0], route,
+                              return_XTY=return_XTY, impl=impl)
         rows = torch.from_numpy(idx.astype(np.int64)).to(device)
         stats = _summed_stats(config, state, rows, None, **flags)[:4]
         return _split(out, state.K, return_XTX, return_XTY), stats
@@ -848,7 +960,7 @@ def training_matrices_batched(
                                            return_XTX=return_XTX,
                                            return_XTY=return_XTY)
         out = downdate_from_operands(ops, impl=impl)
-    elif route == "v3":
+    elif route in ("v3", "v3_sym"):
         src = prepare_ozaki_sources(config, state, rows, mask,
                                     return_XTX=return_XTX,
                                     return_XTY=return_XTY)

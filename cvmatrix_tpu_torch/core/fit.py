@@ -20,7 +20,23 @@ from ..config import CVConfig
 from ..ops.precision import highest_precision
 from .state import FitState
 
-__all__ = ["fit"]
+__all__ = ["fit", "default_device"]
+
+
+def default_device(X, device=None) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else a tensor
+    ``X``'s device, else the CUDA card. Without a card that last case
+    raises: the port never falls back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(X, torch.Tensor):
+        return X.device
+    if not torch.cuda.is_available():
+        raise ValueError(
+            "no CUDA card: torch.cuda.is_available() is false. The port runs "
+            "on the card by default; pass device='cpu' to run on the CPU."
+        )
+    return torch.device("cuda")
 
 
 def _shares_memory(t: torch.Tensor, src) -> bool:
@@ -60,11 +76,11 @@ def fit(
     """Compute the dataset-wide products and statistics.
 
     Inputs may be NumPy arrays or tensors; everything lands on ``device``
-    (default: ``X``'s device for a tensor, else the CPU). Raises
-    ``ValueError`` for negative weights unless ``validate=False``.
+    (default: ``X``'s device for a tensor, else the CUDA card, see
+    :func:`default_device`). Raises ``ValueError`` for negative weights
+    unless ``validate=False``.
     """
-    if device is None:
-        device = X.device if isinstance(X, torch.Tensor) else "cpu"
+    device = default_device(X, device)
     dtype = config.torch_dtype
     X = _init_mat(X, dtype, device, copy)
     Y_arr = None if Y is None else _init_mat(Y, dtype, device, copy)

@@ -18,7 +18,8 @@
 //   cvm_fold_ozaki_df64_f64   <- fused_ozaki_downdate_df64 (reference form)
 //       out = (total - (D + p (x) q)) (.) (i1 (x) i2)
 //       rows gathered by index: Xv_w = xw[rows] * mask, [xu | yu][rows].
-//   cvm_fold_v3_f64           <- fused_ozaki_downdate_v3
+//   cvm_fold_v3_f64           <- fused_ozaki_downdate_v3, and with sym
+//                                set fused_ozaki_downdate_v3_sym
 //       the reference form above, after a vector phase that derives the
 //       fold's X-side vectors as the TPU kernel does (see below).
 //
@@ -61,6 +62,18 @@
 // (g_sum - sxv) / sw, the clamped reciprocal std, p = sw mX, q = [mX | the
 // Y part of yvec], i1 = r1 and i2 = [r1 | the Y part of yvec], into kvec
 // and cvec scratch that the tile phase then reads.
+//
+// Symmetric v3 (the port of fused_ozaki_downdate_v3_sym): each fold's X
+// block is symmetric up to rounding, so only the 64 x 64 tiles with tile
+// row <= tile column are launched (every tile that holds XTY columns is
+// among them: a tile below the diagonal holds X columns only), 36 of 64 at
+// K=500, M=10. An upper tile stores its X columns a second time, transposed
+// into the mirror tile, through shared memory so that both stores are
+// coalesced; a diagonal tile stores j >= i of its X part and mirrors j > i,
+// so out[f][j][i] = out[f][i][j] for i < j < K exactly. The vector phase
+// is unchanged. Where the product's FMAs bound the kernel (hundreds of
+// rows a fold) this cuts the work to 36/64; where the stores do (L = 10),
+// the bytes written stay the same.
 //
 // Rows are int64 and range-checked on the host before any launch.
 // Plain C interface, bound with ctypes (cvmatrix_tpu_torch/ops/
@@ -106,23 +119,44 @@ struct TileArgs {
   int64_t L, K, C, KX, M;
 };
 
-// Block b writes tile t = b % (kt * ct) of fold f = b / (kt * ct), tiles in
+// Block b writes tile t = b % n_tiles of fold f = b / n_tiles, tiles in
 // row-major order: out[f][k0 .. +64][c0 .. +64]. Neighbouring blocks, which
 // run at nearly the same time, so write neighbouring parts of the same rows.
 // kGather: rows gathered by index (else the contiguous (F, L, .) streams);
-// kRefForm: the reference-form epilogue (else the factor form).
-template <typename T, bool kGather, bool kRefForm>
+// kRefForm: the reference-form epilogue (else the factor form); kSym: the
+// tiles are only those on or above the diagonal, numbered row by row (tile
+// row ti holds tile columns ti .. n_ct - 1), and X columns are mirrored.
+template <typename T, bool kGather, bool kRefForm, bool kSym>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
-  __shared__ T sa[kStage][kTile];
-  __shared__ T sb[kStage][kTile];
+  // The staged rows, and for kSym the output tile once the product is done.
+  constexpr size_t kStageBytes = 2 * kStage * kTile * sizeof(T);
+  constexpr size_t kMirrorBytes = kTile * (kTile + 1) * sizeof(T);
+  constexpr size_t kBytes =
+      kSym && kMirrorBytes > kStageBytes ? kMirrorBytes : kStageBytes;
+  __shared__ __align__(16) unsigned char smem[kBytes];
+  T (*sa)[kTile] = reinterpret_cast<T (*)[kTile]>(smem);
+  T (*sb)[kTile] = sa + kStage;
   __shared__ int64_t srow[kStage];
   __shared__ T smask[kStage];
 
   const int64_t f = blockIdx.x / n_tiles;
-  const int64_t t = blockIdx.x % n_tiles;
-  const int64_t k0 = (t / n_ct) * kTile;
-  const int64_t c0 = (t % n_ct) * kTile;
+  int64_t t = blockIdx.x % n_tiles;
+  int64_t ti, tj;
+  if (kSym) {
+    ti = 0;
+    while (t >= n_ct - ti) {
+      t -= n_ct - ti;
+      ++ti;
+    }
+    tj = ti + t;
+  } else {
+    ti = t / n_ct;
+    tj = t % n_ct;
+  }
+  const int64_t k0 = ti * kTile;
+  const int64_t c0 = tj * kTile;
+  const bool diagonal = kSym && ti == tj;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int64_t L = p.L, K = p.K, C = p.C;
@@ -183,6 +217,9 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
     __syncthreads();
   }
 
+  // kSym: the tile's values staged for the mirror (the staging buffers
+  // are free after the last __syncthreads of the loop).
+  T (*stile)[kTile + 1] = reinterpret_cast<T (*)[kTile + 1]>(smem);
   const T* kv = p.kvec + 2 * K * f;
   const T* cv = p.cvec + 2 * C * f;
   T* of = p.out + K * C * f;
@@ -203,6 +240,8 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
     for (int j = 0; j < 4; ++j) {
       const int64_t c = c0 + tx + 16 * j;
       if (c >= C) continue;
+      // A diagonal tile's X part below the diagonal is the mirror's.
+      if (diagonal && c < K && c < k) continue;
       const T t = __ldg(p.total + k * C + c);
       T val;
       if constexpr (!kRefForm) {
@@ -213,6 +252,19 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
         val = ((t - acc[i][j]) - pk * qc[j]) * (i1 * i2c[j]);
       }
       __stcs(of + k * C + c, val);
+      if (kSym) stile[ty + 16 * i][tx + 16 * j] = val;
+    }
+  }
+  if (kSym) {
+    __syncthreads();
+    // out[c0 + a][k0 + b] = value(k0 + b, c0 + a) for the tile's X columns
+    // strictly above the diagonal; consecutive threads take consecutive b.
+    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+      const int a = e / kTile;
+      const int b = e % kTile;
+      const int64_t cm = c0 + a;   // source column = mirror row
+      const int64_t km = k0 + b;   // source row = mirror column
+      if (cm < K && km < cm) __stcs(of + cm * C + km, stile[b][a]);
     }
   }
 }
@@ -285,15 +337,18 @@ __global__ void v3_vectors_kernel(const V3Args p) {
   }
 }
 
-template <typename T, bool kGather, bool kRefForm>
+template <typename T, bool kGather, bool kRefForm, bool kSym = false>
 int launch_tile(const TileArgs<T>& a, int64_t F, int device, void* stream) {
   if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_ct = (a.C + kTile - 1) / kTile;
-  const int64_t n_tiles = n_ct * ((a.K + kTile - 1) / kTile);
+  const int64_t n_kt = (a.K + kTile - 1) / kTile;
+  // kSym: tile rows ti < n_kt hold columns ti .. n_ct - 1 (C >= K).
+  const int64_t n_tiles =
+      kSym ? n_kt * n_ct - n_kt * (n_kt - 1) / 2 : n_ct * n_kt;
   if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  fold_tile_kernel<T, kGather, kRefForm>
+  fold_tile_kernel<T, kGather, kRefForm, kSym>
       <<<static_cast<unsigned>(F * n_tiles), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(a, n_ct, n_tiles);
   return static_cast<int>(cudaGetLastError());
@@ -348,15 +403,16 @@ extern "C" int cvm_fold_ozaki_df64_f64(
   return launch_tile<double, true, true>(a, F, device, stream);
 }
 
-// v3 (port of fused_ozaki_downdate_v3): the vector phase into the
-// caller's kvec (F, 2, K) and cvec (F, 2, K + M) scratch, then the
-// gathered tile phase. yu may be null when M is 0, mask may be null.
+// v3 (port of fused_ozaki_downdate_v3, and with sym != 0 of
+// fused_ozaki_downdate_v3_sym): the vector phase into the caller's kvec
+// (F, 2, K) and cvec (F, 2, K + M) scratch, then the gathered tile phase.
+// yu may be null when M is 0, mask may be null.
 extern "C" int cvm_fold_v3_f64(
     const double* total, const double* xw, const double* xu,
     const double* yu, const int64_t* rows, const double* mask,
     const double* gx, const double* sxv, const double* yvec,
     const double* scal, double* kvec, double* cvec, double* out, int64_t F,
-    int64_t L, int64_t K, int64_t M, int flags, double resolution,
+    int64_t L, int64_t K, int64_t M, int flags, double resolution, int sym,
     int device, void* stream) {
   if (F <= 0 || K <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -370,5 +426,6 @@ extern "C" int cvm_fold_v3_f64(
   if (err != cudaSuccess) return static_cast<int>(err);
   TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
                      L, K, C, K, M};
+  if (sym) return launch_tile<double, true, true, true>(a, F, device, stream);
   return launch_tile<double, true, true>(a, F, device, stream);
 }

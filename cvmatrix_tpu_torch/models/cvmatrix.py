@@ -5,8 +5,8 @@ constructor knobs and the same four public per-fold methods, returning
 ``(matrices, (X_mean, X_std, Y_mean, Y_std))`` as tensors. Differences:
 
 - ``backend`` must be ``"torch"``.
-- ``device`` selects where the fitted state lives (default: the CPU, or the
-  device of a tensor ``X``).
+- ``device`` selects where the fitted state lives (default: the device of
+  a tensor ``X``, else the CUDA card; without a card pass ``"cpu"``).
 - ``copy`` is honoured: with ``copy=True`` the fitted state never shares
   memory with the caller's arrays; with ``copy=False`` it may.
 """
@@ -158,6 +158,21 @@ class CVMatrix:
         return _fold.training_statistics(
             self.config, self._require_fit(), validation_indices, mask
         )
+
+    def cross_validate_reduce(self, partitioner, *, reduce_fn, **kw):
+        """Every fold of ``partitioner`` through ``reduce_fn(matrices,
+        stats)`` on the fitted state's device; only the reductions are kept.
+
+        Returns ``(fold_keys, stacked_reductions)`` over
+        ``partitioner.padded_batches()``; see
+        :func:`cvmatrix_tpu_torch.models.sweep.cross_validate_reduce`.
+        """
+        from .sweep import cross_validate_reduce as _cvr
+
+        state = self._require_fit()
+        keys, idx, mask = partitioner.padded_batches()
+        return keys, _cvr(self.config, state, idx, mask, reduce_fn=reduce_fn,
+                          **kw)
 
     def _training_matrices(self, return_XTX, return_XTY, validation_indices,
                            mask=None):

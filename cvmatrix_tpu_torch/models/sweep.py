@@ -1,50 +1,66 @@
-"""Materialising fold sweeps, PyTorch port.
+"""Fold sweeps, PyTorch port: the materialising sweeps and the reduce sweeps.
 
-Counterpart of ``materialize_sweep`` and ``materialize_cv`` in
-:mod:`cvmatrix_tpu.models.sweep`: compute EVERY fold's training matrices in
-device memory, chunk by chunk into one reused buffer, and return a probe
-scalar. The chunk size follows the JAX package's rule (a 4 GB budget, at
-most 2000 folds, chunks equalised and the last fold repeated to fill the
-last chunk).
+Counterpart of :mod:`cvmatrix_tpu.models.sweep`.
+
+``materialize_sweep`` and ``materialize_cv`` compute EVERY fold's training
+matrices in device memory, chunk by chunk into one reused buffer, and
+return a probe scalar. The chunk size follows the JAX package's rule (a
+4 GB budget, at most 2000 folds, chunks equalised and the last fold
+repeated to fill the last chunk; bumped to an even count when the dtype's
+two-folds-per-block knob is on, as the JAX sweep bumps it on the TPU).
 
 Every fold batch, float64 or float32, takes the kernel route that
 :func:`~cvmatrix_tpu_torch.core.batch.route_kernel` picks by the JAX
-package's gates: the hand-written kernel on CUDA, its plain twin on the CPU
-or with ``impl="torch"``. The LOOCV, packed (both dtypes) and v3 routes
-build their operands once for all folds and slice them per chunk; the
-large-fold routes (Ozaki-df64, ``bmm`` plus epilogue, and the float32
-engine's ``fused_downdate``) gather and reduce chunk by chunk (hoisting
-L-row blocks for every fold would hold the whole dataset twice). A
-float32 sweep computes and writes float32; the chunk rule budgets 8 bytes
-per element in either dtype, as the JAX package's does.
+package's gates and routing policy: the hand-written kernel on CUDA, its
+plain twin on the CPU or with ``impl="torch"``. The LOOCV, packed (both
+dtypes) and v3 routes build their operands once for all folds and slice
+them per chunk; the large-fold routes (Ozaki-df64, ``bmm`` plus epilogue,
+and the float32 engine's ``fused_downdate``) gather and reduce chunk by
+chunk (hoisting L-row blocks for every fold would hold the whole dataset
+twice). A float32 sweep computes and writes float32; the chunk rule budgets
+8 bytes per element in either dtype, as the JAX package's does.
+
+``cross_validate`` yields each chunk's per-fold engine results;
+``cross_validate_reduce`` maps a user reduction over every fold's matrices
+chunk by chunk and keeps only the reductions. Where the JAX package
+compiles one ``lax.scan`` program, the port runs a Python loop of eager
+chunks with the same four bodies (the hoisted LOOCV, packed and v3 loops,
+and the generic per-chunk body) and the same gates, except that the
+hoisted loops run on any device: on the CPU they run the kernels' twins.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Hashable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..config import CVConfig
+from ..core import batch as _batch
 from ..core.batch import (
     _f32_kernel_path,
     _large_fold_path,
     _rows_mask,
     downdate_from_operands,
-    loocv_from_sources,
     ozaki_v3_from_sources,
     prepare_fold_operands,
     prepare_loocv_sources,
     prepare_ozaki_sources,
     route_kernel,
+    run_loocv_route,
     slice_operands,
 )
 from ..core.fit import fit
+from ..core.fold import training_matrices
 from ..core.state import FitState
 from ..ops.loocv import IMPLS, check_rows
+from .partitioner import Partitioner
 
-__all__ = ["chunking", "materialize_cv", "materialize_sweep"]
+__all__ = ["chunking", "cross_validate", "cross_validate_dict",
+           "cross_validate_reduce", "materialize_cv", "materialize_sweep",
+           "sweep_chunking"]
 
 
 def chunking(n_folds: int, k: int, c: int, batch_size: Optional[int] = None,
@@ -57,6 +73,21 @@ def chunking(n_folds: int, k: int, c: int, batch_size: Optional[int] = None,
     n_chunks = -(-n_folds // bs)
     bs = -(-n_folds // n_chunks)
     return bs, n_chunks
+
+
+def sweep_chunking(config: CVConfig, n_folds: int, k: int, c: int,
+                   batch_size: Optional[int] = None,
+                   hbm_budget_bytes: float = 4e9) -> Tuple[int, int]:
+    """``(bs, n_chunks)`` of a materialising sweep: :func:`chunking`, with
+    the chunk bumped to an even fold count when the dtype's x2 knob
+    (``df64x2`` or ``f32x2``) is on (JAX ``sweep.py:569-574``), and the
+    chunk count of the folds padded to a multiple of it."""
+    bs, _ = chunking(n_folds, k, c, batch_size, hbm_budget_bytes)
+    x2 = (_batch._df64x2_enabled() if _batch._is_f64(config)
+          else _batch._f32x2_enabled())
+    if x2 and bs % 2:
+        bs += 1  # the two-folds-per-block kernels take an even chunk
+    return bs, -(-n_folds // bs)
 
 
 def _pad_folds(idx, mask, bs):
@@ -108,15 +139,16 @@ def materialize_sweep(
     mask = None if mask_batch is None else np.asarray(mask_batch)
     k = state.K
     m = (state.M or 0) if return_XTY else 0
-    bs, n_chunks = chunking(idx.shape[0], k, (k if return_XTX else 0) + m,
-                            batch_size, hbm_budget_bytes)
+    bs, n_chunks = sweep_chunking(config, idx.shape[0], k,
+                                  (k if return_XTX else 0) + m, batch_size,
+                                  hbm_budget_bytes)
     idx, mask = _pad_folds(idx, mask, bs)
 
     route = route_kernel(config, state, idx.shape[1], return_XTX,
-                         return_XTY, mask is not None)
+                         return_XTY, mask is not None, n_folds=bs)
     buf = torch.empty((bs, k, (k if return_XTX else 0) + m),
                       dtype=config.torch_dtype, device=device)
-    if route == "loocv":
+    if route.startswith("loocv"):
         rows = check_rows(idx[:, 0], state.N)
         if device.type == "cuda":
             rows = rows.pin_memory()  # asynchronous per-chunk copies
@@ -125,8 +157,8 @@ def materialize_sweep(
                                     return_XTY=return_XTY)
         for c in range(n_chunks):
             sl = slice(c * bs, (c + 1) * bs)
-            loocv_from_sources(config, src, rows[sl], src.scal[sl],
-                               return_XTY=return_XTY, impl=impl, out=buf)
+            run_loocv_route(config, src, rows[sl], route, src.scal[sl],
+                            return_XTY=return_XTY, impl=impl, out=buf)
     else:
         # Checked on the host once, then moved whole to the device.
         rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
@@ -137,7 +169,7 @@ def materialize_sweep(
             for c in range(n_chunks):
                 downdate_from_operands(slice_operands(ops, c * bs, bs),
                                        impl=impl, out=buf)
-        elif route == "v3":
+        elif route in ("v3", "v3_sym"):
             src = prepare_ozaki_sources(config, state, rows, mask_d,
                                         return_XTX=return_XTX,
                                         return_XTY=return_XTY)
@@ -180,6 +212,8 @@ def materialize_cv(
     The total cross-validation quantity: one fit and every fold's training
     matrices. ``validate=False`` skips the (device-syncing) negative-weight
     check. The fitted state may share memory with tensor inputs (no copy).
+    ``device`` as in :func:`~cvmatrix_tpu_torch.core.fit.fit`: by default a
+    tensor ``X``'s device, else the CUDA card.
     """
     state = fit(config, X, Y, weights, validate=validate, copy=False,
                 device=device)
@@ -188,3 +222,272 @@ def materialize_cv(
         impl=impl, return_XTX=return_XTX, return_XTY=return_XTY,
         hbm_budget_bytes=hbm_budget_bytes,
     )
+
+
+# --------------------------------------------------------------------------- #
+# Reduce sweeps                                                               #
+# --------------------------------------------------------------------------- #
+
+
+def _auto_batch(n_folds: int, k: int, m: int, itemsize: int,
+                budget_bytes: float) -> int:
+    per_fold = (k * k + k * m + 4 * (k + m)) * itemsize
+    # x3: outputs live while the next chunk is produced, plus gather temps.
+    return max(1, min(n_folds, int(budget_bytes / (3 * per_fold))))
+
+
+def cross_validate(
+    config: CVConfig,
+    state: FitState,
+    partitioner: Partitioner,
+    *,
+    return_XTX: bool = True,
+    return_XTY: bool = True,
+    batch_size: Optional[int] = None,
+    hbm_budget_bytes: float = 4e9,
+    use_padding: bool = False,
+) -> Iterator[Tuple[list, object]]:
+    """Yield ``(fold_keys, results)`` per chunk, covering all folds.
+
+    ``results`` has the structure of :func:`~cvmatrix_tpu_torch.core.fold.
+    training_matrices` with a leading fold axis: the per-fold engine run on
+    an (F, L) batch. With ``use_padding=True`` all folds form one padded,
+    masked batch (``Partitioner.padded_batches``); otherwise one batch per
+    fold size (``Partitioner.size_buckets``).
+    """
+    k = state.K
+    m = state.M or 0
+    itemsize = np.dtype(config.dtype).itemsize
+    if use_padding:
+        groups = [partitioner.padded_batches()]
+    else:
+        groups = [(ks, batch, None) for ks, batch in
+                  partitioner.size_buckets()]
+    for keys, idx, mask in groups:
+        bs = batch_size or _auto_batch(len(keys), k, m, itemsize,
+                                       hbm_budget_bytes)
+        for s in range(0, len(keys), bs):
+            yield keys[s:s + bs], training_matrices(
+                config, state, idx[s:s + bs],
+                None if mask is None else mask[s:s + bs],
+                return_XTX=return_XTX, return_XTY=return_XTY)
+
+
+def cross_validate_dict(
+    config: CVConfig,
+    state: FitState,
+    partitioner: Partitioner,
+    **kw,
+) -> Dict[Hashable, object]:
+    """Materialise :func:`cross_validate` into a fold -> result dict."""
+    out: Dict[Hashable, object] = {}
+    for keys, res in cross_validate(config, state, partitioner, **kw):
+        for i, key in enumerate(keys):
+            out[key] = pytree.tree_map(lambda a: a[i], res)
+    return out
+
+
+def _vmap_reduce(reduce_fn, mats, stats):
+    """``reduce_fn`` over the fold axis of one chunk (``torch.func.vmap``;
+    ``None`` statistics pass through unbatched)."""
+    def dims(tree):
+        return pytree.tree_map(
+            lambda a: 0 if isinstance(a, torch.Tensor) else None, tree,
+            is_leaf=lambda a: a is None)
+
+    return torch.func.vmap(reduce_fn, in_dims=(dims(mats), dims(stats)))(
+        mats, stats)
+
+
+def _split_mats(out, k: int, return_XTX: bool, return_XTY: bool):
+    if return_XTX and return_XTY:
+        return out[:, :, :k], out[:, :, k:]
+    return out
+
+
+def _slice_stats(stats, start: int, size: int):
+    return tuple(None if s is None else s[start:start + size] for s in stats)
+
+
+def cross_validate_reduce(
+    config: CVConfig,
+    state: FitState,
+    idx_batch,
+    mask_batch=None,
+    *,
+    reduce_fn,
+    return_XTX: bool = True,
+    return_XTY: bool = True,
+    batch_size: int = 512,
+    impl: str = "auto",
+    donate_state: bool = False,
+):
+    """Map ``reduce_fn`` over every fold's training matrices on the state's
+    device; only the reductions are kept.
+
+    ``idx_batch`` is a (P, L) fold-index batch, ``mask_batch`` an optional
+    (P, L) 0/1 mask of padded rows (see ``Partitioner.padded_batches``).
+    ``reduce_fn(matrices, stats)`` is applied per fold through
+    ``torch.func.vmap`` over each chunk of at most ``batch_size`` folds:
+    ``matrices`` is ``(XTX, XTY)`` or the one requested matrix and
+    ``stats`` the ``(X_mean, X_std, Y_mean, Y_std)`` tuple (``None`` where
+    not computed) of one fold, as in :func:`~cvmatrix_tpu_torch.core.batch.
+    training_matrices_batched`; it returns a tensor or a pytree of tensors.
+    The fold axis is padded to a multiple of an equalised chunk by
+    repeating the last fold, and the padded results are dropped. Returns
+    the reductions stacked along a leading axis of P.
+
+    ``impl``: ``"auto"`` takes the JAX package's hoisted loops where its
+    gates allow (kernels on CUDA, twins on the CPU), ``"cuda"`` the same
+    and requires CUDA tensors, ``"torch"`` the generic per-chunk body with
+    the twins (the JAX ``"xla"``). ``donate_state`` is accepted for
+    signature parity and does nothing: torch cannot take buffers from the
+    caller, who frees the state by dropping its last reference.
+    """
+    del donate_state
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
+    if not return_XTX and not return_XTY:
+        raise ValueError(
+            "At least one of `return_XTX` and `return_XTY` must be True."
+        )
+    if return_XTY and state.Y is None:
+        raise ValueError("Response variables `Y` are not provided.")
+    if impl == "cuda" and state.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors; the state is on "
+                         f"{state.device}.")
+    idx = np.asarray(idx_batch.cpu() if isinstance(idx_batch, torch.Tensor)
+                     else idx_batch)
+    if idx.ndim == 1:
+        idx = idx[:, None]
+    mask = None if mask_batch is None else np.asarray(
+        mask_batch.cpu() if isinstance(mask_batch, torch.Tensor)
+        else mask_batch)
+    n_folds = idx.shape[0]
+    bs = min(batch_size, n_folds)
+    # Equalise chunk sizes: padding to a multiple of a near-n chunk size
+    # can almost double the sweep (n=1000, bs=953 -> padded to 1906).
+    n_chunks = -(-n_folds // bs)
+    bs = -(-n_folds // n_chunks)
+    idx, mask = _pad_folds(idx, mask, bs)
+    chunks = _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn,
+                                return_XTX, return_XTY, impl)
+    leaves0, spec = pytree.tree_flatten(chunks[0])
+    stacked = [torch.cat(parts)[:n_folds] for parts in zip(
+        leaves0, *(pytree.tree_flatten(c)[0] for c in chunks[1:]))]
+    return pytree.tree_unflatten(stacked, spec)
+
+
+def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
+                       return_XTY, impl):
+    """The per-chunk reductions of the padded (n_chunks * bs, L) batch, by
+    the first of the JAX package's four bodies whose gate holds."""
+    is_f64 = _batch._is_f64(config)
+    n_total, n_l = idx.shape
+    hoist = impl in ("auto", "cuda")
+    # LOOCV: the sources once for every fold, then the LOOCV kernel per
+    # chunk (JAX sweep.py:224-235).
+    if (hoist and mask is None and n_l == 1 and return_XTX
+            and _batch.loocv_single_tile_ok(config, state, return_XTX,
+                                            return_XTY)):
+        return _loocv_reduce_loop(config, state, idx, bs, reduce_fn,
+                                  return_XTY, impl)
+    # Small folds: the packed operands once for every fold (:243-259).
+    threshold = (_batch.large_fold_threshold(config, state, return_XTX,
+                                             return_XTY)
+                 if is_f64 else _batch.LARGE_FOLD_ROWS)
+    if (hoist and _batch._hoist_reduce_enabled() and n_l < threshold
+            and _batch._hoisted_operand_bytes(
+                state, n_total, n_l, return_XTX, return_XTY)
+            <= _batch._HOIST_BUDGET_BYTES):
+        return _smallfold_reduce_loop(config, state, idx, mask, bs,
+                                      reduce_fn, return_XTX, return_XTY,
+                                      impl)
+    # Mid-band: the v3 sources and statistics once for every fold
+    # (:267-281).
+    if (hoist and _batch._hoist_reduce_enabled() and is_f64 and return_XTX
+            and n_l >= threshold
+            and _batch.ozaki_v3_ok(config, state, return_XTX, return_XTY,
+                                   n_l)
+            and _batch._v3_hoist_bytes(state, n_total, n_l)
+            <= _batch._HOIST_BUDGET_BYTES):
+        return _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn,
+                               return_XTY, impl)
+    # Generic body: every chunk through training_matrices_batched.
+    out = []
+    for c0 in range(0, n_total, bs):
+        mats, stats = _batch.training_matrices_batched(
+            config, state, idx[c0:c0 + bs],
+            None if mask is None else mask[c0:c0 + bs],
+            return_XTX=return_XTX, return_XTY=return_XTY, impl=impl)
+        out.append(_vmap_reduce(reduce_fn, mats, stats))
+    return out
+
+
+def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
+                       impl):
+    """Hoisted-source LOOCV reduce sweep (JAX ``sweep.py:314``): one
+    :func:`prepare_loocv_sources` for every fold, then per chunk the LOOCV
+    kernel (symmetric under ``sym_loocv``, two folds per block under the
+    x2 knob when the chunk is even: no bump here), the statistics of the
+    chunk's rows, and the reduction."""
+    rows = check_rows(idx[:, 0], state.N)
+    if state.device.type == "cuda":
+        rows = rows.pin_memory()  # asynchronous per-chunk copies
+    src = prepare_loocv_sources(config, state, rows, return_XTX=True,
+                                return_XTY=return_XTY)
+    route = route_kernel(config, state, 1, True, return_XTY, False,
+                         n_folds=bs)
+    flags = _batch._stat_flags(config, True, return_XTY)
+    out = []
+    for c0 in range(0, rows.shape[0], bs):
+        ci = rows[c0:c0 + bs]
+        mats = run_loocv_route(config, src, ci, route, src.scal[c0:c0 + bs],
+                               return_XTY=return_XTY, impl=impl)
+        rows_d = ci.to(state.device, non_blocking=True)[:, None]
+        stats = _batch._summed_stats(config, state, rows_d, None,
+                                     **flags)[:4]
+        out.append(_vmap_reduce(
+            reduce_fn, _split_mats(mats, state.K, True, return_XTY), stats))
+    return out
+
+
+def _smallfold_reduce_loop(config, state, idx, mask, bs, reduce_fn,
+                           return_XTX, return_XTY, impl):
+    """Hoisted-prep small-fold reduce sweep (JAX ``sweep.py:453``):
+    :func:`prepare_fold_operands` once for every fold, then per chunk the
+    packed kernel on sliced operands and the reduction over sliced
+    statistics."""
+    rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
+    ops, stats = prepare_fold_operands(config, state, rows, mask_d,
+                                       return_XTX=return_XTX,
+                                       return_XTY=return_XTY)
+    out = []
+    for c0 in range(0, idx.shape[0], bs):
+        mats = downdate_from_operands(slice_operands(ops, c0, bs), impl=impl)
+        out.append(_vmap_reduce(
+            reduce_fn, _split_mats(mats, state.K, return_XTX, return_XTY),
+            _slice_stats(stats, c0, bs)))
+    return out
+
+
+def _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn, return_XTY,
+                    impl):
+    """Hoisted-source mid-band reduce sweep (JAX ``sweep.py:390``):
+    :func:`prepare_ozaki_sources` and the statistics once for every fold,
+    then per chunk the v3 kernel (symmetric under ``sym_loocv``) on
+    sliced sources and the reduction."""
+    rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
+    src = prepare_ozaki_sources(config, state, rows, mask_d, return_XTX=True,
+                                return_XTY=return_XTY)
+    stats = _batch._summed_stats(
+        config, state, rows, mask_d,
+        **_batch._stat_flags(config, True, return_XTY))[:4]
+    out = []
+    for c0 in range(0, idx.shape[0], bs):
+        mats = ozaki_v3_from_sources(config, slice_operands(src, c0, bs),
+                                     return_XTY=return_XTY, impl=impl)
+        out.append(_vmap_reduce(
+            reduce_fn, _split_mats(mats, state.K, True, return_XTY),
+            _slice_stats(stats, c0, bs)))
+    return out

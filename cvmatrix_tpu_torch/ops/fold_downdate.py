@@ -29,6 +29,9 @@ rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
   reciprocal std), from the column sums ``sxv``, the global sums ``gx``,
   the Y-side vectors ``yvec`` and the scalars ``scal``;
   :func:`fold_ozaki_df64` takes ``kvec``/``cvec`` precomputed.
+  ``fold_v3(..., sym=True)`` ports ``fused_ozaki_downdate_v3_sym``: the
+  X block's upper triangle computed, its strictly lower triangle the
+  mirror (twin :func:`v3_sym_reference`).
 - :func:`fold_epilogue` ports ``fused_epilogue_df64``: the reference-form
   epilogue in place over a product computed outside the kernel.
 
@@ -45,7 +48,8 @@ Every wrapper dispatches like :func:`cvmatrix_tpu_torch.ops.loocv.fused_loocv`:
 ``impl="auto"`` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; ``"cuda"`` always launches; ``"torch"`` always runs the twin.
 :func:`launch_counts` reads each kernel's launches (``<wrapper>.launches``,
-and ``fold_packed.launches_f32`` for the float32 packed kernel).
+``fold_packed.launches_f32`` for the float32 packed kernel and
+``fold_v3.launches_sym`` for the symmetric v3 kernel).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from typing import Tuple
 
 import torch
 
-from .loocv import _FLAG_BITS, IMPLS, _ptr, check_rows
+from .loocv import _FLAG_BITS, IMPLS, _ptr, check_rows, mirror_x_block
 from .precision import highest_precision
 
 __all__ = [
@@ -64,6 +68,7 @@ __all__ = [
     "ozaki_df64_reference",
     "v3_vectors",
     "v3_reference",
+    "v3_sym_reference",
     "epilogue_reference",
     "fold_packed",
     "fold_downdate_f32",
@@ -178,6 +183,12 @@ def v3_reference(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal,
     kvec, cvec = v3_vectors(xw, xu, rows, mask, gx, sxv, yvec, scal,
                             c=total.shape[1], **flags)
     return ozaki_df64_reference(total, xw, xu, yu, rows, mask, kvec, cvec)
+
+
+def v3_sym_reference(*args, **flags) -> torch.Tensor:
+    """Plain twin of the symmetric v3 kernel: :func:`v3_reference`, then
+    the X block's strictly lower triangle written as its upper mirror."""
+    return mirror_x_block(v3_reference(*args, **flags))
 
 
 # --------------------------------------------------------------------------- #
@@ -366,19 +377,23 @@ def fold_ozaki_df64(total, xw, xu, yu, rows, mask, kvec, cvec, *,
 def fold_v3(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal, *,
             center_xtx: bool, center_xty: bool, scale_x: bool,
             scale_y: bool, with_y: bool, resolution: float,
-            impl: str = "auto", out=None) -> torch.Tensor:
+            sym: bool = False, impl: str = "auto",
+            out=None) -> torch.Tensor:
     """The v3 downdate -> (F, K, C): per-fold X-side vectors from the
     gathered rows (see :func:`v3_vectors`), then the gathered product and
     the reference-form epilogue. ``gx`` is (2, K) ``[sum_X, sum_sq_X]``,
-    ``sxv`` (F, K), ``yvec`` (F, 2, C), ``scal`` (F, 3)."""
+    ``sxv`` (F, K), ``yvec`` (F, 2, C), ``scal`` (F, 3). ``sym`` computes
+    the X block's upper triangle only and mirrors it (exactly symmetric);
+    its launches count in ``fold_v3.launches_sym``."""
     flags = dict(center_xtx=center_xtx, center_xty=center_xty,
                  scale_x=scale_x, scale_y=scale_y, with_y=with_y,
                  resolution=resolution)
     device = xw.device
     if not _use_kernel("fold_v3", impl, device):
         rows = device_rows(rows, xw.shape[0], device)
-        res = v3_reference(total, xw, xu, yu if with_y else None, rows, mask,
-                           gx, sxv, yvec, scal, **flags)
+        twin = v3_sym_reference if sym else v3_reference
+        res = twin(total, xw, xu, yu if with_y else None, rows, mask, gx,
+                   sxv, yvec, scal, **flags)
         return res if out is None else out.copy_(res)
     rows, f_folds, n_l, k, _, m, c = _gather_operands(
         "fold_v3", total, xw, xu, yu if with_y else None, rows, mask, True)
@@ -392,13 +407,16 @@ def fold_v3(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal, *,
     cvec = torch.empty((f_folds, 2, c), dtype=torch.float64, device=device)
     bits = sum(b for name, b in _FLAG_BITS.items() if flags[name])
     fn = _fn("fold_downdate", "cvm_fold_v3_f64", 13, 4,
-             tail=(ctypes.c_int, ctypes.c_double))
+             tail=(ctypes.c_int, ctypes.c_double, ctypes.c_int))
     _run("fold_v3", fn, _ptr(total), _ptr(xw), _ptr(xu),
          _ptr(yu if with_y else None), _ptr(rows), _ptr(mask), _ptr(gx),
          _ptr(sxv), _ptr(yvec), _ptr(scal), _ptr(kvec), _ptr(cvec),
-         _ptr(out), f_folds, n_l, k, m, bits, float(resolution),
+         _ptr(out), f_folds, n_l, k, m, bits, float(resolution), int(sym),
          device=device)
-    fold_v3.launches += 1
+    if sym:
+        fold_v3.launches_sym += 1
+    else:
+        fold_v3.launches += 1
     return out
 
 
@@ -429,6 +447,7 @@ _COUNTERS = {
     "fold_downdate_f32": (fold_downdate_f32, "launches"),
     "fold_ozaki_df64": (fold_ozaki_df64, "launches"),
     "fold_v3": (fold_v3, "launches"),
+    "fold_v3_sym": (fold_v3, "launches_sym"),
     "fold_epilogue": (fold_epilogue, "launches"),
 }
 
@@ -439,7 +458,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """``{kernel: launches}`` of the six fold kernels."""
+    """``{kernel: launches}`` of the seven fold kernels."""
     return {name: getattr(wrapper, attr)
             for name, (wrapper, attr) in _COUNTERS.items()}
 

@@ -14,7 +14,12 @@ that is not scaled), ``u = xw[r] r1``, ``v = [xu[r] r1 | yu[r] r2]``,
 ``p = sw mX r1`` and ``q = [mX r1 | mY r2]`` (zeroed where that side is not
 centred). See ``cvmatrix_tpu_torch/csrc/loocv.cu`` for the kernels:
 ``cvm_loocv_f64`` for float64 sources and ``cvm_loocv_f32`` for float32
-ones, each computing in its sources' dtype.
+ones, each computing in its sources' dtype, one or two folds per block (the
+latter the ports of ``fused_loocv_df64x2`` and ``fused_loocv_f32x2``), and
+``cvm_loocv_sym_f64`` (``sym=True``), the port of ``fused_loocv_df64_sym``:
+the upper triangle of the X block computed, ``out[f, j, i] = out[f, i, j]``
+for ``i < j < K``, every XTY column computed (twin
+:func:`loocv_sym_reference`).
 
 :func:`fused_loocv` dispatches: ``impl="auto"`` launches the kernel for CUDA
 tensors and runs :func:`loocv_reference` for CPU tensors; ``"cuda"`` always
@@ -28,8 +33,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["loocv_vectors", "loocv_reference", "fused_loocv",
-           "check_rows", "IMPLS"]
+__all__ = ["loocv_vectors", "loocv_reference", "loocv_sym_reference",
+           "mirror_x_block", "fused_loocv", "check_rows",
+           "launch_counts", "reset_launch_counts", "IMPLS"]
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -114,22 +120,44 @@ def loocv_reference(src, rows: torch.Tensor, scal: torch.Tensor, *,
             - u[:, :, None] * v[:, None, :] - p[:, :, None] * q[:, None, :])
 
 
+def mirror_x_block(out: torch.Tensor) -> torch.Tensor:
+    """Write the strictly lower triangle of each fold's X block (the first
+    K columns of (F, K, C)) as the transpose of its upper triangle, in
+    place: ``out[f, j, i] = out[f, i, j]`` for ``i < j < K``."""
+    k = out.shape[1]
+    x = out[:, :, :k]
+    x.copy_(torch.triu(x) + torch.triu(x, 1).mT)
+    return out
+
+
+def loocv_sym_reference(src, rows: torch.Tensor, scal: torch.Tensor,
+                        **flags) -> torch.Tensor:
+    """Plain-torch twin of the symmetric kernel: :func:`loocv_reference`,
+    then :func:`mirror_x_block`."""
+    return mirror_x_block(loocv_reference(src, rows, scal, **flags))
+
+
 def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 _KERNELS = {torch.float64: "cvm_loocv_f64", torch.float32: "cvm_loocv_f32"}
+_SYM_KERNEL = "cvm_loocv_sym_f64"
 
 
-def _launch(src, rows, scal, out, flags: int, resolution: float) -> None:
+def _launch(name, src, rows, scal, out, flags: int, resolution: float,
+            extra=()) -> None:
+    """Launch ``name`` of ``loocv.cu``; ``extra`` are trailing int
+    arguments before the device (the folds per block)."""
     from . import _build
 
-    fn = getattr(_build.load_library("loocv"), _KERNELS[out.dtype])
+    fn = getattr(_build.load_library("loocv"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 11
                    + [ctypes.c_int64] * 3
-                   + [ctypes.c_int, ctypes.c_double, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_double]
+                   + [ctypes.c_int] * len(extra)
+                   + [ctypes.c_int, ctypes.c_void_p])
     f_folds, k, c = out.shape
     m = c - k
     vec = torch.empty((f_folds, 5, c), dtype=out.dtype, device=out.device)
@@ -137,46 +165,30 @@ def _launch(src, rows, scal, out, flags: int, resolution: float) -> None:
     err = fn(_ptr(rows), _ptr(src.total), _ptr(src.xw), _ptr(src.xu),
              _ptr(src.yu), _ptr(src.yw), _ptr(src.gx), _ptr(src.gy),
              _ptr(scal), _ptr(vec), _ptr(out), f_folds, k, m, flags,
-             float(resolution), out.device.index, ctypes.c_void_p(stream))
+             float(resolution), *extra, out.device.index,
+             ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError(f"fused_loocv: CUDA launch failed (cudaError {err})")
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
-def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
-                center_xty: bool, scale_x: bool, scale_y: bool,
-                with_y: bool, resolution: float, impl: str = "auto",
-                out=None) -> torch.Tensor:
-    """All-in-one LOOCV downdate of fold rows ``rows`` -> (F, K, C).
-
-    ``src`` holds the dataset-wide operands (see
-    :class:`cvmatrix_tpu_torch.core.batch.LoocvSources`); ``scal`` the
-    (F, 3) per-fold scalars; every operand float64, or every operand
-    float32. ``out``, when given, is a contiguous (F, K, C) buffer of that
-    dtype that receives the result. ``fused_loocv.launches`` counts the
-    float64 kernel's launches and ``fused_loocv.launches_f32`` the float32
-    kernel's.
-    """
+def _dispatch(name, src, rows, scal, impl, out, flags, dtypes):
+    """Check the operands of a LOOCV kernel; returns ``(rows, out, bits)``
+    for a launch, or ``(rows, None, None)`` where the twin runs."""
     if impl not in IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
     device = src.xw.device
     rows = check_rows(rows, src.xw.shape[0])
-    flags = dict(center_xtx=center_xtx, center_xty=center_xty,
-                 scale_x=scale_x, scale_y=scale_y, with_y=with_y,
-                 resolution=resolution)
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(
             f"impl='cuda' needs CUDA tensors; the sources are on {device}."
         )
     if impl == "torch" or (impl == "auto" and device.type == "cpu"):
-        res = loocv_reference(src, rows.to(device), scal, **flags)
-        if out is None:
-            return res
-        return out.copy_(res)
+        return rows.to(device), None, None
     if device.type != "cuda":
-        raise ValueError(f"fused_loocv has no kernel for device {device}.")
+        raise ValueError(f"{name} has no kernel for device {device}.")
     dtype = src.xw.dtype
-    if dtype not in _KERNELS:
-        raise ValueError(f"fused_loocv has no kernel for {dtype}.")
+    if dtype not in dtypes:
+        raise ValueError(f"{name} has no kernel for {dtype}.")
 
     f_folds, (k, c) = rows.shape[0], src.total.shape
     m = c - k
@@ -186,16 +198,16 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
             "loocv_single_tile_ok (the packed route takes such folds)."
         )
     operands = [src.total, src.xw, src.xu, src.gx, scal]
-    if with_y:
+    if flags["with_y"]:
         operands += [src.yu, src.yw, src.gy]
     elif m:
         raise ValueError("with_y=False needs XTX-only sources (C == K).")
     for t in operands:
         if t.device != device or t.dtype != dtype:
-            raise ValueError(f"fused_loocv operands must all be {dtype} on "
+            raise ValueError(f"{name} operands must all be {dtype} on "
                              f"{device}.")
         if not t.is_contiguous():
-            raise ValueError("fused_loocv operands must be contiguous.")
+            raise ValueError(f"{name} operands must be contiguous.")
     if scal.shape != (f_folds, 3):
         raise ValueError(f"scal must be ({f_folds}, 3), got {tuple(scal.shape)}")
     if out is None:
@@ -204,15 +216,76 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
           or out.device != device or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous {dtype} ({f_folds}, {k}, "
                          f"{c}) tensor on {device}.")
-    bits = sum(b for name, b in _FLAG_BITS.items() if flags[name])
-    _launch(src, rows.to(device, non_blocking=True), scal, out, bits,
-            resolution)
-    if dtype == torch.float64:
-        fused_loocv.launches += 1
+    bits = sum(b for n, b in _FLAG_BITS.items() if flags[n])
+    return rows.to(device, non_blocking=True), out, bits
+
+
+def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
+                center_xty: bool, scale_x: bool, scale_y: bool,
+                with_y: bool, resolution: float, sym: bool = False,
+                folds_per_block: int = 1, impl: str = "auto",
+                out=None) -> torch.Tensor:
+    """All-in-one LOOCV downdate of fold rows ``rows`` -> (F, K, C).
+
+    ``src`` holds the dataset-wide operands (see
+    :class:`cvmatrix_tpu_torch.core.batch.LoocvSources`); ``scal`` the
+    (F, 3) per-fold scalars; every operand float64, or every operand
+    float32. ``out``, when given, is a contiguous (F, K, C) buffer of that
+    dtype that receives the result. ``folds_per_block`` 2 launches two
+    folds per block (an odd F leaves the last block one fold); the result
+    is the same, bit for bit. ``sym`` (float64 only, one fold per block)
+    launches the symmetric kernel: the X block's upper triangle and every
+    XTY column computed as here, the strictly lower triangle of the X
+    block their mirror (exactly symmetric). Launch counters:
+    ``fused_loocv.launches`` (float64), ``.launches_f32``,
+    ``.launches_x2`` (float64, two per block), ``.launches_f32x2`` and
+    ``.launches_sym``.
+    """
+    if folds_per_block not in (1, 2) or (sym and folds_per_block != 1):
+        raise ValueError(f"folds_per_block must be 1 or 2 (1 with sym), got "
+                         f"{folds_per_block}")
+    flags = dict(center_xtx=center_xtx, center_xty=center_xty,
+                 scale_x=scale_x, scale_y=scale_y, with_y=with_y,
+                 resolution=resolution)
+    rows, res, bits = _dispatch(
+        "fused_loocv", src, rows, scal, impl, out, flags,
+        (torch.float64,) if sym else _KERNELS)
+    if bits is None:
+        twin = loocv_sym_reference if sym else loocv_reference
+        res = twin(src, rows, scal, **flags)
+        return res if out is None else out.copy_(res)
+    if sym:
+        _launch(_SYM_KERNEL, src, rows, scal, res, bits, resolution)
+        name = "launches_sym"
     else:
-        fused_loocv.launches_f32 += 1
-    return out
+        _launch(_KERNELS[res.dtype], src, rows, scal, res, bits, resolution,
+                (folds_per_block,))
+        name = {(True, 1): "launches", (False, 1): "launches_f32",
+                (True, 2): "launches_x2", (False, 2): "launches_f32x2"}[
+                    (res.dtype == torch.float64, folds_per_block)]
+    setattr(fused_loocv, name, getattr(fused_loocv, name) + 1)
+    return res
 
 
-fused_loocv.launches = 0
-fused_loocv.launches_f32 = 0
+# kernel -> the attribute of fused_loocv that counts its launches
+_COUNTERS = {
+    "fused_loocv": "launches",
+    "fused_loocv_f32": "launches_f32",
+    "fused_loocv_x2": "launches_x2",
+    "fused_loocv_f32x2": "launches_f32x2",
+    "fused_loocv_sym": "launches_sym",
+}
+
+
+def reset_launch_counts() -> None:
+    for attr in _COUNTERS.values():
+        setattr(fused_loocv, attr, 0)
+
+
+def launch_counts() -> dict:
+    """``{kernel: launches}`` of the five LOOCV kernels."""
+    return {name: getattr(fused_loocv, attr)
+            for name, attr in _COUNTERS.items()}
+
+
+reset_launch_counts()

@@ -60,7 +60,7 @@ def test_sweep_probe_matches_cpu(dev):
     idx = np.arange(N)[:, None]
     cfg = T.CVConfig()
     got = TS.materialize_cv(cfg, X, Y, w, idx, batch_size=64, device=dev)
-    ref = TS.materialize_cv(cfg, X, Y, w, idx, batch_size=64)
+    ref = TS.materialize_cv(cfg, X, Y, w, idx, batch_size=64, device="cpu")
     assert abs(float(got) - float(ref)) <= 1e-10 * abs(float(ref))
 
 
@@ -157,7 +157,8 @@ def test_f32_sweep_probe_matches_cpu(dev, n_l):
     cfg = T.CVConfig(dtype=np.float32)
     got = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7,
                             device=dev)
-    ref = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7)
+    ref = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7,
+                            device="cpu")
     assert got.dtype == torch.float32
     assert abs(float(got) - float(ref)) <= 1e-4 * abs(float(ref))
 
@@ -274,5 +275,154 @@ def test_kfold_sweep_probe_matches_cpu(dev, n_l):
     cfg = T.CVConfig()
     got = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7,
                             device=dev)
-    ref = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7)
+    ref = TS.materialize_cv(cfg, X, Y, w, idx, mask, batch_size=7,
+                            device="cpu")
     assert abs(float(got) - float(ref)) <= 1e-10 * abs(float(ref))
+
+
+# ---- the policy-routed kernels (sym LOOCV, x2 LOOCV, sym v3) ------------- #
+
+NS, KS, MS = 300, 130, 3  # the JAX padded width 256: the sym routes apply
+
+
+@pytest.fixture
+def policy_restored():
+    import dataclasses
+
+    before = T.policy()
+    yield
+    T.set_routing(**dataclasses.asdict(before))
+
+
+def _counts():
+    return {**TFD.launch_counts(), **TL.launch_counts()}
+
+
+def _sym_data(seed=11):
+    rng = np.random.default_rng(seed)
+    w = rng.random(NS)
+    w[::9] = 0.0
+    return rng.normal(size=(NS, KS)) * 2 + 0.5, rng.normal(size=(NS, MS)), w
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_policy_kernels_match_twins(dev, flags, weighted):
+    """The sym LOOCV and x2 LOOCV kernels (both dtypes) and the sym v3
+    kernel against their twins: float64 at 1e-12 and float32 at 1e-4 of
+    the twin's largest entry; the sym X blocks exactly symmetric; x2 bit
+    for bit the one-per-block kernel, odd fold counts included."""
+    X, Y, w = _sym_data()
+    w = w if weighted else None
+    rows = np.arange(0, NS, 4)[:75]  # 75 folds: x2 ends on a single fold
+    for dtype, rtol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+        cfg = T.CVConfig(*flags, dtype=dtype)
+        st = T.fit(cfg, X, Y, w, device=dev)
+        src = TB.prepare_loocv_sources(cfg, st, rows)
+        one = TB.loocv_from_sources(cfg, src, rows, return_XTY=True)
+        before = _counts()
+        two = TB.loocv_from_sources(cfg, src, rows, return_XTY=True,
+                                    two_per_step=True)
+        name = "fused_loocv_x2" if dtype == np.float64 else "fused_loocv_f32x2"
+        after = _counts()
+        assert {k for k in after if after[k] != before[k]} == {name}
+        ref = TB.loocv_from_sources(cfg, src, rows, return_XTY=True,
+                                    impl="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(one, two)
+        assert (two - ref).abs().max().item() <= rtol * ref.abs().max().item()
+        if dtype != np.float64:
+            continue
+        sym = TB.loocv_from_sources(cfg, src, rows, return_XTY=True,
+                                    sym=True)
+        ref = TB.loocv_from_sources(cfg, src, rows, return_XTY=True,
+                                    sym=True, impl="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(sym[:, :, :KS], sym[:, :, :KS].mT)
+        assert (sym - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+        idx = np.stack([np.arange(f, NS, 7)[:40] for f in range(5)])
+        mask = np.ones(idx.shape)
+        mask[::2, -3:] = 0.0
+        for m in (None, mask):
+            vsrc = TB.prepare_ozaki_sources(cfg, st, idx, m)
+            kw = dict(center_xtx=cfg.center_X,
+                      center_xty=cfg.center_X or cfg.center_Y,
+                      scale_x=cfg.scale_X, scale_y=cfg.scale_Y, with_y=True,
+                      resolution=cfg.resolution)
+            args = (vsrc.total, vsrc.xw, vsrc.xu, vsrc.yu, vsrc.rows,
+                    vsrc.mask, vsrc.gx, vsrc.sxv, vsrc.yvec, vsrc.scal)
+            before = _counts()
+            got = TFD.fold_v3(*args, **kw, sym=True)
+            after = _counts()
+            assert {k for k in after if after[k] != before[k]} == {
+                "fold_v3_sym"}
+            full = TFD.fold_v3(*args, **kw)
+            ref = TFD.fold_v3(*args, **kw, sym=True, impl="torch")
+            torch.cuda.synchronize()
+            assert torch.equal(got[:, :, :KS], got[:, :, :KS].mT)
+            assert (got - ref).abs().max().item() <= (
+                1e-12 * ref.abs().max().item())
+            iu = torch.triu_indices(KS, KS)
+            assert torch.equal(got[:, iu[0], iu[1]], full[:, iu[0], iu[1]])
+
+
+@pytest.mark.parametrize("knobs,dtype,n_l,kernel", [
+    (dict(sym_loocv=True), np.float64, 1, "fused_loocv_sym"),
+    (dict(sym_loocv=True), np.float64, 10, "fold_v3_sym"),
+    (dict(df64x2=True), np.float64, 1, "fused_loocv_x2"),
+    (dict(f32x2=True), np.float32, 1, "fused_loocv_f32x2"),
+    (dict(sym_loocv=True, df64x2=True), np.float64, 1, "fused_loocv_sym"),
+])
+def test_set_routing_launches_the_kernel(dev, policy_restored, knobs, dtype,
+                                         n_l, kernel):
+    """Under each knob the sweep launches its kernel once per chunk and no
+    other, and its probe matches the same sweep on the CPU."""
+    X, Y, w = _sym_data(12)
+    cfg = T.CVConfig(dtype=dtype)
+    T.set_routing(**knobs)
+    idx = np.arange(NS).reshape(-1, n_l)
+    bs, n_chunks = TS.sweep_chunking(cfg, idx.shape[0], KS, KS + MS, 25)
+    before = _counts()
+    got = TS.materialize_cv(cfg, X, Y, w, idx, batch_size=25)
+    after = _counts()
+    assert got.device == torch.device("cuda", 0)
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {kernel: n_chunks}
+    ref = TS.materialize_cv(cfg, X, Y, w, idx, batch_size=25, device="cpu")
+    rtol = 1e-10 if dtype == np.float64 else 1e-4
+    assert abs(float(got) - float(ref)) <= rtol * abs(float(ref))
+
+
+def test_default_device_is_cuda0(dev):
+    """fit, CVMatrix and materialize_cv given NumPy inputs and no device
+    land on cuda:0."""
+    X, Y, w = _data(13)
+    cfg = T.CVConfig()
+    assert T.fit(cfg, X, Y, w).device == torch.device("cuda", 0)
+    assert T.CVMatrix().fit(X, Y, w).state.device == torch.device("cuda", 0)
+    probe = TS.materialize_cv(cfg, X, Y, w, np.arange(N)[:, None])
+    assert probe.device == torch.device("cuda", 0)
+
+
+def test_reduce_sweep_on_the_card(dev):
+    """cross_validate_reduce through each hoisted loop on the card against
+    the same sweep on the CPU (the twins)."""
+    X, Y, w = _data(14)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    st_cpu = T.fit(cfg, X, Y, w, device="cpu")
+
+    def red(mats, stats):
+        return torch.trace(mats[0]) + mats[1].sum()
+
+    for idx in (np.arange(N)[:, None], np.arange(N).reshape(-1, 4),
+                np.arange(N).reshape(-1, 20)):
+        got = TS.cross_validate_reduce(cfg, st, idx, reduce_fn=red,
+                                       batch_size=32)
+        ref = TS.cross_validate_reduce(cfg, st_cpu, idx, reduce_fn=red,
+                                       batch_size=32)
+        assert got.device.type == "cuda"
+        assert (got.cpu() - ref).abs().max().item() <= (
+            1e-10 * ref.abs().max().item())

@@ -234,7 +234,7 @@ def test_cpu_wrappers_run_twins_and_count_nothing():
     assert (TFD.launch_counts(), TL.fused_loocv.launches_f32) == before
     assert set(TFD.launch_counts()) == {
         "fold_packed", "fold_packed_f32", "fold_downdate_f32",
-        "fold_ozaki_df64", "fold_v3", "fold_epilogue"}
+        "fold_ozaki_df64", "fold_v3", "fold_v3_sym", "fold_epilogue"}
 
 
 # --------------------------------------------------------------------------- #
@@ -284,7 +284,7 @@ def test_tf32_off_inside_f32_products(restore_precision, product_settings):
     torch.set_float32_matmul_precision("high")
     torch.backends.cuda.matmul.allow_tf32 = True
     cfg = T.CVConfig(dtype=np.float32)
-    st = T.fit(cfg, X_ALL, Y_ALL, W_ALL)
+    st = T.fit(cfg, X_ALL, Y_ALL, W_ALL, device="cpu")
     for idx, mask in ((IDX_ONE, None), (IDX_SMALL, _mask(IDX_SMALL)),
                       (IDX_LARGE, None)):
         TB.training_matrices_batched(cfg, st, idx, mask)

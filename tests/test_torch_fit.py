@@ -44,7 +44,7 @@ def assert_states_match(ts, js, atol=1e-8):
 def test_fit_matches_jax(flags, weighted, with_y):
     w = zero_fraction(WEIGHTS) if weighted else None
     Y = Y_ALL if with_y else None
-    ts = T.fit(T.CVConfig(*flags), X_ALL, Y, w)
+    ts = T.fit(T.CVConfig(*flags), X_ALL, Y, w, device="cpu")
     js = J.fit(J.CVConfig(*flags), X_ALL, Y, w)
     assert_states_match(ts, js)
     assert ts.XTX.dtype == torch.float64
@@ -55,7 +55,7 @@ def test_fit_matches_jax(flags, weighted, with_y):
 def test_fit_promotes_1d_inputs():
     cfg = (True, True, True, True)
     x, y, w = X_ALL[:, 0], Y_ALL[:, 0], WEIGHTS
-    ts = T.fit(T.CVConfig(*cfg), x, y, w)
+    ts = T.fit(T.CVConfig(*cfg), x, y, w, device="cpu")
     js = J.fit(J.CVConfig(*cfg), x, y, w)
     assert tuple(ts.X.shape) == (80, 1) and tuple(ts.Y.shape) == (80, 1)
     assert tuple(ts.weights.shape) == (80, 1)
@@ -83,8 +83,8 @@ def test_copy_isolates_caller_buffers():
     X = X_ALL.copy()
     w = WEIGHTS.copy()
     cfg = T.CVConfig()
-    copied = T.fit(cfg, X, Y_ALL, w, copy=True)
-    shared = T.fit(cfg, X, Y_ALL, w, copy=False)
+    copied = T.fit(cfg, X, Y_ALL, w, copy=True, device="cpu")
+    shared = T.fit(cfg, X, Y_ALL, w, copy=False, device="cpu")
     X[0, 0] = 1e6
     w[0] = 1e6
     assert float(copied.X[0, 0]) == X_ALL[0, 0]
@@ -98,13 +98,14 @@ def test_copy_isolates_caller_buffers():
 
 def test_fit_rejects_negative_weights():
     with pytest.raises(ValueError, match="Weights must be non-negative."):
-        T.fit(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS)
-    T.fit(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS, validate=False)  # skipped
+        T.fit(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS, device="cpu")
+    T.fit(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS, validate=False,
+          device="cpu")  # skipped
 
 
 def test_fit_float32_keeps_dtype():
     cfg = T.CVConfig(dtype=np.float32)
-    ts = T.fit(cfg, X_ALL, Y_ALL, WEIGHTS)
+    ts = T.fit(cfg, X_ALL, Y_ALL, WEIGHTS, device="cpu")
     js = J.fit(J.CVConfig(dtype=np.float32), X_ALL, Y_ALL, WEIGHTS)
     for f in FIELDS:
         a = getattr(ts, f)
@@ -113,3 +114,21 @@ def test_fit_float32_keeps_dtype():
             # f32 sums over 80 rows in another order: ~1e-6 relative.
             assert_allclose(a.numpy(), np.asarray(getattr(js, f)),
                             rtol=1e-5, atol=1e-3, err_msg=f)
+
+
+def test_default_device_needs_a_card(monkeypatch):
+    """With NumPy inputs and no ``device``, the entry points run on the CUDA
+    card; without one (here forced) they raise, naming ``device="cpu"``,
+    and tensor inputs stay where they are."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from cvmatrix_tpu_torch.models import sweep as TS
+
+    idx = np.arange(X_ALL.shape[0])[:, None]
+    for call in (lambda: T.fit(T.CVConfig(), X_ALL, Y_ALL),
+                 lambda: T.CVMatrix().fit(X_ALL, Y_ALL),
+                 lambda: TS.materialize_cv(T.CVConfig(), X_ALL, Y_ALL,
+                                           None, idx)):
+        with pytest.raises(ValueError, match="device='cpu'"):
+            call()
+    st = T.fit(T.CVConfig(), torch.from_numpy(X_ALL), None)
+    assert st.device == torch.device("cpu")

@@ -44,7 +44,7 @@ def assert_tree_close(got, ref, atol=1e-8):
 @pytest.mark.parametrize("flags", list(product([False, True], repeat=4)))
 def test_fold_methods_match_jax_and_oracle(flags, weighted, ddof):
     w = zero_fraction(WEIGHTS) if weighted else None
-    tm = T.CVMatrix(*flags, ddof=ddof).fit(X_ALL, Y_ALL, w)
+    tm = T.CVMatrix(*flags, ddof=ddof, device="cpu").fit(X_ALL, Y_ALL, w)
     jm = J.CVMatrix(*flags, ddof=ddof).fit(X_ALL, Y_ALL, w)
     oracle = NaiveOracle(*flags, ddof=ddof).fit(X_ALL, Y_ALL, w)
     for fold, vi in P.folds_dict.items():
@@ -64,7 +64,7 @@ def test_batched_indices_match_per_fold(weighted):
     counterpart of the JAX package's vmap)."""
     w = WEIGHTS if weighted else None
     cfg = T.CVConfig(True, False, True, True)
-    st = T.fit(cfg, X_ALL, Y_ALL, w)
+    st = T.fit(cfg, X_ALL, Y_ALL, w, device="cpu")
     idx = np.arange(60).reshape(12, 5)
     (bx, by), bstats = T.training_XTX_XTY(cfg, st, idx)
     for f in range(12):
@@ -85,7 +85,7 @@ def test_masked_batch_matches_jax(weighted):
     flags = (True, True, True, False)
     keys, idx, mask = P.padded_batches()
     assert mask is not None
-    tst = T.fit(T.CVConfig(*flags), X_ALL, Y_ALL, w)
+    tst = T.fit(T.CVConfig(*flags), X_ALL, Y_ALL, w, device="cpu")
     jcfg = J.CVConfig(*flags)
     jst = J.fit(jcfg, X_ALL, Y_ALL, w)
     got = T.training_XTX_XTY(T.CVConfig(*flags), tst, idx, mask)
@@ -94,7 +94,8 @@ def test_masked_batch_matches_jax(weighted):
 
 
 def test_float32_mask_keeps_config_dtype():
-    cvm = T.CVMatrix(True, True, True, True, 1, dtype=np.float32).fit(
+    cvm = T.CVMatrix(True, True, True, True, 1, dtype=np.float32,
+                      device="cpu").fit(
         X_ALL[:40].astype(np.float32), Y_ALL[:40].astype(np.float32), None)
     p = T.Partitioner(np.array([0] * 15 + [1] * 25))
     _, idx, mask = p.padded_batches()
@@ -104,11 +105,11 @@ def test_float32_mask_keeps_config_dtype():
 
 def test_negative_weights_raise():
     with pytest.raises(ValueError, match="Weights must be non-negative."):
-        T.CVMatrix().fit(X_ALL, Y_ALL, -WEIGHTS)
+        T.CVMatrix(device="cpu").fit(X_ALL, Y_ALL, -WEIGHTS)
 
 
 def test_missing_y_and_flag_errors():
-    cvm = T.CVMatrix().fit(X_ALL[:, :4], None, WEIGHTS)
+    cvm = T.CVMatrix(device="cpu").fit(X_ALL[:, :4], None, WEIGHTS)
     vi = P.get_validation_indices(0)
     for call in (cvm.training_XTX_XTY, cvm.training_XTY):
         with pytest.raises(ValueError,
@@ -135,11 +136,13 @@ def test_degenerate_ddof_fold_raises():
     folds[:2] = 1
     vi = T.Partitioner(folds).get_validation_indices(0)
     msg = "must be greater than `ddof`"
-    cvm = T.CVMatrix(True, True, True, True, ddof=2).fit(X_ALL, Y_ALL, w)
+    cvm = T.CVMatrix(True, True, True, True, ddof=2,
+                     device="cpu").fit(X_ALL, Y_ALL, w)
     for call in (cvm.training_XTX_XTY, cvm.training_XTX, cvm.training_XTY):
         with pytest.raises(ValueError, match=msg):
             call(vi)
-    cvm2 = T.CVMatrix(False, True, False, True, ddof=2).fit(X_ALL, Y_ALL, w)
+    cvm2 = T.CVMatrix(False, True, False, True, ddof=2,
+                      device="cpu").fit(X_ALL, Y_ALL, w)
     cvm2.training_XTX(vi)  # no X-side stats: no raise
     with pytest.raises(ValueError, match=msg):
         cvm2.training_XTY(vi)
@@ -153,7 +156,8 @@ def test_all_training_weights_zero_raises():
     for cx, cy, sx, sy in product([False, True], repeat=4):
         if not (cx or cy or sx or sy):
             continue
-        cvm = T.CVMatrix(cx, cy, sx, sy, ddof=0).fit(X_ALL, Y_ALL, w)
+        cvm = T.CVMatrix(cx, cy, sx, sy, ddof=0, device="cpu").fit(
+            X_ALL, Y_ALL, w)
         with pytest.raises(ValueError, match=msg):
             cvm.training_XTX_XTY(vi)
         if cx or sx:
@@ -161,14 +165,14 @@ def test_all_training_weights_zero_raises():
                 cvm.training_XTX(vi)
         else:
             cvm.training_XTX(vi)
-    T.CVMatrix(False, False, False, False, ddof=0).fit(
+    T.CVMatrix(False, False, False, False, ddof=0, device="cpu").fit(
         X_ALL, Y_ALL, w).training_XTX_XTY(vi)
 
 
 def test_out_of_range_indices_raise():
     """NumPy's eager rule: [-N, N) is valid; beyond it raises (a CUDA
     gather would fault instead)."""
-    cvm = T.CVMatrix().fit(X_ALL, Y_ALL, WEIGHTS)
+    cvm = T.CVMatrix(device="cpu").fit(X_ALL, Y_ALL, WEIGHTS)
     ref = J.CVMatrix().fit(X_ALL, Y_ALL, WEIGHTS)
     assert_tree_close(cvm.training_XTX(np.array([-1, 3])),
                       ref.training_XTX(np.array([59, 3])))

@@ -161,7 +161,8 @@ def test_batched_engine_routes_and_stats():
         for g, r in zip(gstats, rstats):
             assert_allclose(g.numpy(), np.asarray(r), atol=1e-12, rtol=0)
     # float32 runs the per-fold engine on the CPU
-    st32 = T.fit(T.CVConfig(dtype=np.float32), X_ALL, Y_ALL, W_ALL)
+    st32 = T.fit(T.CVConfig(dtype=np.float32), X_ALL, Y_ALL, W_ALL,
+                 device="cpu")
     (gx, _), _ = TB.training_matrices_batched(T.CVConfig(dtype=np.float32),
                                               st32, IDX_LARGE)
     assert gx.dtype == torch.float32
@@ -341,3 +342,94 @@ def test_wrapper_argument_errors():
                                      return_XTY=False)
     with pytest.raises(ValueError, match="Unknown impl"):
         TB.training_matrices_batched(cfg, st, IDX_LARGE, impl="xla")
+
+
+# ---- the symmetric v3 kernel's twin (fused_ozaki_downdate_v3_sym) -------- #
+
+NS, KS, MS = 300, 130, 3  # kp = cp = 256: two 128-tiles a side in JAX
+_rs = np.random.default_rng(9)
+XS = _rs.normal(size=(NS, KS)) * 2 + 0.5
+YS = _rs.normal(size=(NS, MS))
+WS = _rs.uniform(0, 2, size=NS)
+IDX_V3S = np.arange(80).reshape(2, 40)
+
+
+@pytest.fixture
+def sym_on():
+    """``sym_loocv`` on in both packages, restored afterwards."""
+    before = J.policy(), T.policy()
+    J.set_routing(sym_loocv=True)
+    T.set_routing(sym_loocv=True)
+    yield
+    J.set_routing(**dataclasses.asdict(before[0]))
+    T.set_routing(**dataclasses.asdict(before[1]))
+
+
+def _v3_sym_both(flags, weighted, masked):
+    jcfg = J.CVConfig(*flags)
+    js = J.fit(jcfg, XS, YS, WS if weighted else None)
+    cfg, st = T.CVConfig(*flags), port_state(js)
+    mask = _mask(IDX_V3S, 6) if masked else None
+    assert TB.route_kernel(cfg, st, 40, True, True, masked) == "v3_sym"
+    src = TB.prepare_ozaki_sources(cfg, st, IDX_V3S, mask)
+    out = TB.ozaki_v3_from_sources(cfg, src, return_XTY=True)
+    jsrc = JB.prepare_ozaki_sources(jcfg, js, IDX_V3S, mask)
+    kw = dict(center_xtx=jcfg.center_X,
+              center_xty=jcfg.center_X or jcfg.center_Y,
+              scale_x=jcfg.scale_X, scale_y=jcfg.scale_Y, with_y=True,
+              resolution=jcfg.resolution)
+    return out, jsrc, kw
+
+
+def _trim(pair):
+    pair = np.asarray(pair)
+    return (pair[:, 0].astype(np.float64)
+            + pair[:, 1].astype(np.float64))[:, :KS, :KS + MS]
+
+
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_v3_sym_twin_matches_jax_kernel_model(sym_on, flags):
+    """Against ``fused_ozaki_v3_sym_reference`` (bt=128), the JAX eager
+    model of its sym kernel, at 1e-8 (the bound of the v3 model test
+    above), weighted and masked, and unweighted; the X block exactly
+    symmetric."""
+    for weighted, masked in ((True, True), (False, False)):
+        out, jsrc, kw = _v3_sym_both(flags, weighted, masked)
+        x = out[:, :, :KS]
+        assert torch.equal(x, x.mT)
+        ref = _trim(JK.fused_ozaki_v3_sym_reference(
+            np.asarray(jsrc.idx),
+            None if jsrc.mask2d is None else np.asarray(jsrc.mask2d),
+            jsrc.total2, jsrc.saN, jsrc.sbN_rev, jsrc.pa, jsrc.pb, jsrc.gx,
+            jsrc.sxv, jsrc.yvec, jsrc.ymask, jsrc.scal, **kw, bt=128))
+        assert_allclose(out.numpy(), ref, atol=1e-8, rtol=0)
+
+
+def test_v3_sym_twin_matches_jax_kernel_interpret(sym_on):
+    """Against ``fused_ozaki_downdate_v3_sym`` in interpret mode, reached
+    through the JAX ``ozaki_v3_from_sources`` under its ``sym_loocv``, at
+    1e-5 of the largest entry (the JAX package's interpret bound for its
+    Ozaki kernels, see ``test_ozaki_df64_twin_matches_jax_kernel``)."""
+    out, jsrc, kw = _v3_sym_both((True,) * 4, True, True)
+    jcfg = J.CVConfig(True, True, True, True)
+    ref = _trim(JB.ozaki_v3_from_sources(jcfg, jsrc, return_XTY=True,
+                                         interpret=True))
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_v3_sym_twin_is_the_v3_twin_mirrored(sym_on):
+    """The computed entries are the full v3 twin's, bit for bit, and the
+    CPU wrapper counts no launch."""
+    cfg, st = T.CVConfig(), port_state(J.fit(J.CVConfig(), XS, YS, WS))
+    src = TB.prepare_ozaki_sources(cfg, st, IDX_V3S)
+    before = TFD.launch_counts()
+    sym = TB.ozaki_v3_from_sources(cfg, src, return_XTY=True)
+    T.set_routing(sym_loocv=False)
+    full = TB.ozaki_v3_from_sources(cfg, src, return_XTY=True)
+    assert TFD.launch_counts() == before
+    iu = np.triu_indices(KS)
+    assert torch.equal(sym[:, iu[0], iu[1]], full[:, iu[0], iu[1]])
+    assert torch.equal(sym[:, :, KS:], full[:, :, KS:])
+    assert not torch.equal(sym, full)

@@ -20,6 +20,8 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|cvmatrix_tpu)\b",
 def test_import_leaves_jax_out():
     code = (
         "import sys, cvmatrix_tpu_torch, cvmatrix_tpu_torch.models.sweep\n"
+        "import cvmatrix_tpu_torch.policy\n"
+        "from cvmatrix_tpu_torch.models.sweep import cross_validate_reduce\n"
         "from cvmatrix_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cvmatrix_tpu',\n"
@@ -41,6 +43,16 @@ def test_sources_never_import_jax(path):
     assert not IMPORT_RE.search((ROOT / path).read_text()), path
 
 
+def test_policy_and_reduce_sweeps_are_checked():
+    """The routing policy and the reduce sweeps are among the sources the
+    rule above reads, and the policy is the port's own copy."""
+    checked = {p.name for p in (ROOT / "cvmatrix_tpu_torch").rglob("*.py")}
+    assert {"policy.py", "sweep.py"} <= checked
+    assert T.set_routing.__module__ == "cvmatrix_tpu_torch.policy"
+    assert "cross_validate_reduce" in (
+        ROOT / "cvmatrix_tpu_torch" / "models" / "sweep.py").read_text()
+
+
 def test_kernel_source_ships_with_the_package():
     for name in ("loocv.cu", "fold_downdate.cu", "fold_epilogue.cu"):
         assert (ROOT / "cvmatrix_tpu_torch" / "csrc" / name).is_file()
@@ -51,7 +63,7 @@ def test_cuda_request_without_gpu_raises():
     x = np.random.default_rng(0).random((20, 3))
     y = np.random.default_rng(1).random((20, 2))
     cfg = T.CVConfig()
-    st = T.fit(cfg, x, y)
+    st = T.fit(cfg, x, y, device="cpu")
     src = TB.prepare_loocv_sources(cfg, st, np.arange(4))
     with pytest.raises(ValueError, match="impl='cuda'"):
         TB.loocv_from_sources(cfg, src, np.arange(4), return_XTY=True,

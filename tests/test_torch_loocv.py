@@ -180,3 +180,105 @@ def test_out_buffer_and_launch_count_on_cpu():
         src, torch.as_tensor(IDX), src.scal, center_xtx=True, center_xty=True,
         scale_x=True, scale_y=True, with_y=True, resolution=cfg.resolution)
     assert torch.equal(buf, ref)
+
+
+# ---- the symmetric kernel's twin (fused_loocv_df64_sym) ------------------ #
+
+NS, KS, MS = 300, 130, 3  # kp = cp = 256: two 128-tiles a side in JAX
+_rs = np.random.default_rng(5)
+XS = _rs.normal(size=(NS, KS)) * 2 + 0.5
+YS = _rs.normal(size=(NS, MS))
+WS = _rs.uniform(0, 2, size=NS)
+IDX_S = np.array([0, 5, 77, 299])
+SYM_FLAGS = [(True,) * 4, (False,) * 4, (True, True, False, False),
+             (False, False, True, True)]
+
+
+def _sym_both(flags, weighted):
+    """The port's symmetric twin and the JAX sym kernel's arguments."""
+    w = WS if weighted else None
+    jcfg = J.CVConfig(*flags)
+    js = J.fit(jcfg, XS, YS, w)
+    cfg = T.CVConfig(*flags)
+    st = port_state(js)
+    src = TB.prepare_loocv_sources(cfg, st, IDX_S)
+    out = TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True, sym=True)
+    full = TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True)
+    jsrc = JB.prepare_loocv_sources(jcfg, js, IDX_S[:, None])
+    args = (IDX_S.astype(np.int32), jsrc.total4, jsrc.xw, jsrc.xu, jsrc.yu,
+            jsrc.yw, jsrc.gx, jsrc.gy, jsrc.ymask, jsrc.scal)
+    kw = dict(center_xtx=jcfg.center_X,
+              center_xty=jcfg.center_X or jcfg.center_Y,
+              scale_x=jcfg.scale_X, scale_y=jcfg.scale_Y, with_y=True,
+              resolution=jcfg.resolution)
+    return out, full, args, kw
+
+
+def _pairs_to_f64(pair):
+    pair = np.asarray(pair)
+    return (pair[:, 0].astype(np.float64)
+            + pair[:, 1].astype(np.float64))[:, :KS, :KS + MS]
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", SYM_FLAGS)
+def test_sym_twin_matches_jax_sym_reference(flags, weighted):
+    """Against ``fused_loocv_df64_sym_reference`` (bt=128), the JAX eager
+    model of its sym kernel, at 1e-11 of the largest entry (the JAX
+    package's own bound between its sym and full models): the JAX kernel
+    mirrors whole off-diagonal tiles and computes its diagonal tiles, the
+    port mirrors every entry below the diagonal, and the two differ by
+    the factor form's rounding asymmetry. The port's X block is exactly
+    symmetric and its upper triangle and XTY columns are the full twin's,
+    bit for bit."""
+    out, full, args, kw = _sym_both(flags, weighted)
+    x = out[:, :, :KS]
+    assert torch.equal(x, x.mT)
+    iu = np.triu_indices(KS)
+    assert torch.equal(out[:, iu[0], iu[1]], full[:, iu[0], iu[1]])
+    assert torch.equal(out[:, :, KS:], full[:, :, KS:])
+    ref = _pairs_to_f64(JK.fused_loocv_df64_sym_reference(*args, **kw,
+                                                          bt=128))
+    scale = np.abs(ref).max()
+    assert np.abs(out.numpy() - ref).max() <= 1e-11 * scale
+
+
+def test_sym_twin_matches_jax_sym_kernel_interpret():
+    """Against ``fused_loocv_df64_sym`` in interpret mode, at 1e-5 of the
+    largest entry: the JAX package's own bound for its sym kernel in
+    interpret mode (the interpreter fuses ``a*b+c`` and breaks the
+    double-float compensation)."""
+    out, _, args, kw = _sym_both((True,) * 4, True)
+    ref = _pairs_to_f64(JK.fused_loocv_df64_sym(*args, **kw, bt=128,
+                                                interpret=True))
+    scale = np.abs(ref).max()
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * scale
+
+
+def test_sym_and_x2_wrappers_on_cpu():
+    """On CPU tensors the sym and two-per-block entries run their twins,
+    count no launch and fill ``out``; x2 is the one-per-block twin."""
+    cfg = T.CVConfig()
+    st = port_state(J.fit(J.CVConfig(), XS, YS, WS))
+    src = TB.prepare_loocv_sources(cfg, st, IDX_S)
+    before = TL.launch_counts()
+    buf = torch.empty((len(IDX_S), KS, KS + MS), dtype=torch.float64)
+    got = TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True, sym=True,
+                                out=buf)
+    assert got is buf
+    assert torch.equal(buf, TL.loocv_sym_reference(
+        src, torch.as_tensor(IDX_S), src.scal, **TB._loocv_flags(cfg, True)))
+    two = TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True,
+                                two_per_step=True)
+    one = TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True)
+    assert torch.equal(one, two)
+    assert TL.launch_counts() == before
+    with pytest.raises(ValueError, match="folds_per_block"):
+        TL.fused_loocv(src, IDX_S, src.scal, folds_per_block=3,
+                       **TB._loocv_flags(cfg, True))
+    with pytest.raises(ValueError, match="folds_per_block"):
+        TL.fused_loocv(src, IDX_S, src.scal, sym=True, folds_per_block=2,
+                       **TB._loocv_flags(cfg, True))
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True, sym=True,
+                              impl="cuda")

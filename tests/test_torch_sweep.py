@@ -24,7 +24,7 @@ N = X_ALL.shape[0]
 def probes(flags, idx, mask=None, weighted=True, **kw):
     w = zero_fraction(WEIGHTS) if weighted else None
     got = TS.materialize_cv(T.CVConfig(*flags), X_ALL, Y_ALL, w, idx, mask,
-                            **kw)
+                            device="cpu", **kw)
     ref = JS.materialize_cv(J.CVConfig(*flags), X_ALL, Y_ALL, w, idx, mask,
                             **kw)
     return float(got), float(ref)
@@ -92,11 +92,12 @@ def test_kfold_probe_matches_jax_and_fold_engine(case):
     flags = (True, True, True, True)
     w = zero_fraction(W_K)
     cfg = T.CVConfig(*flags, matmul_mode=mode)
-    st = T.fit(cfg, X_K, Y_K, w)
+    st = T.fit(cfg, X_K, Y_K, w, device="cpu")
     assert TB.route_kernel(cfg, st, idx.shape[1], xtx, True,
                            mask is not None) == route
     kw = dict(batch_size=3, return_XTX=xtx)
-    got = TS.materialize_cv(cfg, X_K, Y_K, w, idx, mask, **kw)
+    got = TS.materialize_cv(cfg, X_K, Y_K, w, idx, mask, device="cpu",
+                            **kw)
     ref = JS.materialize_cv(J.CVConfig(*flags, matmul_mode=mode), X_K, Y_K,
                             w, idx, mask, impl="xla", **kw)
     assert_allclose(float(got), float(ref), atol=1e-8, rtol=0)
@@ -139,11 +140,12 @@ def test_f32_probe_matches_jax_and_fold_engine(case):
     flags = (True, True, True, True)
     cfg = T.CVConfig(*flags, dtype=np.float32)
     jcfg = J.CVConfig(*flags, dtype=np.float32)
-    st = T.fit(cfg, X32, Y32, W32)
+    st = T.fit(cfg, X32, Y32, W32, device="cpu")
     assert TB.route_kernel(cfg, st, idx.shape[1], xtx, True,
                            mask is not None) == route
     kw = dict(batch_size=3, return_XTX=xtx)
-    got = TS.materialize_cv(cfg, X32, Y32, W32, idx, mask, **kw)
+    got = TS.materialize_cv(cfg, X32, Y32, W32, idx, mask, device="cpu",
+                            **kw)
     ref = JS.materialize_cv(jcfg, X32, Y32, W32, idx, mask, impl="xla", **kw)
     assert got.dtype == torch.float32
     assert_allclose(float(got), float(ref), rtol=1e-4)
@@ -174,7 +176,7 @@ def test_whole_slice_against_oracle():
     and loocv_from_sources chunk by chunk over every fold."""
     flags = (True, True, True, True)
     w = zero_fraction(WEIGHTS)
-    cvm = T.CVMatrix(*flags).fit(X_ALL, Y_ALL, w)
+    cvm = T.CVMatrix(*flags, device="cpu").fit(X_ALL, Y_ALL, w)
     keys, idx, mask = T.Partitioner(np.arange(N)).padded_batches()
     assert mask is None and idx.shape == (N, 1)
     src = TB.prepare_loocv_sources(cvm.config, cvm.state, idx)
@@ -192,15 +194,16 @@ def test_whole_slice_against_oracle():
 
 
 def test_sweep_argument_errors():
-    st = T.fit(T.CVConfig(), X_ALL, Y_ALL, WEIGHTS)
+    st = T.fit(T.CVConfig(), X_ALL, Y_ALL, WEIGHTS, device="cpu")
     idx = np.arange(N)[:, None]
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
         TS.materialize_sweep(T.CVConfig(), st, idx, impl="cuda")
     with pytest.raises(ValueError, match="Unknown impl"):
         TS.materialize_sweep(T.CVConfig(), st, idx, impl="xla")
     with pytest.raises(ValueError, match="Weights must be non-negative"):
-        TS.materialize_cv(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS, idx)
-    st_x = T.fit(T.CVConfig(), X_ALL, None, WEIGHTS)
+        TS.materialize_cv(T.CVConfig(), X_ALL, Y_ALL, -WEIGHTS, idx,
+                          device="cpu")
+    st_x = T.fit(T.CVConfig(), X_ALL, None, WEIGHTS, device="cpu")
     with pytest.raises(ValueError, match="Response variables"):
         TS.materialize_sweep(T.CVConfig(), st_x, idx)
 
@@ -213,7 +216,8 @@ def test_impls_agree_on_cpu(impl, flags):
     one-row fold indices are accepted as (F, 1)."""
     w = zero_fraction(WEIGHTS)
     got = TS.materialize_cv(T.CVConfig(*flags), X_ALL, Y_ALL, w,
-                            np.arange(N), impl=impl, batch_size=12)
+                            np.arange(N), impl=impl, batch_size=12,
+                            device="cpu")
     ref = JS.materialize_cv(J.CVConfig(*flags), X_ALL, Y_ALL, w,
                             np.arange(N)[:, None], batch_size=12)
     assert_allclose(float(got), float(ref), atol=1e-8, rtol=0)
