@@ -10,8 +10,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. Device: require CUDA; print the card, its power limit and the toolchain.
 2. Build: compile the kernels of ``cvmatrix_tpu_torch/csrc/`` (``loocv.cu``,
-   ``fold_downdate.cu``, ``fold_epilogue.cu``), one ``nvcc`` each, all at
-   once; print their register and spill lines.
+   ``fold_downdate.cu``, ``fold_epilogue.cu``, ``slice_rows.cu``), one
+   ``nvcc`` each, all at once; print their register and spill lines.
 3. LOOCV kernel against its plain twin on the card: 16 flag sets x
    weighted and unweighted at N=2,000, K=500, M=10 over 64 folds, and the
    main path's first and last 256 folds; bound max|kernel - twin| <= 1e-12
@@ -81,7 +81,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
     and P=1,000 under ``hoist_reduce=False``, timed beside the
     ``materialize_cv`` total of the same P, the launch counts checked, and
     three folds' reductions against the per-fold engine.
-16. Prints the kernels' JSON line (twelve kernels, each with its bound and
+16. Small-fold LOOCV sources: the port of ``fused_smallfold_df64`` against
+    its twin at N=2,000, K=500, M=10 for 16 flag sets x weighted and
+    unweighted x [XTX | XTY] and XTX alone, 16 folds of L=4 unmasked and
+    masked (padded slots at index 0), float64 at 1e-12 and float32 at 1e-4
+    of the twin's largest entry, one launch of the dtype's kernel each.
+    Then at full width on phase 4's data: the first 962-fold chunk of
+    P=25,000 through the kernel, its twin and the packed kernel, all three
+    within 1e-12 and timed in turns; fit + ``prepare_loocv_sources`` +
+    ``smallfold_from_sources`` over all folds of P=25,000 (L=4) and of the
+    masked P=30,000 (10,000 folds of 4 rows, 20,000 of 3) in
+    ``materialize_cv``'s chunks, warm-up and timed beside the
+    ``materialize_cv`` total, one launch a chunk and no other kernel; each
+    probe fold against ``tests/oracle.py`` at 1e-10.
+17. The mantissa slicer at full width: phase 4's X as float32 hi/lo planes
+    (100,000 x 500), ``pows`` from each column's largest magnitude,
+    ``block_rows=32``, 10 slices, both layouts: the kernel bit-equal to its
+    twin, slices within 65, the reconstruction within 2^-58 of the scaled
+    pair, one launch each, timed in turns with the twin.
+18. Prints the kernels' JSON line (fourteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function), the card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -137,6 +155,10 @@ KERNEL_SOURCES = {
                         "cvmatrix_tpu/ops/kernels.py:1190"),
     "fold_v3_sym": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
                     "cvmatrix_tpu/ops/kernels.py:2430"),
+    "fold_smallfold": ("cvmatrix_tpu_torch/csrc/fold_downdate.cu",
+                       "cvmatrix_tpu/ops/kernels.py:1631"),
+    "slice_rows": ("cvmatrix_tpu_torch/csrc/slice_rows.cu",
+                   "cvmatrix_tpu/ops/kernels.py:2642"),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -240,14 +262,15 @@ def wall(fn):
     return time.perf_counter() - t0, res
 
 
-def launch_counts(FD, TL) -> dict:
-    """Every kernel's launch count, by the kernels line's names."""
-    return {**FD.launch_counts(), **TL.launch_counts()}
+def launch_counts(*mods) -> dict:
+    """Every kernel's launch count in the wrapper modules ``mods``, by the
+    kernels line's names."""
+    return {name: n for mod in mods for name, n in mod.launch_counts().items()}
 
 
-def reset_launch_counts(FD, TL) -> None:
-    FD.reset_launch_counts()
-    TL.reset_launch_counts()
+def reset_launch_counts(*mods) -> None:
+    for mod in mods:
+        mod.reset_launch_counts()
 
 
 def main() -> int:
@@ -279,6 +302,7 @@ def main() -> int:
     from cvmatrix_tpu_torch.ops import _build
     from cvmatrix_tpu_torch.ops import fold_downdate as FD
     from cvmatrix_tpu_torch.ops import loocv as TL
+    from cvmatrix_tpu_torch.ops import slice_rows as SR
     from cvmatrix_tpu_torch.ops.loocv import fused_loocv
     from cvmatrix_tpu_torch.ops.precision import highest_precision
     from tests.oracle import NaiveOracle
@@ -300,7 +324,7 @@ def main() -> int:
         f"{'present' if triton else 'absent'}")
 
     # ---- 2. build ----------------------------------------------------------
-    libs = ("loocv", "fold_downdate", "fold_epilogue")
+    libs = ("loocv", "fold_downdate", "fold_epilogue", "slice_rows")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, at once
         list(pool.map(_build.load_library, libs))
@@ -726,9 +750,9 @@ def main() -> int:
                 route = TB.route_kernel(cfg_s, st_s, idx.shape[1], xtx, xty,
                                         mask is not None)
                 name = ROUTE_WRAPPER_F32[route]
-                before = launch_counts(FD, TL)
+                before = launch_counts(FD, TL, SR)
                 got = batch(cfg_s, st_s, idx, mask, xtx, xty, "cuda")
-                after = launch_counts(FD, TL)
+                after = launch_counts(FD, TL, SR)
                 ref = batch(cfg_s, st_s, idx, mask, xtx, xty, "torch")
                 torch.cuda.synchronize()
                 launched = {n for n in after if after[n] != before[n]}
@@ -778,10 +802,10 @@ def main() -> int:
         return float(materialize_cv(cfg32, Xd32, Yd32, wd32, idx_loo))
 
     t_warm, _ = wall(total_cv32)
-    reset_launch_counts(FD, TL)
+    reset_launch_counts(FD, TL, SR)
     torch.cuda.reset_peak_memory_stats()
     t_total, probe32 = wall(total_cv32)
-    counts = launch_counts(FD, TL)
+    counts = launch_counts(FD, TL, SR)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if counts["fused_loocv_f32"] != n_chunks or any(
             v for n, v in counts.items() if n != "fused_loocv_f32"):
@@ -885,10 +909,10 @@ def main() -> int:
             return float(materialize_cv(cfg32, Xd32, Yd32, wd32, idx, mask))
 
         t_warm, _ = wall(cv32)
-        reset_launch_counts(FD, TL)
+        reset_launch_counts(FD, TL, SR)
         torch.cuda.reset_peak_memory_stats()
         t_total, probe = wall(cv32)
-        counts = launch_counts(FD, TL)
+        counts = launch_counts(FD, TL, SR)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if counts[expect] != n_chunks_p or any(
                 v for n, v in counts.items() if n != expect):
@@ -947,7 +971,7 @@ def main() -> int:
         fold_err[name] = fold_rel[name] = 0.0
 
     def only(before, name, label):
-        after = launch_counts(FD, TL)
+        after = launch_counts(FD, TL, SR)
         moved = {n for n in after if after[n] != before[n]}
         if moved != {name}:
             raise AssertionError(f"{label}: launched {moved}, expected "
@@ -1000,7 +1024,7 @@ def main() -> int:
                     src = prepare_loocv_sources(cfg_s, st_s, rows)
                     one = loocv_from_sources(cfg_s, src, rows,
                                              return_XTY=True, impl="cuda")
-                    before = launch_counts(FD, TL)
+                    before = launch_counts(FD, TL, SR)
                     two = loocv_from_sources(cfg_s, src, rows,
                                              return_XTY=True,
                                              two_per_step=True, impl="cuda")
@@ -1014,7 +1038,7 @@ def main() -> int:
                     cases += 1
                     if not f64:
                         continue
-                    before = launch_counts(FD, TL)
+                    before = launch_counts(FD, TL, SR)
                     sym = loocv_from_sources(cfg_s, src, rows,
                                              return_XTY=True, sym=True,
                                              impl="cuda")
@@ -1036,7 +1060,7 @@ def main() -> int:
                                                     impl="cuda")
                     set_routing(sym_loocv=True)
                     try:
-                        before = launch_counts(FD, TL)
+                        before = launch_counts(FD, TL, SR)
                         got = TB.ozaki_v3_from_sources(
                             cfg_s, vsrc, return_XTY=True, impl="cuda")
                         only(before, "fold_v3_sym", label)
@@ -1056,14 +1080,14 @@ def main() -> int:
         f"sym - full over the computed entries {upper_diff}")
 
     # Full-width chunks: x2 beside one fold per block, sym beside full.
-    def time_turns(label, fns, reps):
+    def time_turns(label, fns, reps, tag="policy-chunk"):
         """CUDA-event ms of each of ``fns`` ({name: fn}), in turns, there
         and back; the best of the two."""
         order = list(fns) + list(fns)[::-1]
         ms = {n: [] for n in fns}
         for n in order:
             ms[n].append(cuda_ms(fns[n], reps[n]))
-        log(f"[policy-chunk] {label}: " + ", ".join(
+        log(f"[{tag}] {label}: " + ", ".join(
             f"{n} {ms[n]} ms" for n in fns) + f" (order {order})  [{card}]")
         return {n: min(v) for n, v in ms.items()}
 
@@ -1176,9 +1200,9 @@ def main() -> int:
                 return float(materialize_cv(cfg_p, *data, idx, mask))
 
             t_warm, _ = wall(cv)
-            reset_launch_counts(FD, TL)
+            reset_launch_counts(FD, TL, SR)
             t_total, probe = wall(cv)
-            counts = launch_counts(FD, TL)
+            counts = launch_counts(FD, TL, SR)
         finally:
             set_routing(**vars(default_policy))
         if counts[expect] != n_chunks_p or any(
@@ -1248,9 +1272,9 @@ def main() -> int:
                                              reduce_fn=fn)
 
             t_warm, _ = wall(run)
-            reset_launch_counts(FD, TL)
+            reset_launch_counts(FD, TL, SR)
             t_total, out = wall(run)
-            counts = launch_counts(FD, TL)
+            counts = launch_counts(FD, TL, SR)
         finally:
             set_routing(**vars(default_policy))
         if counts[expect] != n_chunks_r or any(
@@ -1320,12 +1344,240 @@ def main() -> int:
                     cfg, fit(cfg, Xd, Yd, wd, copy=False), idx_loo,
                     reduce_fn=trace_fn).sum().item())
 
-    # ---- 16. result ---------------------------------------------------------
+    # ---- 16. small-fold LOOCV sources ------------------------------------------
+    for name in ("fold_smallfold", "fold_smallfold_f32"):
+        fold_err[name] = fold_rel[name] = 0.0
+    rng = np.random.default_rng(SEED + 4)
+    idx4 = np.stack([rng.choice(n_small, 4, replace=False)
+                     for _ in range(16)])
+    mask4 = np.ones(idx4.shape)
+    mask4[::2, -1] = 0.0
+    idx4m = idx4.copy()
+    idx4m[::2, -1] = 0  # a padded slot: index 0, mask 0
+    cases = 0
+    for flags in itertools.product([True, False], repeat=4):
+        for w in (ws, None):
+            for dtype in (np.float64, np.float32):
+                f64 = dtype == np.float64
+                cfg_s = CVConfig(*flags, ddof=1, dtype=dtype)
+                st_s = fit(cfg_s, Xs.astype(dtype), Ys.astype(dtype),
+                           None if w is None else w.astype(dtype),
+                           device=dev)
+                name = "fold_smallfold" if f64 else "fold_smallfold_f32"
+                for with_y, (idx_c, mask) in itertools.product(
+                        (True, False), ((idx4, None), (idx4m, mask4))):
+                    label = (f"{cfg_s}, L=4, masked={mask is not None}, "
+                             f"with_y={with_y}")
+                    src = prepare_loocv_sources(cfg_s, st_s, idx_c, mask,
+                                                return_XTY=with_y)
+                    kw = dict(n_l=4, return_XTY=with_y,
+                              has_mask=mask is not None)
+                    before = launch_counts(FD, TL, SR)
+                    got = TB.smallfold_from_sources(cfg_s, src, idx_c,
+                                                    impl="cuda", **kw)
+                    only(before, name, label)
+                    ref = TB.smallfold_from_sources(cfg_s, src, idx_c,
+                                                    impl="torch", **kw)
+                    if got.dtype != st_s.X.dtype:
+                        raise AssertionError(f"{label}: output {got.dtype}")
+                    held(name, got, ref, TWIN_RTOL if f64 else F32_TWIN_RTOL,
+                         label)
+                    cases += 1
+    log(f"[smallfold-twin] {cases} cases (N={n_small}; 16 folds of L=4, "
+        f"unmasked and masked with padded slots; [XTX | XTY] and XTX; "
+        f"float64 and float32): worst max|diff| "
+        f"{fold_err['fold_smallfold']:.3e} / "
+        f"{fold_err['fold_smallfold_f32']:.3e}, worst relative "
+        f"{fold_rel['fold_smallfold']:.3e} / "
+        f"{fold_rel['fold_smallfold_f32']:.3e}")
+
+    # The first chunk of P=25,000 through the small-fold kernel, its twin
+    # and the packed kernel, on the same folds.
+    idx, _, bs_p, _ = chunk_idx(25_000)
+    rows_c = torch.as_tensor(idx[:bs_p]).to(dev)
+    src = prepare_loocv_sources(cfg, st, rows_c.cpu())
+    ops, _ = TB.prepare_fold_operands(cfg, st, rows_c)
+    buf1 = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
+    buf2 = torch.empty_like(buf1)
+    kw = dict(n_l=4, return_XTY=True, has_mask=False)
+    fns = {
+        "plain": lambda: TB.smallfold_from_sources(cfg, src, rows_c,
+                                                   impl="torch", **kw),
+        "smallfold": lambda: TB.smallfold_from_sources(
+            cfg, src, rows_c, impl="cuda", out=buf1, **kw),
+        "packed": lambda: TB.downdate_from_operands(ops, impl="cuda",
+                                                    out=buf2),
+    }
+    label = f"P=25,000 chunk of {bs_p} folds x L=4"
+    ref = fns["plain"]()
+    fns["smallfold"]()
+    fns["packed"]()
+    held("fold_smallfold", buf1, ref, TWIN_RTOL, label)
+    scale = ref.abs().max().item()
+    d_packed = (buf2 - ref).abs().max().item()
+    d_kernels = (buf1 - buf2).abs().max().item()
+    if not max(d_packed, d_kernels) <= TWIN_RTOL * scale:
+        raise AssertionError(f"{label}: packed vs twin {d_packed:.3e}, "
+                             f"smallfold vs packed {d_kernels:.3e} > "
+                             f"{TWIN_RTOL:g} * {scale:.3e}")
+    ms = time_turns(label, fns, {"plain": 3, "smallfold": 10, "packed": 10},
+                    tag="smallfold-chunk")
+    lib = library_ms(*gathered_blocks(st, rows_c))
+    chunk_times["fold_smallfold"] = (
+        ms["smallfold"], ms["plain"], *bound(*fold_cost(bs_p, 4, 8)), lib)
+    log(f"[smallfold-chunk] {label}: smallfold vs twin "
+        f"{(buf1 - ref).abs().max().item():.3e}, packed vs twin "
+        f"{d_packed:.3e}, smallfold vs packed {d_kernels:.3e} (max|twin| "
+        f"{scale:.3e}); torch.bmm of the gathered blocks {lib:.4f} ms; "
+        f"smallfold writes {buf1.numel() * 8 / ms['smallfold'] / 1e6:.1f} "
+        f"GB/s  [{card}]")
+    del src, ops, buf1, buf2, ref, fns
+
+    def smallfold_cv(idx, mask):
+        """The fit, then ``prepare_loocv_sources`` and
+        ``smallfold_from_sources`` over every fold in ``materialize_cv``'s
+        chunks (the last one short); ``materialize_cv``'s probe."""
+        st_s = fit(cfg, Xd, Yd, wd, copy=False)
+        bs_s, n_s = chunking(idx.shape[0], K, K + M)
+        src = prepare_loocv_sources(cfg, st_s, idx, mask)
+        rows_d = torch.as_tensor(idx).to(dev)  # checked by the sources
+        buf = torch.empty((bs_s, K, K + M), dtype=torch.float64, device=dev)
+        for c in range(n_s):
+            sl = slice(c * bs_s, (c + 1) * bs_s)
+            n = rows_d[sl].shape[0]
+            TB.smallfold_from_sources(
+                cfg, src, rows_d[sl], src.scal[sl],
+                None if mask is None else src.mask[sl], n_l=idx.shape[1],
+                return_XTY=True, has_mask=mask is not None, out=buf[:n])
+        return float(buf[0, 0, 0] + buf[0, 0, K])
+
+    smallfold_launches = 0
+    log(f"[smallfold] weighted TTTT f64 N={N} K={K} M={M}: fit + "
+        f"prepare_loocv_sources + smallfold_from_sources in materialize_cv's "
+        f"chunks  [{card}]")
+    for p in (25_000, 30_000):
+        idx, mask, bs_p, n_chunks_p = chunk_idx(p)
+        if (np.float64, p) not in mat_totals:
+            wall(lambda: float(materialize_cv(cfg, Xd, Yd, wd, idx, mask)))
+            mat_totals[(np.float64, p)] = wall(lambda: float(materialize_cv(
+                cfg, Xd, Yd, wd, idx, mask)))[0]
+        t_warm, _ = wall(lambda: smallfold_cv(idx, mask))
+        reset_launch_counts(FD, TL, SR)
+        torch.cuda.reset_peak_memory_stats()
+        t_total, probe = wall(lambda: smallfold_cv(idx, mask))
+        counts = launch_counts(FD, TL, SR)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if counts["fold_smallfold"] != n_chunks_p or any(
+                v for n, v in counts.items() if n != "fold_smallfold"):
+            raise AssertionError(f"smallfold P={p}: launches {counts}; "
+                                 f"expected {n_chunks_p} of fold_smallfold")
+        smallfold_launches += counts["fold_smallfold"]
+        f = (n_chunks_p - 1) * bs_p
+        rows_f = idx[f] if mask is None else idx[f][mask[f] > 0]
+        (xtx, xty), _ = naive.training_XTX_XTY(np.delete(all_rows, rows_f))
+        ref = np.concatenate([xtx, xty], axis=1)
+        expect = float(ref[0, 0] + ref[0, K])
+        if not (np.isfinite(probe)
+                and abs(probe - expect) <= ORACLE_RTOL * abs(expect)):
+            raise AssertionError(f"smallfold P={p}: probe {probe!r} vs "
+                                 f"oracle {expect!r} (fold {f})")
+        mask_f = None if mask is None else mask[f:f + 1]
+        src = prepare_loocv_sources(cfg, st, idx[f:f + 1], mask_f)
+        got = TB.smallfold_from_sources(
+            cfg, src, idx[f:f + 1], n_l=idx.shape[1], return_XTY=True,
+            has_mask=mask is not None, impl="cuda")[0].cpu().numpy()
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got, ref, rtol=ORACLE_RTOL,
+                                   atol=ORACLE_RTOL * scale)
+        masked = "" if mask is None else (
+            f", {int((mask.sum(1) == idx.shape[1]).sum()):,} folds of "
+            f"{idx.shape[1]} rows and the rest padded, masked")
+        log(f"[smallfold] P={p:,} (L={idx.shape[1]}{masked}; {n_chunks_p} "
+            f"chunks of {bs_p}): total {t_total:.4f} s (warm-up "
+            f"{t_warm:.4f} s) against materialize_cv (packed) "
+            f"{mat_totals[(np.float64, p)]:.4f} s; fold_smallfold launches "
+            f"{counts['fold_smallfold']}; peak {peak_gb:.2f} GB; probe "
+            f"{probe!r} vs oracle {expect!r} (fold {f}, {rows_f.size} rows); "
+            f"max|kernel - oracle| {np.abs(got - ref).max():.3e} (max|oracle| "
+            f"{scale:.3e})")
+
+    # ---- 17. the mantissa slicer at full width ----------------------------
+    xh = Xd.float()
+    xl = (Xd - xh.double()).float()
+    e = np.frexp(np.abs(X).max(axis=0).astype(np.float32))[1].astype(
+        np.int64)
+    h1 = np.clip(-e, -127, 127)
+    pows = torch.from_numpy(np.stack([
+        np.ldexp(np.float32(1.0), h1), np.ldexp(np.float32(1.0), -e - h1),
+    ]).astype(np.float32)).to(dev)
+    col_scale = torch.from_numpy(2.0 ** -e.astype(np.float64)).to(dev)
+    scaled = (xh.double() + xl.double()) * col_scale
+    sr_err = 0
+    sr_recon = 0.0
+    sr_ms = {}
+    for row_major in (True, False):
+        layout = "row-major (N, S, K)" if row_major else "slice-major (S, N, K)"
+        shape = (N, 10, K) if row_major else (10, N, K)
+        buf = torch.empty(shape, dtype=torch.int8, device=dev)
+        kw = dict(n_slices=10, row_major=row_major, block_rows=32)
+        reset_launch_counts(FD, TL, SR)
+        got = SR.slice_rows(xh, xl, pows, out=buf, **kw)
+        counts = launch_counts(FD, TL, SR)
+        if counts["slice_rows"] != 1 or any(
+                v for n, v in counts.items() if n != "slice_rows"):
+            raise AssertionError(f"slice_rows {layout}: launches {counts}")
+        if row_major:
+            slice_launches = counts["slice_rows"]
+        ref = SR.slice_rows(xh, xl, pows, impl="torch", **kw)
+        torch.cuda.synchronize()
+        err = (got.int() - ref.int()).abs().max().item()
+        sr_err = max(sr_err, err)
+        if err:
+            raise AssertionError(f"slice_rows {layout}: kernel differs from "
+                                 f"its twin by up to {err}")
+        sl = got if not row_major else got.transpose(0, 1)
+        if sl.abs().max().item() > 65:
+            raise AssertionError(f"slice_rows {layout}: a slice above 65")
+        recon = torch.zeros_like(scaled)
+        for s_i in range(10):
+            recon += sl[s_i].double() * 2.0 ** (-6 * (s_i + 1))
+        d = (recon - scaled).abs().max().item()
+        if not d < 2.0 ** -58:
+            raise AssertionError(f"slice_rows {layout}: reconstruction off "
+                                 f"by {d:.3e} >= 2^-58")
+        sr_recon = max(sr_recon, d)
+        del ref, recon, sl
+        ms = time_turns(f"slice_rows {layout}, {N:,} x {K}, 10 slices", {
+            "plain": lambda kw=kw: SR.slice_rows(xh, xl, pows, impl="torch",
+                                                 **kw),
+            "kernel": lambda kw=kw, buf=buf: SR.slice_rows(
+                xh, xl, pows, out=buf, **kw)},
+            {"plain": 3, "kernel": 20}, tag="slice_rows")
+        sr_ms[row_major] = ms
+        del buf, got
+    nbytes = N * K * (8 + 10) + 2 * K * 4
+    sr_bound = bound(nbytes, 12 * 10 * N * K)
+    chunk_times["slice_rows"] = (sr_ms[True]["kernel"], sr_ms[True]["plain"],
+                                 *sr_bound, None)
+    fold_err["slice_rows"] = float(sr_err)
+    log(f"[slice_rows] X as float32 pairs, {N:,} x {K}, block_rows=32, 10 "
+        f"slices: kernel bit-equal to its twin in both layouts, one launch "
+        f"each, reconstruction within {sr_recon:.3e} (< 2^-58 = "
+        f"{2.0 ** -58:.3e}); kernel {sr_ms[True]['kernel']:.4f} / "
+        f"{sr_ms[False]['kernel']:.4f} ms (row- / slice-major) against the "
+        f"bound {sr_bound[0]:.4f} ms ({sr_bound[1]}: {nbytes / 1e9:.3f} GB at "
+        f"3.35 TB/s)  [{card}]")
+    del xh, xl, scaled
+
+    # ---- 18. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
-                       **policy_launches}
+                       **policy_launches,
+                       "fold_smallfold": smallfold_launches,
+                       "slice_rows": slice_launches}
     fold_err["fused_loocv"] = worst_abs
     names = ("fused_loocv", *ROUTE_WRAPPER.values(),
-             *ROUTE_WRAPPER_F32.values(), *new_kernels)
+             *ROUTE_WRAPPER_F32.values(), *new_kernels, "fold_smallfold",
+             "slice_rows")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

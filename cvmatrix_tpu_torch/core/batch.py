@@ -1,7 +1,9 @@
 """Batched fold operands, kernel routing and the fold-batch engine, PyTorch port.
 
 Counterpart of :mod:`cvmatrix_tpu.core.batch`: the routing gates
-(:func:`route_kernel`), the LOOCV sources, the packed factor-form operands
+(:func:`route_kernel`), the LOOCV sources (with the small-fold route on
+them, :func:`smallfold_from_sources`, to which no gate routes, as in the
+JAX package), the packed factor-form operands
 (:func:`prepare_fold_operands`), the v3 sources
 (:func:`prepare_ozaki_sources`), the large-fold paths (float64 and the
 float32 engine's) and :func:`training_matrices_batched`. The JAX package
@@ -59,6 +61,7 @@ __all__ = [
     "route_kernel",
     "run_loocv_route",
     "slice_operands",
+    "smallfold_from_sources",
     "training_matrices_batched",
 ]
 
@@ -75,7 +78,9 @@ class LoocvSources(NamedTuple):
     ``yw``/``yu`` likewise for Y under the reference's aliasing rule
     (``None`` without the XTY side); ``gx``/``gy`` are (2, K)/(2, M):
     global sums and sums of squares, zeros where unused. ``scal`` is the
-    (F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` stream.
+    (F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` stream and
+    ``mask`` the (F, L) row mask in the config dtype or ``None`` (the JAX
+    package's ``mrow``).
     """
 
     total: torch.Tensor
@@ -86,6 +91,7 @@ class LoocvSources(NamedTuple):
     gx: torch.Tensor
     gy: Optional[torch.Tensor]
     scal: torch.Tensor
+    mask: Optional[torch.Tensor] = None
 
 
 def loocv_single_tile_ok(config: CVConfig, state: FitState, return_XTX: bool,
@@ -142,19 +148,18 @@ def prepare_loocv_sources(
     return_XTX: bool = True,
     return_XTY: bool = True,
 ) -> LoocvSources:
-    """Build the operands of the LOOCV kernel for the folds ``idx_batch``
-    ((F,) or (F, 1) row indices, checked against ``[0, N)``).
+    """Build the operands of the LOOCV kernels for the folds ``idx_batch``
+    ((F,) or (F, L) row indices, checked against ``[0, N)``) and an
+    optional (F, L) 0/1 ``mask_batch``.
 
-    Folds of more than one row, or with a mask, are the JAX package's
-    ``fused_smallfold_df64``, which has no port yet.
+    One-row unmasked folds run through :func:`loocv_from_sources`; folds
+    of more rows, or with a mask, through :func:`smallfold_from_sources`
+    (the port of ``fused_smallfold_df64``).
     """
     idx = idx_batch if isinstance(idx_batch, torch.Tensor) else np.asarray(
         idx_batch)
-    if mask_batch is not None or (idx.ndim > 1 and idx.shape[1] != 1):
-        raise NotImplementedError(
-            "fused_smallfold_df64 (cvmatrix_tpu/ops/kernels.py:1631), the "
-            "masked/multi-row LOOCV kernel, is not ported yet."
-        )
+    f_folds = idx.shape[0]
+    n_l = 1 if idx.ndim == 1 else idx.shape[1]
     if not loocv_single_tile_ok(config, state, return_XTX, return_XTY):
         raise ValueError(
             f"single-tile geometry required (K={state.K}, M={state.M}); "
@@ -166,6 +171,9 @@ def prepare_loocv_sources(
     weighted = state.weights is not None
     dt = config.torch_dtype
     k = state.K
+    mask = None if mask_batch is None else torch.as_tensor(
+        mask_batch, dtype=dt, device=state.device
+    ).reshape(f_folds, n_l).contiguous()
 
     def stat_rows(sum_vec, sq_vec, width):
         g = torch.zeros((2, width), dtype=dt, device=state.device)
@@ -194,11 +202,11 @@ def prepare_loocv_sources(
         yu = yw = gy = None
         total = state.XTX.contiguous()
     scal = (
-        _fold_scalar_stream(config, state, rows)
+        _fold_scalar_stream(config, state, rows.reshape(f_folds, n_l), mask)
         if (need_x_mean or need_y_stats)
-        else torch.zeros((rows.shape[0], 3), dtype=dt, device=state.device)
+        else torch.zeros((f_folds, 3), dtype=dt, device=state.device)
     )
-    return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal)
+    return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal, mask)
 
 
 def _loocv_flags(config: CVConfig, return_XTY: bool) -> dict:
@@ -220,12 +228,55 @@ def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
     ``sym`` (float64) runs the port of ``fused_loocv_df64_sym``: the X
     block's upper triangle computed, its strictly lower part the mirror,
     the XTY columns computed. ``impl``: ``"auto"`` (the kernel on CUDA, the
-    twin on CPU), ``"cuda"`` or ``"torch"``.
+    twin on CPU), ``"cuda"`` or ``"torch"``. Sources with a mask, or rows that are not one per
+    fold, raise: the LOOCV kernels read one unmasked row a fold.
     """
+    scal = src.scal if scal_slice is None else scal_slice
+    n_rows = (rows.numel() if isinstance(rows, torch.Tensor)
+              else np.asarray(rows).size)
+    if src.mask is not None or n_rows != scal.shape[0]:
+        raise ValueError(
+            f"{n_rows} rows for {scal.shape[0]} folds"
+            f"{' with a mask' if src.mask is not None else ''}: the LOOCV "
+            "kernels read one unmasked row a fold; run folds of more rows, "
+            "or masked ones, through smallfold_from_sources."
+        )
     return _loocv.fused_loocv(
-        src, rows, src.scal if scal_slice is None else scal_slice, sym=sym,
-        folds_per_block=2 if two_per_step else 1, impl=impl, out=out,
-        **_loocv_flags(config, return_XTY))
+        src, rows, scal, sym=sym, folds_per_block=2 if two_per_step else 1,
+        impl=impl, out=out, **_loocv_flags(config, return_XTY))
+
+
+def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
+                           scal_slice=None, mask_slice=None, *, n_l: int,
+                           return_XTY: bool, has_mask: bool,
+                           impl: str = "auto", out=None) -> torch.Tensor:
+    """Run the small-fold downdate (the port of ``fused_smallfold_df64``)
+    on (a slice of) prepared sources -> (F, K, C) in the config dtype, with
+    ``XTX = out[..., :K]`` and ``XTY = out[..., K:]``.
+
+    ``rows`` are the folds' rows, (F * L,) fold-major as in the JAX
+    function or (F, L); ``scal_slice`` and ``mask_slice`` are the matching
+    slices of ``src.scal`` and ``src.mask`` for a chunk (the whole streams
+    when ``None``). ``has_mask`` applies the mask (the weighted side
+    only). ``route_kernel`` and the sweeps never route here, as in the JAX
+    package. ``impl`` as in :func:`loocv_from_sources`.
+    """
+    rows = torch.as_tensor(rows)
+    if rows.numel() % n_l:
+        raise ValueError(
+            f"flat index count {rows.numel()} is not a multiple of the fold "
+            f"size {n_l}")
+    rows = rows.reshape(-1, n_l)
+    mask = None
+    if has_mask:
+        mask = src.mask if mask_slice is None else mask_slice
+        if mask is None:
+            raise ValueError("has_mask=True needs sources prepared with a "
+                             "mask (or a mask_slice).")
+    return _fd.fold_smallfold(
+        src.total, src.xw, src.xu, src.yu, src.yw, src.gx, src.gy, rows,
+        mask, src.scal if scal_slice is None else scal_slice, impl=impl,
+        out=out, **_loocv_flags(config, return_XTY))
 
 
 def run_loocv_route(config: CVConfig, src: LoocvSources, rows, route: str,

@@ -1,6 +1,6 @@
 // K-fold downdates in float64 and float32 for Hopper (sm_90a).
 //
-// Replaces five TPU kernels of cvmatrix_tpu/ops/kernels.py, all of which
+// Replaces seven TPU kernels of cvmatrix_tpu/ops/kernels.py, all of which
 // compute, per fold f of L validation rows, the product
 //
 //   D[f] = Xv_w[f]^T [Xv_u[f] | Yv_u[f]]                          (K, C)
@@ -22,6 +22,10 @@
 //                                set fused_ozaki_downdate_v3_sym
 //       the reference form above, after a vector phase that derives the
 //       fold's X-side vectors as the TPU kernel does (see below).
+//   cvm_fold_smallfold_f64    <- fused_smallfold_df64 (and _f32 for the
+//                                f32 engine's sources)
+//       the same, after a vector phase that derives both sides' vectors
+//       from the gathered rows alone (see below).
 //
 // kvec (F, 2, K) holds [p, i1] and cvec (F, 2, C) holds [q, i2]; p, q are
 // zero without centring and i1, i2 one without scaling, so every epilogue
@@ -31,7 +35,7 @@
 // here with FMA in the element type T (float64 or float32) on the unpadded
 // shape and each output is written once with row stride C. One tile kernel,
 // templated on T, on where the rows come from (streams or a gather by
-// index) and on the epilogue form, serves all five entries. The float32
+// index) and on the epilogue form, serves every entry. The float32
 // entries compute in float32 on FP32 FMA, never on TF32 tensor cores.
 //
 // The reference form is evaluated in two orders. In float64 it is
@@ -62,6 +66,20 @@
 // (g_sum - sxv) / sw, the clamped reciprocal std, p = sw mX, q = [mX | the
 // Y part of yvec], i1 = r1 and i2 = [r1 | the Y part of yvec], into kvec
 // and cvec scratch that the tile phase then reads.
+//
+// The small-fold vector phase (grid F; the TPU kernel accumulates the same
+// sums in VMEM scratch over an (F, L) grid and finalises on the last row)
+// forms, per column of either side, sum_l m xw and sum_l m xw xu over the
+// fold's L gathered rows (yw, yu on the Y side; m the row mask), then the
+// downdated means, the clamped reciprocal stds, p = sw mX, q = [mX or 0 |
+// mY or 0] and i1, i2 into kvec and cvec. The TPU kernel's padded Y columns
+// get i2 = 1 from zero global sums through the std clamp; the unpadded
+// kernel writes the 1 itself (r stays 1 on a side that is not scaled). The
+// tile phase is the gathered reference-form one of cvm_fold_ozaki_df64_f64,
+// templated on T: a float32 batch runs in float32. Per fold it writes the
+// same K C sizeof(T) bytes as the packed kernel and reads L rows twice, so
+// at L = 4 it is bound by the stores like the packed route, which reads
+// prepared streams instead of gathering.
 //
 // Symmetric v3 (the port of fused_ozaki_downdate_v3_sym): each fold's X
 // block is symmetric up to rounding, so only the 64 x 64 tiles with tile
@@ -102,6 +120,32 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 }
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
+}
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+
+// Downdated mean and clamped reciprocal std of one column from the fold's
+// weighted sum s and weighted squared sum sq (core/fold._train_std); the
+// mean stays 0 and the reciprocal std 1 where they are not needed.
+template <typename T>
+__device__ __forceinline__ void column_stats(
+    T g_sum, T g_sq, T s, T sq, T sw, T rsw, T rdv, bool need_mean,
+    bool need_std, T resolution, T* mean, T* recip) {
+  T m = T(0);
+  T r = T(1);
+  if (need_mean || need_std) {
+    const T st = g_sum - s;
+    m = st * rsw;
+    if (need_std) {
+      const T ss = g_sq - sq;
+      const T var = (T(-2) * m * st + sw * (m * m) + ss) * rdv;
+      // NaN propagates, as in torch.clamp and the JAX kernel.
+      const T sd = sqrt_t(var < T(0) ? T(0) : var);
+      r = sd <= resolution ? T(1) : T(1) / sd;
+    }
+  }
+  *mean = m;
+  *recip = r;
 }
 
 template <typename T>
@@ -306,26 +350,18 @@ __global__ void v3_vectors_kernel(const V3Args p) {
 
   for (int64_t j = threadIdx.x; j < C; j += blockDim.x) {
     if (j < K) {
-      double m = 0.0;
-      double r = 1.0;
-      if (center || scale_x) {
-        const double st = p.gx[j] - p.sxv[f * K + j];
-        m = st * rsw;
-        if (scale_x) {
-          double sq = 0.0;
-          for (int64_t l = 0; l < L; ++l) {
-            const int64_t row = rows[l];
-            const double w = mask ? mask[l] : 1.0;
-            sq = fma(__ldg(p.xw + row * K + j) * w, __ldg(p.xu + row * K + j),
-                     sq);
-          }
-          const double ss = p.gx[K + j] - sq;
-          const double var = (-2.0 * m * st + sw * (m * m) + ss) * rdv;
-          // NaN propagates, as in torch.clamp and the JAX kernel.
-          const double sd = sqrt(var < 0.0 ? 0.0 : var);
-          r = sd <= p.resolution ? 1.0 : 1.0 / sd;
+      double sq = 0.0;
+      if (scale_x) {
+        for (int64_t l = 0; l < L; ++l) {
+          const int64_t row = rows[l];
+          const double w = mask ? mask[l] : 1.0;
+          sq = fma(__ldg(p.xw + row * K + j) * w, __ldg(p.xu + row * K + j),
+                   sq);
         }
       }
+      double m, r;
+      column_stats(p.gx[j], p.gx[K + j], p.sxv[f * K + j], sq, sw, rsw, rdv,
+                   center, scale_x, p.resolution, &m, &r);
       kv[j] = center ? sw * m : 0.0;
       kv[K + j] = r;
       cv[j] = center_xtx ? m : 0.0;
@@ -334,6 +370,83 @@ __global__ void v3_vectors_kernel(const V3Args p) {
       cv[j] = center_xty ? yv[j] : 0.0;
       cv[C + j] = scale ? yv[C + j] : 1.0;
     }
+  }
+}
+
+template <typename T>
+struct SmallfoldArgs {
+  const T* xw;          // (N, K) weighted X rows (X when unweighted)
+  const T* xu;          // (N, K) unweighted X rows
+  const T* yu;          // (N, M) Y rows or null
+  const T* yw;          // (N, M) weighted Y rows or null (may alias yu)
+  const int64_t* rows;  // (F, L)
+  const T* mask;        // (F, L) or null
+  const T* gx;          // (2, K): [sum_X, sum_sq_X], zeros where unused
+  const T* gy;          // (2, M): [sum_Y, sum_sq_Y] or null
+  const T* scal;        // (F, 3): [sw, 1/sw, 1/divisor]
+  T* kvec;              // (F, 2, K) out
+  T* cvec;              // (F, 2, C) out
+  int64_t L, K, M;
+  int flags;
+  T resolution;
+};
+
+// Small-fold vector phase: block f sums, per column, the fold's masked
+// weighted rows and their products with the unweighted ones, on both sides,
+// then writes kvec[f] = [p, i1] and cvec[f] = [q, i2]. The mask multiplies
+// the weighted factor only; a masked-out slot (index 0 in a padded batch)
+// adds exactly 0.
+template <typename T>
+__global__ void smallfold_vectors_kernel(const SmallfoldArgs<T> p) {
+  const int64_t f = blockIdx.x;
+  const int64_t L = p.L, K = p.K, M = p.M, C = K + M;
+  const T sw = p.scal[3 * f];
+  const T rsw = p.scal[3 * f + 1];
+  const T rdv = p.scal[3 * f + 2];
+  const bool center_xtx = p.flags & kCenterXTX;
+  const bool with_y = p.flags & kWithY;
+  const bool center_xty = with_y && (p.flags & kCenterXTY);
+  const bool scale_x = p.flags & kScaleX;
+  const bool scale_y = with_y && (p.flags & kScaleY);
+  const bool center = center_xtx || center_xty;
+  const int64_t* rows = p.rows + f * L;
+  const T* mask = p.mask ? p.mask + f * L : nullptr;
+  T* kv = p.kvec + 2 * K * f;
+  T* cv = p.cvec + 2 * C * f;
+
+  for (int64_t j = threadIdx.x; j < C; j += blockDim.x) {
+    const bool x_col = j < K;
+    const int64_t w = x_col ? K : M;  // row stride of this side
+    const int64_t jj = x_col ? j : j - K;
+    const T* wt = x_col ? p.xw : p.yw;
+    const T* ut = x_col ? p.xu : p.yu;
+    const T* g = x_col ? p.gx : p.gy;
+    // The Y mean is needed where XTY is centred (center_X or center_Y).
+    const bool need_mean = x_col ? center || scale_x : center_xty || scale_y;
+    const bool need_std = x_col ? scale_x : scale_y;
+    T s = T(0);
+    T sq = T(0);
+    if (need_mean || need_std) {
+      for (int64_t l = 0; l < L; ++l) {
+        const int64_t row = rows[l];
+        const T a = __ldg(wt + row * w + jj) * (mask ? mask[l] : T(1));
+        s += a;
+        if (need_std) sq = fma_t(a, __ldg(ut + row * w + jj), sq);
+      }
+    }
+    T m, r;
+    column_stats(need_mean || need_std ? g[jj] : T(0),
+                 need_std ? g[w + jj] : T(0), s, sq, sw, rsw, rdv, need_mean,
+                 need_std, p.resolution, &m, &r);
+    // r is 1 on a side that is not scaled: i1 and i2 need no other case.
+    if (x_col) {
+      kv[j] = center ? sw * m : T(0);
+      kv[K + j] = r;
+      cv[j] = center_xtx ? m : T(0);
+    } else {
+      cv[j] = center_xty ? m : T(0);
+    }
+    cv[C + j] = r;
   }
 }
 
@@ -428,4 +541,57 @@ extern "C" int cvm_fold_v3_f64(
                      L, K, C, K, M};
   if (sym) return launch_tile<double, true, true, true>(a, F, device, stream);
   return launch_tile<double, true, true>(a, F, device, stream);
+}
+
+namespace {
+
+template <typename T>
+int smallfold(const T* total, const T* xw, const T* xu, const T* yu,
+              const T* yw, const int64_t* rows, const T* mask, const T* gx,
+              const T* gy, const T* scal, T* kvec, T* cvec, T* out, int64_t F,
+              int64_t L, int64_t K, int64_t M, int flags, double resolution,
+              int device, void* stream) {
+  if (F <= 0 || K <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  SmallfoldArgs<T> v{xw, xu, yu, yw, rows, mask, gx, gy, scal, kvec, cvec,
+                     L, K, M, flags, static_cast<T>(resolution)};
+  smallfold_vectors_kernel<T><<<static_cast<unsigned>(F), kVecThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(v);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TileArgs<T> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
+                L, K, K + M, K, M};
+  return launch_tile<T, true, true>(a, F, device, stream);
+}
+
+}  // namespace
+
+// Masked multi-row LOOCV sources (port of fused_smallfold_df64): the
+// small-fold vector phase into the caller's kvec (F, 2, K) and cvec
+// (F, 2, K + M) scratch, then the gathered reference-form tile phase. yu, yw
+// and gy may be null when M is 0, mask may be null.
+extern "C" int cvm_fold_smallfold_f64(
+    const double* total, const double* xw, const double* xu,
+    const double* yu, const double* yw, const int64_t* rows,
+    const double* mask, const double* gx, const double* gy,
+    const double* scal, double* kvec, double* cvec, double* out, int64_t F,
+    int64_t L, int64_t K, int64_t M, int flags, double resolution,
+    int device, void* stream) {
+  return smallfold<double>(total, xw, xu, yu, yw, rows, mask, gx, gy, scal,
+                           kvec, cvec, out, F, L, K, M, flags, resolution,
+                           device, stream);
+}
+
+// The same in float32 (the JAX kernel on the f32 engine's (x, 0) pairs),
+// computed in float32 on FP32 FMA.
+extern "C" int cvm_fold_smallfold_f32(
+    const float* total, const float* xw, const float* xu, const float* yu,
+    const float* yw, const int64_t* rows, const float* mask, const float* gx,
+    const float* gy, const float* scal, float* kvec, float* cvec, float* out,
+    int64_t F, int64_t L, int64_t K, int64_t M, int flags, double resolution,
+    int device, void* stream) {
+  return smallfold<float>(total, xw, xu, yu, yw, rows, mask, gx, gy, scal,
+                          kvec, cvec, out, F, L, K, M, flags, resolution,
+                          device, stream);
 }

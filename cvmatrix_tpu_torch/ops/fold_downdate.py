@@ -1,6 +1,6 @@
 """The K-fold downdates: plain PyTorch twins, CUDA kernel wrappers, dispatch.
 
-Counterpart of the JAX package's five fold-batch kernels
+Counterpart of the JAX package's fold-batch kernels
 (``cvmatrix_tpu/ops/kernels.py``), each computing, per fold of L validation
 rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
 
@@ -32,6 +32,11 @@ rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
   ``fold_v3(..., sym=True)`` ports ``fused_ozaki_downdate_v3_sym``: the
   X block's upper triangle computed, its strictly lower triangle the
   mirror (twin :func:`v3_sym_reference`).
+- :func:`fold_smallfold` ports ``fused_smallfold_df64``, the masked
+  multi-row LOOCV kernel, on the LOOCV sources in either dtype: the same
+  reference form after a vector phase that derives both sides' vectors
+  from the fold's gathered rows, the global sums and the scalars alone
+  (twin :func:`smallfold_reference`).
 - :func:`fold_epilogue` ports ``fused_epilogue_df64``: the reference-form
   epilogue in place over a product computed outside the kernel.
 
@@ -48,8 +53,8 @@ Every wrapper dispatches like :func:`cvmatrix_tpu_torch.ops.loocv.fused_loocv`:
 ``impl="auto"`` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; ``"cuda"`` always launches; ``"torch"`` always runs the twin.
 :func:`launch_counts` reads each kernel's launches (``<wrapper>.launches``,
-``fold_packed.launches_f32`` for the float32 packed kernel and
-``fold_v3.launches_sym`` for the symmetric v3 kernel).
+``fold_packed.launches_f32`` and ``fold_smallfold.launches_f32`` for the
+float32 kernels and ``fold_v3.launches_sym`` for the symmetric v3 kernel).
 """
 
 from __future__ import annotations
@@ -59,7 +64,14 @@ from typing import Tuple
 
 import torch
 
-from .loocv import _FLAG_BITS, IMPLS, _ptr, check_rows, mirror_x_block
+from .loocv import (
+    _FLAG_BITS,
+    IMPLS,
+    _ptr,
+    check_rows,
+    mirror_x_block,
+    side_stats,
+)
 from .precision import highest_precision
 
 __all__ = [
@@ -69,11 +81,13 @@ __all__ = [
     "v3_vectors",
     "v3_reference",
     "v3_sym_reference",
+    "smallfold_reference",
     "epilogue_reference",
     "fold_packed",
     "fold_downdate_f32",
     "fold_ozaki_df64",
     "fold_v3",
+    "fold_smallfold",
     "fold_epilogue",
     "device_rows",
     "launch_counts",
@@ -149,21 +163,15 @@ def v3_vectors(xw, xu, rows, mask, gx, sxv, yvec, scal, *, c: int,
     center_xty = with_y and center_xty
     center = center_xtx or center_xty
     scale = scale_x or (with_y and scale_y)
-    sw, rsw, rdv = scal[:, 0:1], scal[:, 1:2], scal[:, 2:3]
     f_folds, k = sxv.shape
-    mx = torch.zeros_like(sxv)
-    r1 = torch.ones_like(sxv)
-    if center or scale_x:
-        st = gx[0] - sxv
-        mx = st * rsw
-        if scale_x:
-            a, b = _gather(xw, xu, None, rows, mask, True)
-            ss = gx[1] - (a * b).sum(dim=1)
-            var = (-2.0 * mx * st + sw * (mx * mx) + ss) * rdv
-            sd = torch.sqrt(torch.clamp(var, min=0.0))
-            r1 = torch.where(sd <= resolution, torch.ones_like(sd), 1.0 / sd)
+    sq = None
+    if scale_x:
+        a, b = _gather(xw, xu, None, rows, mask, True)
+        sq = (a * b).sum(dim=1)
+    mx, r1 = side_stats(sxv, sq, gx, scal, need_mean=center,
+                        resolution=resolution)
     zeros = torch.zeros_like(sxv)
-    p = sw * mx if center else zeros
+    p = scal[:, 0:1] * mx if center else zeros
     q = torch.zeros((f_folds, c), dtype=sxv.dtype, device=sxv.device)
     i2 = torch.ones_like(q)
     if center_xtx:
@@ -189,6 +197,35 @@ def v3_sym_reference(*args, **flags) -> torch.Tensor:
     """Plain twin of the symmetric v3 kernel: :func:`v3_reference`, then
     the X block's strictly lower triangle written as its upper mirror."""
     return mirror_x_block(v3_reference(*args, **flags))
+
+
+def smallfold_reference(total, xw, xu, yu, yw, rows, mask, gx, gy, scal, *,
+                        center_xtx: bool, center_xty: bool, scale_x: bool,
+                        scale_y: bool, with_y: bool,
+                        resolution: float) -> torch.Tensor:
+    """Plain twin of the small-fold kernel (port of ``fused_smallfold_df64``).
+
+    The fold's L rows gathered, the masked weighted column sums ``sxv`` of
+    the X side, and the Y side's downdated mean and clamped reciprocal std
+    from its masked weighted sums and squared sums (``gy`` the (2, M)
+    global ``[sum_Y, sum_sq_Y]``) in place of v3's ``yvec``; then
+    :func:`v3_reference`: v3's X-side vectors, gather, ``bmm`` and the
+    reference-form epilogue. The mask multiplies the weighted side only.
+    """
+    flags = dict(center_xtx=center_xtx, center_xty=center_xty,
+                 scale_x=scale_x, scale_y=scale_y, with_y=with_y,
+                 resolution=resolution)
+    k = xw.shape[1]
+    sxv = _gather(xw, xu, None, rows, mask, True)[0].sum(dim=1)
+    yvec = sxv.new_zeros((rows.shape[0], 2, total.shape[1]))
+    yvec[:, 1] = 1.0  # i2's Y part where Y is not scaled
+    if with_y and (center_xty or scale_y):
+        b, u = _gather(yw, yu, None, rows, mask, True)
+        yvec[:, 0, k:], yvec[:, 1, k:] = side_stats(
+            b.sum(dim=1), (b * u).sum(dim=1) if scale_y else None, gy, scal,
+            need_mean=True, resolution=resolution)
+    return v3_reference(total, xw, xu, yu if with_y else None, rows, mask,
+                        gx, sxv, yvec, scal, **flags)
 
 
 # --------------------------------------------------------------------------- #
@@ -319,7 +356,8 @@ def fold_downdate_f32(total, xv, m2, kvec, cvec, *, impl: str = "auto",
     return out
 
 
-def _gather_operands(name, total, xw, xu, yu, rows, mask, with_x):
+def _gather_operands(name, total, xw, xu, yu, rows, mask, with_x,
+                     dtype=torch.float64):
     """Checked shapes ``(rows, F, L, K, KX, M, C)`` of a gather kernel."""
     device = xw.device
     n, k = xw.shape
@@ -329,7 +367,7 @@ def _gather_operands(name, total, xw, xu, yu, rows, mask, with_x):
     rows = device_rows(rows, n, device)
     f_folds, n_l = rows.shape
     _check(name, device, (total, xw, xu if with_x else None, yu, mask),
-           torch.float64)
+           dtype)
     _shape(f"{name} total", total, (k, c))
     if with_x:
         _shape(f"{name} xu", xu, (n, k))
@@ -420,6 +458,60 @@ def fold_v3(total, xw, xu, yu, rows, mask, gx, sxv, yvec, scal, *,
     return out
 
 
+_SMALLFOLD_KERNELS = {torch.float64: ("cvm_fold_smallfold_f64", "launches"),
+                      torch.float32: ("cvm_fold_smallfold_f32",
+                                      "launches_f32")}
+
+
+def fold_smallfold(total, xw, xu, yu, yw, gx, gy, rows, mask, scal, *,
+                   center_xtx: bool, center_xty: bool, scale_x: bool,
+                   scale_y: bool, with_y: bool, resolution: float,
+                   impl: str = "auto", out=None) -> torch.Tensor:
+    """The small-fold downdate of gathered rows -> (F, K, C), the port of
+    ``fused_smallfold_df64`` (twin :func:`smallfold_reference`).
+
+    Operands as in :class:`cvmatrix_tpu_torch.core.batch.LoocvSources`:
+    ``total`` (K, C), ``xw``/``xu`` (N, K), ``yu``/``yw`` (N, M) and ``gy``
+    (2, M) (``None`` or ignored without ``with_y``), ``gx`` (2, K), ``rows``
+    (F, L), ``mask`` (F, L) or ``None``, ``scal`` (F, 3); all float64, or
+    all float32 (the kernel then computes in float32). Launches count in
+    ``fold_smallfold.launches`` and, in float32, ``.launches_f32``."""
+    flags = dict(center_xtx=center_xtx, center_xty=center_xty,
+                 scale_x=scale_x, scale_y=scale_y, with_y=with_y,
+                 resolution=resolution)
+    device = xw.device
+    if not with_y:
+        yu = yw = gy = None
+    if not _use_kernel("fold_smallfold", impl, device):
+        rows = device_rows(rows, xw.shape[0], device)
+        res = smallfold_reference(total, xw, xu, yu, yw, rows, mask, gx, gy,
+                                  scal, **flags)
+        return res if out is None else out.copy_(res)
+    if xw.dtype not in _SMALLFOLD_KERNELS:
+        raise ValueError(f"fold_smallfold has no kernel for {xw.dtype}.")
+    entry, counter = _SMALLFOLD_KERNELS[xw.dtype]
+    rows, f_folds, n_l, k, _, m, c = _gather_operands(
+        "fold_smallfold", total, xw, xu, yu, rows, mask, True, xw.dtype)
+    _check("fold_smallfold", device, (yw, gx, gy, scal), xw.dtype)
+    _shape("fold_smallfold gx", gx, (2, k))
+    if with_y:
+        _shape("fold_smallfold yw", yw, yu.shape)
+        _shape("fold_smallfold gy", gy, (2, m))
+    _shape("fold_smallfold scal", scal, (f_folds, 3))
+    out = _out("fold_smallfold", out, (f_folds, k, c), device, xw.dtype)
+    kvec = torch.empty((f_folds, 2, k), dtype=xw.dtype, device=device)
+    cvec = torch.empty((f_folds, 2, c), dtype=xw.dtype, device=device)
+    bits = sum(b for name, b in _FLAG_BITS.items() if flags[name])
+    fn = _fn("fold_downdate", entry, 13, 4,
+             tail=(ctypes.c_int, ctypes.c_double))
+    _run("fold_smallfold", fn, _ptr(total), _ptr(xw), _ptr(xu), _ptr(yu),
+         _ptr(yw), _ptr(rows), _ptr(mask), _ptr(gx), _ptr(gy), _ptr(scal),
+         _ptr(kvec), _ptr(cvec), _ptr(out), f_folds, n_l, k, m, bits,
+         float(resolution), device=device)
+    setattr(fold_smallfold, counter, getattr(fold_smallfold, counter) + 1)
+    return out
+
+
 def fold_epilogue(total, prod, kvec, cvec, *,
                   impl: str = "auto") -> torch.Tensor:
     """Reference-form epilogue written in place into ``prod`` (F, K, C),
@@ -449,6 +541,8 @@ _COUNTERS = {
     "fold_v3": (fold_v3, "launches"),
     "fold_v3_sym": (fold_v3, "launches_sym"),
     "fold_epilogue": (fold_epilogue, "launches"),
+    "fold_smallfold": (fold_smallfold, "launches"),
+    "fold_smallfold_f32": (fold_smallfold, "launches_f32"),
 }
 
 
@@ -458,7 +552,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """``{kernel: launches}`` of the seven fold kernels."""
+    """``{kernel: launches}`` of the nine fold kernels."""
     return {name: getattr(wrapper, attr)
             for name, (wrapper, attr) in _COUNTERS.items()}
 

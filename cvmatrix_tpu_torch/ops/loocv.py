@@ -33,9 +33,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["loocv_vectors", "loocv_reference", "loocv_sym_reference",
-           "mirror_x_block", "fused_loocv", "check_rows",
-           "launch_counts", "reset_launch_counts", "IMPLS"]
+__all__ = ["side_stats", "loocv_vectors", "loocv_reference",
+           "loocv_sym_reference", "mirror_x_block", "fused_loocv",
+           "check_rows", "launch_counts", "reset_launch_counts", "IMPLS"]
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -63,6 +63,31 @@ def check_rows(rows, n: int) -> torch.Tensor:
     return rows
 
 
+def side_stats(sums, sq, g, scal, *, need_mean: bool, resolution: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Downdated mean and clamped reciprocal std of one side, (F, W) each.
+
+    ``sums`` (F, W) are the fold's weighted (and masked) row sums, ``sq``
+    their squared sums against the unweighted rows or ``None`` where the
+    side is not scaled, ``g`` the (2, W) global ``[sum, sum_sq]``, ``scal``
+    the (F, 3) ``[sw, 1/sw, 1/divisor]``; the formulas of
+    ``core/fold._train_std``. The mean is 0 where neither is needed and
+    the reciprocal std 1 where ``sq`` is ``None``; NaN passes the clamp.
+    """
+    sw, rsw, rdv = scal[:, 0:1], scal[:, 1:2], scal[:, 2:3]
+    m = torch.zeros_like(sums)
+    r = torch.ones_like(sums)
+    if need_mean or sq is not None:
+        st = g[0] - sums
+        m = st * rsw
+        if sq is not None:
+            ss = g[1] - sq
+            var = (-2.0 * m * st + sw * (m * m) + ss) * rdv
+            sd = torch.sqrt(torch.clamp(var, min=0.0))
+            r = torch.where(sd <= resolution, torch.ones_like(sd), 1.0 / sd)
+    return m, r
+
+
 def loocv_vectors(src, rows: torch.Tensor, scal: torch.Tensor, *,
                   center_xtx: bool, center_xty: bool, scale_x: bool,
                   scale_y: bool, with_y: bool, resolution: float
@@ -72,20 +97,11 @@ def loocv_vectors(src, rows: torch.Tensor, scal: torch.Tensor, *,
     center_xty = with_y and center_xty
     scale_y = with_y and scale_y
     center = center_xtx or center_xty
-    sw, rsw, rdv = scal[:, 0:1], scal[:, 1:2], scal[:, 2:3]
+    sw = scal[:, 0:1]
 
     def side(w_rows, u_rows, g, need_mean, need_std):
-        m = torch.zeros_like(w_rows)
-        r = torch.ones_like(w_rows)
-        if need_mean or need_std:
-            st = g[0] - w_rows
-            m = st * rsw
-            if need_std:
-                ss = g[1] - w_rows * u_rows
-                var = (-2.0 * m * st + sw * (m * m) + ss) * rdv
-                sd = torch.sqrt(torch.clamp(var, min=0.0))
-                r = torch.where(sd <= resolution, torch.ones_like(sd), 1.0 / sd)
-        return m, r
+        return side_stats(w_rows, w_rows * u_rows if need_std else None, g,
+                          scal, need_mean=need_mean, resolution=resolution)
 
     xw_r, xu_r = src.xw[rows], src.xu[rows]
     mX, r1 = side(xw_r, xu_r, src.gx, center or scale_x, scale_x)

@@ -65,14 +65,22 @@ def test_sweep_probe_matches_cpu(dev):
 
 
 def test_unported_cuda_routes_raise(dev):
-    """Only the masked multi-row LOOCV kernel is still unported; float32
-    batches launch the f32 engine's kernels and every float64 K-fold batch
-    runs."""
+    """No route is left unported: a float32 batch of two-row LOOCV
+    sources launches the small-fold kernel once and returns float32,
+    float32 batches launch the f32 engine's kernels and every float64
+    K-fold batch runs."""
     X, Y, w = _data(2)
     cfg32 = T.CVConfig(dtype=np.float32)
     st32 = T.fit(cfg32, X, Y, w, device=dev)
-    with pytest.raises(NotImplementedError, match="fused_smallfold_df64"):
-        TB.prepare_loocv_sources(cfg32, st32, np.arange(8).reshape(4, 2))
+    idx2 = np.arange(8).reshape(4, 2)
+    src2 = TB.prepare_loocv_sources(cfg32, st32, idx2)
+    before = TFD.launch_counts()
+    out2 = TB.smallfold_from_sources(cfg32, src2, idx2, n_l=2,
+                                     return_XTY=True, has_mask=False)
+    after = TFD.launch_counts()
+    assert out2.dtype == torch.float32 and out2.shape == (4, K, K + M)
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"fold_smallfold_f32": 1}
     src = TB.prepare_loocv_sources(cfg32, st32, np.arange(4))
     before = TL.fused_loocv.launches_f32
     out = TB.loocv_from_sources(cfg32, src, np.arange(4), return_XTY=True)
@@ -426,3 +434,74 @@ def test_reduce_sweep_on_the_card(dev):
         assert got.device.type == "cuda"
         assert (got.cpu() - ref).abs().max().item() <= (
             1e-10 * ref.abs().max().item())
+
+
+# ---- the small-fold kernel and the mantissa slicer ----------------------- #
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_smallfold_kernel_matches_twin(dev, flags, weighted, masked):
+    """The port of fused_smallfold_df64 against its twin, [XTX | XTY] and
+    XTX alone, float64 at 1e-12 and float32 at 1e-4 of the twin's largest
+    entry, one launch of the dtype's kernel and no other; padded slots
+    (index 0, mask 0) add nothing."""
+    X, Y, w = _data(15)
+    idx = np.stack([np.arange(f, N, 11)[:5] for f in range(9)])
+    mask = None
+    if masked:
+        mask = np.ones(idx.shape)
+        mask[::2, -2:] = 0.0
+        idx[::2, -2:] = 0
+    for dtype, rtol, name in ((np.float64, 1e-12, "fold_smallfold"),
+                              (np.float32, 1e-4, "fold_smallfold_f32")):
+        cfg = T.CVConfig(*flags, dtype=dtype)
+        st = T.fit(cfg, X, Y, w if weighted else None, device=dev)
+        for with_y in (True, False):
+            src = TB.prepare_loocv_sources(cfg, st, idx, mask,
+                                           return_XTY=with_y)
+            kw = dict(n_l=idx.shape[1], return_XTY=with_y,
+                      has_mask=masked)
+            before = _counts()
+            got = TB.smallfold_from_sources(cfg, src, idx, **kw)
+            after = _counts()
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == {name: 1}
+            ref = TB.smallfold_from_sources(cfg, src, idx, impl="torch", **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype == st.X.dtype
+            assert (got - ref).abs().max().item() <= (
+                rtol * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("n_slices", [1, 10])
+@pytest.mark.parametrize("row_major", [True, False])
+def test_slice_rows_kernel_matches_twin(dev, row_major, n_slices):
+    """The port of slice_rows bit for bit its twin, one launch, including
+    a tie that rounds to even (3.5 -> 4, then -32)."""
+    from cvmatrix_tpu_torch.ops import slice_rows as TSR
+
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(512, 96)) * 10.0 ** rng.integers(-6, 6, (1, 96))
+    x[:, 0] = rng.normal(size=512) * 0.01  # |x| < 1 at the exponent 0
+    x[0, 0] = 3.5 / 64
+    e = np.frexp(np.abs(x).max(axis=0).astype(np.float32))[1]
+    e[0] = 0
+    pows = np.stack([np.ldexp(np.float32(1), np.clip(-e, -127, 127)),
+                     np.ldexp(np.float32(1), -e - np.clip(-e, -127, 127))]
+                    ).astype(np.float32)
+    xh = x.astype(np.float32)
+    xl = (x - xh.astype(np.float64)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (xh, xl, pows)]
+    before = TSR.slice_rows.launches
+    got = TSR.slice_rows(*args, n_slices=n_slices, row_major=row_major)
+    assert TSR.slice_rows.launches == before + 1
+    ref = TSR.slice_rows(*args, n_slices=n_slices, row_major=row_major,
+                         impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got, ref)
+    first = got[0, :, 0] if row_major else got[:, 0, 0]
+    assert first[:2].tolist() == ([4, -32] if n_slices > 1 else [4])

@@ -234,7 +234,8 @@ def test_cpu_wrappers_run_twins_and_count_nothing():
     assert (TFD.launch_counts(), TL.fused_loocv.launches_f32) == before
     assert set(TFD.launch_counts()) == {
         "fold_packed", "fold_packed_f32", "fold_downdate_f32",
-        "fold_ozaki_df64", "fold_v3", "fold_v3_sym", "fold_epilogue"}
+        "fold_ozaki_df64", "fold_v3", "fold_v3_sym", "fold_epilogue",
+        "fold_smallfold", "fold_smallfold_f32"}
 
 
 # --------------------------------------------------------------------------- #

@@ -20,7 +20,7 @@ IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|cvmatrix_tpu)\b",
 def test_import_leaves_jax_out():
     code = (
         "import sys, cvmatrix_tpu_torch, cvmatrix_tpu_torch.models.sweep\n"
-        "import cvmatrix_tpu_torch.policy\n"
+        "import cvmatrix_tpu_torch.policy, cvmatrix_tpu_torch.ops.slice_rows\n"
         "from cvmatrix_tpu_torch.models.sweep import cross_validate_reduce\n"
         "from cvmatrix_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -44,17 +44,18 @@ def test_sources_never_import_jax(path):
 
 
 def test_policy_and_reduce_sweeps_are_checked():
-    """The routing policy and the reduce sweeps are among the sources the
-    rule above reads, and the policy is the port's own copy."""
+    """The routing policy, the reduce sweeps and the slicer are among the
+    sources the rule above reads, and the policy is the port's own copy."""
     checked = {p.name for p in (ROOT / "cvmatrix_tpu_torch").rglob("*.py")}
-    assert {"policy.py", "sweep.py"} <= checked
+    assert {"policy.py", "sweep.py", "slice_rows.py"} <= checked
     assert T.set_routing.__module__ == "cvmatrix_tpu_torch.policy"
     assert "cross_validate_reduce" in (
         ROOT / "cvmatrix_tpu_torch" / "models" / "sweep.py").read_text()
 
 
 def test_kernel_source_ships_with_the_package():
-    for name in ("loocv.cu", "fold_downdate.cu", "fold_epilogue.cu"):
+    for name in ("loocv.cu", "fold_downdate.cu", "fold_epilogue.cu",
+                 "slice_rows.cu"):
         assert (ROOT / "cvmatrix_tpu_torch" / "csrc" / name).is_file()
     assert "cvmatrix_tpu_torch" in (ROOT / "pyproject.toml").read_text()
 

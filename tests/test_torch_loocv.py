@@ -126,12 +126,24 @@ def test_impl_cuda_on_cpu_raises():
 
 
 def test_unported_routes_raise_naming_kernel():
+    """Every route is ported: the multi-row and masked LOOCV sources that
+    once raised now give the per-fold engine's matrices through the port of
+    ``fused_smallfold_df64``; the gates name each route's TPU kernel."""
+    cfg = T.CVConfig()
     st = port_state(J.fit(J.CVConfig(), X_ALL, Y_ALL, W_ALL))
-    with pytest.raises(NotImplementedError, match="fused_smallfold_df64"):
-        TB.prepare_loocv_sources(T.CVConfig(), st, IDX.reshape(3, 2))
-    with pytest.raises(NotImplementedError, match="fused_smallfold_df64"):
-        TB.prepare_loocv_sources(T.CVConfig(), st, IDX[:, None],
-                                 np.ones((len(IDX), 1)))
+    mask = np.ones((len(IDX), 1))
+    mask[1] = 0.0
+    for idx, m in ((IDX.reshape(3, 2), None), (IDX[:, None], mask)):
+        src = TB.prepare_loocv_sources(cfg, st, idx, m)
+        got = TB.smallfold_from_sources(cfg, src, idx, n_l=idx.shape[1],
+                                        return_XTY=True,
+                                        has_mask=m is not None)
+        (xtx, xty), _ = T.training_matrices(cfg, st, idx, m)
+        assert_allclose(got[:, :, :K].numpy(), xtx.numpy(), atol=1e-8,
+                        rtol=0)
+        assert_allclose(got[:, :, K:].numpy(), xty.numpy(), atol=1e-8,
+                        rtol=0)
+
     def kernel(n_l, masked=False):
         return TB.TPU_KERNELS[TB.route_kernel(T.CVConfig(), st, n_l, True,
                                               True, masked)]
