@@ -28,10 +28,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    at N=2,000, K=500, M=10, through ``training_matrices_batched`` for one
    fold batch per route (L=4 packed, L=100 v3, L=1,000 Ozaki-df64,
    L=1,025 epilogue), each also masked; every call must launch its route's
-   kernel; bound 1e-12 max|twin|. Then the first full-width chunk of each
-   phase 7 sweep (P=25,000, 10,000, 1,000, 100, 10 and the masked P=3 at
-   N=100,000) through the kernel and through the twin, held at the same
-   bound, and each route's chunk timed through both.
+   kernel; bound 1e-12 max|twin|. Then the tensor-core tile's edges
+   through ``fold_ozaki_df64`` and ``fold_v3``: L = 1, 3, 10, 17, 100 and
+   1,003, K=37 with M=0, XTY alone, one fold, masked and unmasked, for
+   TTTT and FFFF, weighted and not, at the same bound, one launch each.
+   Then the first full-width chunk of each phase 7 sweep (P=25,000,
+   10,000, 1,000, 100, 10 and the masked P=3 at N=100,000) through the
+   kernel and through the twin, held at the same bound, and each route's
+   chunk timed through both, the product chunks with their TFLOP/s and
+   ``torch.bmm`` of the same gathered blocks (of the u, v streams for
+   the packed chunk) in the same run.
 7. K-fold path at full width: the configuration of phase 4 through
    ``materialize_cv`` over ``Partitioner(np.arange(N) % P)`` for P =
    25,000, 10,000, 1,000, 100, 10 and 3 (the last masked), once to warm
@@ -54,7 +60,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 11. Float32 K-fold at full width: the same data over P = 25,000 (L=4,
     packed f32), 1,000 (L=100) and 3 (L=33,334, masked; both
     ``fused_downdate``): warm-up and timed totals with the launch counts,
-    each P's first chunk against its twin and timed through both, each
+    each P's first chunk against its twin and timed through both (and
+    ``torch.bmm`` of its blocks or streams, P=3 aside), each
     probe fold against the oracle at 1e-3 max|oracle|.
 12. TF32: the float32 fit under ``torch.set_float32_matmul_precision(
     "high")`` is bit for bit the fit under "highest" (a bare float32
@@ -87,11 +94,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
     masked (padded slots at index 0), float64 at 1e-12 and float32 at 1e-4
     of the twin's largest entry, one launch of the dtype's kernel each.
     Then at full width on phase 4's data: the first 962-fold chunk of
-    P=25,000 through the kernel, its twin and the packed kernel, all three
-    within 1e-12 and timed in turns; fit + ``prepare_loocv_sources`` +
-    ``smallfold_from_sources`` over all folds of P=25,000 (L=4) and of the
-    masked P=30,000 (10,000 folds of 4 rows, 20,000 of 3) in
-    ``materialize_cv``'s chunks, warm-up and timed beside the
+    P=25,000 through the kernel (``smallfold_from_sources`` on the rows the
+    sources checked, so no sync), its twin and the packed kernel,
+    all three within 1e-12 and timed in turns; fit +
+    ``prepare_loocv_sources`` + ``smallfold_from_sources`` over all folds
+    of P=25,000 (L=4) and of the masked P=30,000 (10,000 folds of 4 rows,
+    20,000 of 3) in ``materialize_cv``'s chunks, warm-up and timed beside the
     ``materialize_cv`` total, one launch a chunk and no other kernel; each
     probe fold against ``tests/oracle.py`` at 1e-10.
 17. The mantissa slicer at full width: phase 4's X as float32 hi/lo planes
@@ -128,6 +136,8 @@ ORACLE_RTOL = 1e-10
 KFOLD_P = ((25_000, "fold_packed"), (10_000, "fold_v3"), (1_000, "fold_v3"),
            (100, "fold_ozaki_df64"), (10, "fold_epilogue"),
            (3, "fold_epilogue"))
+# Fold sizes at which phase 6 holds the tensor-core tile against its twins.
+TILE_EDGE_L = (1, 3, 10, 17, 100, 1003)
 ROUTE_WRAPPER = {"packed": "fold_packed", "v3": "fold_v3",
                  "ozaki_df64": "fold_ozaki_df64", "epilogue": "fold_epilogue"}
 KERNEL_SOURCES = {
@@ -532,6 +542,72 @@ def main() -> int:
         f"each unmasked and masked): worst max|diff| {fold_err}, worst "
         f"relative {fold_rel}")
 
+    # The tensor-core tile's edges, through fold_ozaki_df64 and fold_v3:
+    # ragged L, K=37 with M=0 (8-byte copies, XTX alone), XTY alone, one
+    # fold, masked and unmasked; one launch of the wrapper's counter each.
+    rng = np.random.default_rng(SEED + 5)
+    edge_err = {"fold_ozaki_df64": 0.0, "fold_v3": 0.0}
+    cases = 0
+    for flags, w in itertools.product(((True,) * 4, (False,) * 4),
+                                      (ws, None)):
+        cfg_s = CVConfig(*flags, ddof=1, dtype=np.float64)
+        for k_e, m_e, xtx in ((K, M, True), (37, 0, True), (K, M, False)):
+            st_s = fit(cfg_s, Xs[:, :k_e], Ys if m_e else None, w,
+                       device=dev)
+            xty = m_e > 0
+            total_s = TB._total(st_s, xtx, xty)
+            xw_s = st_s.X if st_s.weights is None else st_s.WX
+            for n_l in TILE_EDGE_L:
+                f_e = 1 if n_l in (3, 1003) else 4
+                idx = np.stack([rng.choice(n_small, n_l, replace=False)
+                                for _ in range(f_e)])
+                mask = np.ones(idx.shape)
+                mask[::2, -max(1, n_l // 10):] = 0.0
+                for mk in (None, mask):
+                    rows, mask_d = TB._rows_mask(cfg_s, st_s, idx, mk)
+                    stats5 = TB._summed_stats(cfg_s, st_s, rows, mask_d,
+                                              **TB._stat_flags(cfg_s, xtx,
+                                                               xty))
+                    kvec, cvec = TB._reference_vectors(
+                        cfg_s, st_s, stats5, st_s.X.new_empty((f_e, 0)), xtx,
+                        xty)
+                    runs = {"fold_ozaki_df64": lambda impl: FD.fold_ozaki_df64(
+                        total_s, xw_s, st_s.X, st_s.Y if xty else None, rows,
+                        mask_d, kvec, cvec, with_x=xtx, impl=impl)}
+                    if xtx:
+                        vsrc = TB.prepare_ozaki_sources(cfg_s, st_s, idx, mk,
+                                                        return_XTY=xty)
+                        runs["fold_v3"] = lambda impl: (
+                            TB.ozaki_v3_from_sources(cfg_s, vsrc,
+                                                     return_XTY=xty,
+                                                     impl=impl))
+                    for name, run in runs.items():
+                        label = (f"{cfg_s}, K={k_e}, M={m_e}, xtx={xtx}, "
+                                 f"L={n_l}, F={f_e}, mask={mk is not None}")
+                        before = launch_counts(FD, TL, SR)
+                        got = run("cuda")
+                        after = launch_counts(FD, TL, SR)
+                        moved = {n: after[n] - before[n] for n in after
+                                 if after[n] != before[n]}
+                        if moved != {name: 1}:
+                            raise AssertionError(f"{label}: launched {moved}")
+                        ref = run("torch")
+                        torch.cuda.synchronize()
+                        err = (got - ref).abs().max().item()
+                        scale = ref.abs().max().item()
+                        if not err <= TWIN_RTOL * scale:
+                            raise AssertionError(
+                                f"{label}: {name} kernel vs twin max|diff| "
+                                f"{err:.3e} > {TWIN_RTOL:g} * {scale:.3e}")
+                        fold_err[name] = max(fold_err[name], err)
+                        fold_rel[name] = max(fold_rel[name], err / scale)
+                        edge_err[name] = max(edge_err[name], err / scale)
+                        cases += 1
+    log(f"[tile-edges] {cases} cases of the tensor-core tile (N={n_small}; "
+        f"L={list(TILE_EDGE_L)}; K={K}, M={M} and K=37, M=0; XTY alone; "
+        f"F=1 and 4; unmasked and masked; TTTT and FFFF, weighted and not): "
+        f"worst relative {edge_err}")
+
     def chunk_idx(p):
         _, idx, mask = Partitioner(np.arange(N) % p).padded_batches()
         bs_p, n_chunks_p = chunking(p, K, K + M)
@@ -552,17 +628,23 @@ def main() -> int:
         log(f"[kfold-chunk] {label}: {name} kernel vs twin max|diff| "
             f"{err:.3e}, relative {err / scale:.3e}")
 
-    def time_pair(label, name, kernel_fn, plain_fn, n_out, itemsize=8):
+    def time_pair(label, name, kernel_fn, plain_fn, n_out, itemsize=8,
+                  flops=None):
         ms = {"torch": [], "cuda": []}
         for impl in ("torch", "cuda", "cuda", "torch"):
             fn = kernel_fn if impl == "cuda" else plain_fn
             ms[impl].append(cuda_ms(fn, 10 if impl == "cuda" else 3))
         gb = n_out * itemsize / 1e9
+        rate = ("" if flops is None else
+                f", {flops / min(ms['cuda']) / 1e9:.1f} TFLOP/s")
         log(f"[kfold-chunk] {label}: {name} kernel {ms['cuda']} ms, plain "
             f"{ms['torch']} ms (plain, kernel, kernel, plain); "
             f"{gb:.3f} GB out, kernel writes "
-            f"{gb / min(ms['cuda']) * 1e3:.1f} GB/s  [{card}]")
+            f"{gb / min(ms['cuda']) * 1e3:.1f} GB/s{rate}  [{card}]")
         return min(ms["cuda"]), min(ms["torch"])
+
+    def product_flops(f, n_l):
+        return 2 * f * n_l * K * (K + M)
 
     def library_ms(a, b, reps=10):
         """``torch.bmm`` of the gathered blocks: the one PyTorch call that
@@ -584,10 +666,13 @@ def main() -> int:
         ops, impl=impl, out=buf if impl == "cuda" else None))
         for impl in ("cuda", "torch")}
     hold(label, "fold_packed", run["cuda"](), run["torch"]())
+    pair = time_pair(label, "fold_packed", run["cuda"], run["torch"],
+                     buf.numel())
+    lib = library_ms(ops.u, ops.v)
+    log(f"[kfold-chunk] {label}: torch.bmm of the u, v streams {lib:.4f} ms"
+        f"  [{card}]")
     chunk_times["fold_packed"] = (
-        *time_pair(label, "fold_packed", run["cuda"], run["torch"],
-                   buf.numel()),
-        *bound(*fold_cost(bs_p, 4, 8, gathered=False)), None)
+        *pair, *bound(*fold_cost(bs_p, 4, 8, gathered=False)), lib)
     del ops, run
     for p in (1_000, 10_000):
         idx, _, bs_p, _ = chunk_idx(p)
@@ -600,13 +685,13 @@ def main() -> int:
             for impl in ("cuda", "torch")}
         hold(label, "fold_v3", run["cuda"](), run["torch"]())
         pair = time_pair(label, "fold_v3", run["cuda"], run["torch"],
-                         buf.numel())
+                         buf.numel(), flops=product_flops(bs_p, idx.shape[1]))
+        lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
+        log(f"[kfold-chunk] {label}: torch.bmm of the gathered blocks "
+            f"{lib:.4f} ms  [{card}]")
         if p == 1_000:  # the kernels line reports the product-bound chunk
-            lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
             chunk_times["fold_v3"] = (
                 *pair, *bound(*fold_cost(bs_p, idx.shape[1], 8)), lib)
-            log(f"[kfold-chunk] {label}: torch.bmm of the gathered blocks "
-                f"{lib:.4f} ms  [{card}]")
         del src, run
     total = torch.cat([st.XTX, st.XTY], dim=1)
     flags = TB._stat_flags(cfg, True, True)
@@ -632,7 +717,8 @@ def main() -> int:
             lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
             chunk_times[name] = (
                 *time_pair(label, name, run["cuda"], run["torch"],
-                           buf.numel()),
+                           buf.numel(),
+                           flops=product_flops(bs_p, idx.shape[1])),
                 *bound(*fold_cost(bs_p, idx.shape[1], 8)), lib)
             log(f"[kfold-chunk] {label}: torch.bmm of the gathered blocks "
                 f"{lib:.4f} ms  [{card}]")
@@ -895,11 +981,14 @@ def main() -> int:
         pair = time_pair(label, expect, run["cuda"], run["torch"],
                          buf.numel(), 4)
         if p != 3:  # the kernels line times the unmasked route's chunk
-            lib = None
             if expect == "fold_downdate_f32":
                 lib = library_ms(blocks.Xv_w, m2)
-                log(f"[kfold-chunk] {label}: torch.bmm of the blocks "
-                    f"{lib:.4f} ms  [{card}]")
+                what = "the blocks"
+            else:
+                lib = library_ms(ops.u, ops.v)
+                what = "the u, v streams"
+            log(f"[kfold-chunk] {label}: torch.bmm of {what} {lib:.4f} ms  "
+                f"[{card}]")
             chunk_times[expect] = (
                 *pair, *bound(*fold_cost(bs_p, idx.shape[1], 4,
                                          gathered=False)), lib)
@@ -1395,16 +1484,18 @@ def main() -> int:
     # and the packed kernel, on the same folds.
     idx, _, bs_p, _ = chunk_idx(25_000)
     rows_c = torch.as_tensor(idx[:bs_p]).to(dev)
-    src = prepare_loocv_sources(cfg, st, rows_c.cpu())
+    # the sources' own rows, checked when they were built: the entry on
+    # them syncs no more than the wrapper does
+    src = prepare_loocv_sources(cfg, st, rows_c)
     ops, _ = TB.prepare_fold_operands(cfg, st, rows_c)
     buf1 = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
     buf2 = torch.empty_like(buf1)
     kw = dict(n_l=4, return_XTY=True, has_mask=False)
     fns = {
-        "plain": lambda: TB.smallfold_from_sources(cfg, src, rows_c,
+        "plain": lambda: TB.smallfold_from_sources(cfg, src, src.rows,
                                                    impl="torch", **kw),
         "smallfold": lambda: TB.smallfold_from_sources(
-            cfg, src, rows_c, impl="cuda", out=buf1, **kw),
+            cfg, src, src.rows, impl="cuda", out=buf1, **kw),
         "packed": lambda: TB.downdate_from_operands(ops, impl="cuda",
                                                     out=buf2),
     }
@@ -1440,13 +1531,13 @@ def main() -> int:
         st_s = fit(cfg, Xd, Yd, wd, copy=False)
         bs_s, n_s = chunking(idx.shape[0], K, K + M)
         src = prepare_loocv_sources(cfg, st_s, idx, mask)
-        rows_d = torch.as_tensor(idx).to(dev)  # checked by the sources
+        # slices of the sources' rows, checked once when they were built
         buf = torch.empty((bs_s, K, K + M), dtype=torch.float64, device=dev)
         for c in range(n_s):
             sl = slice(c * bs_s, (c + 1) * bs_s)
-            n = rows_d[sl].shape[0]
+            n = src.rows[sl].shape[0]
             TB.smallfold_from_sources(
-                cfg, src, rows_d[sl], src.scal[sl],
+                cfg, src, src.rows[sl], src.scal[sl],
                 None if mask is None else src.mask[sl], n_l=idx.shape[1],
                 return_XTY=True, has_mask=mask is not None, out=buf[:n])
         return float(buf[0, 0, 0] + buf[0, 0, K])

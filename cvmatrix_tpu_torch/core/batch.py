@@ -14,9 +14,18 @@ route in float32, as the JAX package's f32 engine does. Padding survives
 only inside the gates, so that both packages send the same fold batch to
 the same kernel.
 
-Fold rows are range-checked on the host once (``ops.loocv.check_rows``)
-and the kernel routes skip the per-fold validity raises (the JAX package's
-``check=False``), so no route synchronises the device per chunk.
+Fold rows are range-checked once per call of an entry
+(``ops.loocv.check_rows``): on the host where they arrive as host data,
+with one device sync where the operand builders (``prepare_*``) are handed
+CUDA rows. The LOOCV sources keep the rows they checked, and
+:func:`smallfold_from_sources` checks only CUDA rows that are not slices of
+them. The kernel routes skip the per-fold validity raises (the JAX
+package's ``check=False``), so no route synchronises the device per chunk.
+The batched entries
+(:func:`training_matrices_batched` and the sweeps) take fold indices in
+[-N, N) and wrap the negative ones on the host, as NumPy indexing, the
+per-fold engine and the JAX package's XLA engine do; the kernels see
+[0, N) only.
 
 The routing policy (:mod:`cvmatrix_tpu_torch.policy`) is read at each call:
 ``sym_loocv`` sends float64 LOOCV and v3 batches to the symmetric kernels,
@@ -48,6 +57,8 @@ __all__ = [
     "LoocvSources",
     "OzakiSources",
     "downdate_from_operands",
+    "host_folds",
+    "host_mask",
     "large_fold_threshold",
     "loocv_from_sources",
     "loocv_single_tile_ok",
@@ -78,9 +89,11 @@ class LoocvSources(NamedTuple):
     ``yw``/``yu`` likewise for Y under the reference's aliasing rule
     (``None`` without the XTY side); ``gx``/``gy`` are (2, K)/(2, M):
     global sums and sums of squares, zeros where unused. ``scal`` is the
-    (F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` stream and
+    (F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` stream,
     ``mask`` the (F, L) row mask in the config dtype or ``None`` (the JAX
-    package's ``mrow``).
+    package's ``mrow``) and ``rows`` the (F, L) fold rows, range-checked
+    when the sources were built: :func:`smallfold_from_sources` takes
+    slices of them without checking them again.
     """
 
     total: torch.Tensor
@@ -92,6 +105,7 @@ class LoocvSources(NamedTuple):
     gy: Optional[torch.Tensor]
     scal: torch.Tensor
     mask: Optional[torch.Tensor] = None
+    rows: Optional[torch.Tensor] = None
 
 
 def loocv_single_tile_ok(config: CVConfig, state: FitState, return_XTX: bool,
@@ -167,7 +181,9 @@ def prepare_loocv_sources(
         )
     if return_XTY and state.Y is None:
         raise ValueError("Response variables `Y` are not provided.")
-    rows = _loocv.check_rows(idx, state.N).to(state.device)
+    # a copy, so that no later write to the caller's tensor reaches rows
+    # that count as checked
+    rows = _loocv.check_rows(idx, state.N).to(state.device, copy=True)
     weighted = state.weights is not None
     dt = config.torch_dtype
     k = state.K
@@ -206,7 +222,8 @@ def prepare_loocv_sources(
         if (need_x_mean or need_y_stats)
         else torch.zeros((f_folds, 3), dtype=dt, device=state.device)
     )
-    return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal, mask)
+    return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal, mask,
+                        rows.reshape(f_folds, n_l))
 
 
 def _loocv_flags(config: CVConfig, return_XTY: bool) -> dict:
@@ -246,6 +263,13 @@ def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
         impl=impl, out=out, **_loocv_flags(config, return_XTY))
 
 
+def _views(rows: torch.Tensor, checked: Optional[torch.Tensor]) -> bool:
+    """Whether ``rows`` is a view of the ``checked`` tensor's storage."""
+    return checked is not None and rows.device == checked.device and (
+        rows.untyped_storage().data_ptr()
+        == checked.untyped_storage().data_ptr())
+
+
 def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
                            scal_slice=None, mask_slice=None, *, n_l: int,
                            return_XTY: bool, has_mask: bool,
@@ -254,14 +278,20 @@ def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
     on (a slice of) prepared sources -> (F, K, C) in the config dtype, with
     ``XTX = out[..., :K]`` and ``XTY = out[..., K:]``.
 
-    ``rows`` are the folds' rows, (F * L,) fold-major as in the JAX
-    function or (F, L); ``scal_slice`` and ``mask_slice`` are the matching
-    slices of ``src.scal`` and ``src.mask`` for a chunk (the whole streams
-    when ``None``). ``has_mask`` applies the mask (the weighted side
-    only). ``route_kernel`` and the sweeps never route here, as in the JAX
+    ``rows`` are the folds' rows in [0, N), (F * L,) fold-major as in the
+    JAX function or (F, L): ``src.rows`` or a slice of it (checked when the
+    sources were built, so a sweep pays no sync a chunk), or other rows on
+    the host or the device (checked here, device rows with one sync);
+    ``scal_slice`` and ``mask_slice`` are the matching slices of
+    ``src.scal`` and ``src.mask`` for a chunk (the whole streams when
+    ``None``). ``has_mask`` applies the mask (the weighted side only).
+    ``route_kernel`` and the sweeps never route here, as in the JAX
     package. ``impl`` as in :func:`loocv_from_sources`.
     """
     rows = torch.as_tensor(rows)
+    # host rows are checked by the wrapper, views of src.rows were checked
+    if rows.device.type != "cpu" and not _views(rows, src.rows):
+        _loocv.check_rows(rows, src.xw.shape[0])
     if rows.numel() % n_l:
         raise ValueError(
             f"flat index count {rows.numel()} is not a multiple of the fold "
@@ -535,9 +565,43 @@ def _summed_stats(config, state, rows, mask, **flags):
                                    val_sums=val_sums, **flags)
 
 
+def host_folds(idx_batch, n: int) -> np.ndarray:
+    """(F, L) fold indices on the host from an (F,) or (F, L) batch (NumPy,
+    a list, or a tensor on any device), checked against [-n, n) and the
+    negative ones wrapped, as NumPy indexing and the per-fold engine take
+    them (``core/fold._as_index``); the entries of the batched engine and
+    the sweeps read their folds through it."""
+    idx = np.asarray(idx_batch.cpu() if isinstance(idx_batch, torch.Tensor)
+                     else idx_batch)
+    if idx.ndim == 1:
+        idx = idx[:, None]
+    if idx.dtype.kind not in "iu":
+        raise TypeError(f"fold rows must be integers, got {idx.dtype}")
+    if idx.size:
+        lo, hi = int(idx.min()), int(idx.max())
+        if lo < -n or hi >= n:
+            raise ValueError(f"fold rows outside [-{n}, {n}) (min {lo}, max "
+                             f"{hi}).")
+        if lo < 0:
+            idx = np.where(idx < 0, idx + n, idx)
+    return idx
+
+
+def host_mask(mask_batch):
+    """The (F, L) fold mask on the host (NumPy, a list, or a tensor on any
+    device), or ``None``."""
+    if mask_batch is None:
+        return None
+    return np.asarray(mask_batch.cpu() if isinstance(mask_batch, torch.Tensor)
+                      else mask_batch)
+
+
 def _rows_mask(config, state, idx_batch, mask_batch):
-    """(F, L) int64 rows and the optional mask on the state's device. Host
-    rows are range-checked; device rows are taken as checked."""
+    """(F, L) int64 rows and the optional mask on the state's device, rows
+    range-checked against [0, N): on the host for host rows, with one
+    device sync for device rows."""
+    if isinstance(idx_batch, torch.Tensor) and idx_batch.device.type != "cpu":
+        _loocv.check_rows(idx_batch, state.N)
     rows = _fd.device_rows(idx_batch, state.N, state.device)
     mask = None if mask_batch is None else torch.as_tensor(
         mask_batch, dtype=config.torch_dtype, device=state.device
@@ -606,7 +670,9 @@ def prepare_fold_operands(
     return_XTX: bool = True,
     return_XTY: bool = True,
 ):
-    """``(FoldOperands, stats)`` for a batch of folds.
+    """``(FoldOperands, stats)`` for a batch of folds: (F, L) rows in
+    [0, N), on the host or the device (checked either way, device rows with
+    one sync), and an optional (F, L) mask.
 
     Gathers, downdated statistics, reciprocal stds and factor scaling run
     here, once: sweeps build the operands for every fold and slice the
@@ -725,7 +791,9 @@ def prepare_ozaki_sources(
     return_XTX: bool = True,
     return_XTY: bool = True,
 ) -> OzakiSources:
-    """Build the v3 kernel's operands for the folds ``idx_batch`` (F, L).
+    """Build the v3 kernel's operands for the folds ``idx_batch`` (F, L),
+    rows in [0, N) on the host or the device (checked either way, device
+    rows with one sync), and an optional (F, L) mask.
 
     The X-side column sums, the (M-wide) Y-side statistics and the O(F)
     scalars are computed here, per fold; the kernel derives the X-side
@@ -959,7 +1027,9 @@ def training_matrices_batched(
     return_XTY: bool = True,
     impl: str = "auto",
 ):
-    """Training matrices for an (F, L) batch of folds.
+    """Training matrices for an (F, L) batch of folds (indices in [-N, N),
+    the negative ones wrapped) and an optional (F, L) 0/1 mask, on the host
+    or the device.
 
     Returns ``(mats, (X_mean, X_std, Y_mean, Y_std))`` shaped like the
     per-fold engine's batched result: ``mats`` is ``(XTX, XTY)`` of (F, K,
@@ -987,11 +1057,8 @@ def training_matrices_batched(
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors; the state is on "
                          f"{device}.")
-    idx = np.asarray(idx_batch.cpu() if isinstance(idx_batch, torch.Tensor)
-                     else idx_batch)
-    if idx.ndim == 1:
-        idx = idx[:, None]
-    mask_np = None if mask_batch is None else np.asarray(mask_batch)
+    idx = host_folds(idx_batch, state.N)
+    mask_np = host_mask(mask_batch)
     route = route_kernel(config, state, idx.shape[1], return_XTX, return_XTY,
                          mask_np is not None, n_folds=idx.shape[0])
     flags = _stat_flags(config, return_XTX, return_XTY)
@@ -1005,20 +1072,22 @@ def training_matrices_batched(
         rows = torch.from_numpy(idx.astype(np.int64)).to(device)
         stats = _summed_stats(config, state, rows, None, **flags)[:4]
         return _split(out, state.K, return_XTX, return_XTY), stats
-    rows, mask = _rows_mask(config, state, idx, mask_np)
+    # Host folds go to the operand builders, which check them on the host.
     if route in ("packed", "packed_f32"):
-        ops, stats = prepare_fold_operands(config, state, rows, mask,
+        ops, stats = prepare_fold_operands(config, state, idx, mask_np,
                                            return_XTX=return_XTX,
                                            return_XTY=return_XTY)
         out = downdate_from_operands(ops, impl=impl)
     elif route in ("v3", "v3_sym"):
-        src = prepare_ozaki_sources(config, state, rows, mask,
+        src = prepare_ozaki_sources(config, state, idx, mask_np,
                                     return_XTX=return_XTX,
                                     return_XTY=return_XTY)
         out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
                                     impl=impl)
-        stats = _summed_stats(config, state, rows, mask, **flags)[:4]
+        stats = _summed_stats(config, state, src.rows, src.mask,
+                              **flags)[:4]
     else:
+        rows, mask = _rows_mask(config, state, idx, mask_np)
         large = (_f32_kernel_path if route == "downdate_f32"
                  else _large_fold_path)
         out, stats = large(config, state, rows, mask, return_XTX=return_XTX,

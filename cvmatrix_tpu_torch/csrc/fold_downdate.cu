@@ -29,24 +29,66 @@
 //
 // kvec (F, 2, K) holds [p, i1] and cvec (F, 2, C) holds [q, i2]; p, q are
 // zero without centring and i1, i2 one without scaling, so every epilogue
-// applies all four and the tile kernel needs no flags. The TPU kernels
+// applies all four and the tile kernels need no flags. The TPU kernels
 // carry float64 as f32 pairs and form D from int8 mantissa slices on the
 // MXU because the TPU has no float64; the H100 has, so D is accumulated
-// here with FMA in the element type T (float64 or float32) on the unpadded
-// shape and each output is written once with row stride C. One tile kernel,
-// templated on T, on where the rows come from (streams or a gather by
-// index) and on the epilogue form, serves every entry. The float32
-// entries compute in float32 on FP32 FMA, never on TF32 tensor cores.
+// here in the element type T (float64 or float32) on the unpadded shape and
+// each output is written once with row stride C. Two tile kernels:
+//
+//   gather_mma_kernel (the gathered float64 product on the FP64 tensor
+//       cores): cvm_fold_ozaki_df64_f64 and cvm_fold_v3_f64 without sym,
+//       the ports of fused_ozaki_downdate_df64 and fused_ozaki_downdate_v3.
+//   fold_tile_kernel (FMA on the CUDA cores): every other entry, templated
+//       on T, on where the rows come from (streams or a gather by index),
+//       on the epilogue form and on the symmetric mode. The float32 entries
+//       compute in float32 on FP32 FMA, never on TF32 tensor cores.
+//
+// The tensor-core tile. Per fold the product costs 2 L K C flops and the
+// output K C 8 bytes of writes: at L = 1,000 (Ozaki-df64) and L = 100 (v3)
+// the FLOPs bound it, at L = 10 (v3 at P = 10,000) the stores. The CUDA-core
+// tile reached 9-11 TFLOP/s on the FLOP-bound chunks against 67 TFLOP/s for
+// FP64 on the tensor cores, held back by synchronous staging, 4 FMAs per
+// staged value and a 64-register cap. This one:
+//   - forms D with mma.sync.aligned.m16n8k8 f64 (DMMA; wgmma has no f64
+//     form). Of the four f64 shapes of sm_90 (m8n8k4, m16n8k4, m16n8k8,
+//     m16n8k16), m16n8k8 was the fastest measured on the FLOP-bound chunks,
+//     m16n8k4 close behind (PERF.md). Each warp holds a
+//     32 x 32 piece of the tile: 2 x 4 fragments of 16 x 8, 4 doubles a
+//     thread each, at the 128-register cap.
+//   - uses 64 x 64 output tiles, 4 warps, 4 blocks an SM: measured faster
+//     than 64 x 128 (2 blocks an SM), 128 x 128 (16 warps, 1 block) and
+//     128 x 64 at all three fold sizes, although a 128 x 128 tile reads
+//     twice the FLOPs a byte out of L2. More blocks an SM keep one block's
+//     copies and stores in flight while another multiplies.
+//   - stages 16-row slabs of the gathered rows with cp.async (16-byte copies
+//     where K and M are even and every operand is 16-byte aligned, 8-byte
+//     ones otherwise), three slabs in flight, so the next slabs arrive while
+//     one is multiplied. Each copying thread serves one row of a slab and
+//     reads that row's index for the next slab one slab ahead; the slab's
+//     mask comes with it (8-byte copies). Rows past L and columns past K or
+//     C are zero-filled by the copy (src-size 0), so ragged L, K and C need
+//     no other case. Each staged row is padded by 4 doubles, so that the
+//     lanes that read one fragment and the four rows they span fall on
+//     distinct banks.
+//   - applies the 0/1 mask to the A fragment as it leaves shared memory
+//     (exact; padded rows carry mask 0 and zero data), only in the masked
+//     instance.
+//   - stages the finished accumulators through shared memory, 32 rows at a
+//     time, and writes each output row piece coalesced with 16-byte
+//     streaming stores (8-byte where C is odd), reading total from L2 in the
+//     same pattern; blocks stay tile-major within a fold (below).
+// The product is summed in another order than the CUDA-core tile's or the
+// twin's torch.bmm; the epilogue is the float64 reference form below.
 //
 // The reference form is evaluated in two orders. In float64 it is
 // (total - fma(p, q, D)) i1 i2; in float32 it follows fused_downdate's
 // order, ((total - D) - p q)(i1 i2), since in float32 the two orders
 // differ by a few ulps of total.
 //
-// What bounds it: per fold the product costs 2 L K C flops and the output
-// K C sizeof(T) bytes of writes, so folds of a few rows (the packed routes,
-// the v3 route at L = 10) are bound by device-memory writes and folds of
-// hundreds of rows by FMA throughput. The tile kernel covers both: one
+// What bounds the CUDA-core tile: per fold the product costs 2 L K C flops
+// and the output K C sizeof(T) bytes of writes, so folds of a few rows (the
+// packed routes, the small-fold route at L = 4) are bound by device-memory
+// writes and folds of hundreds of rows by FMA throughput. It covers both: one
 // block of 256 threads per (fold, 64 x 64 output tile), each thread holding
 // a 4 x 4 block of the tile in registers; row blocks of up to 16 rows of
 // both operands are staged in shared memory, so each staged value feeds 4
@@ -60,9 +102,10 @@
 // time by 27-37% at L = 4-1,000 (K=500, M=10, H100 80GB HBM3 at 700 W).
 // Edge tiles (C = 510 is no multiple of 64) are guarded on load and store.
 //
-// v3's vector phase (grid F) forms, per fold and X column j, the weighted
-// squared sum sum_l mask xw xu of the gathered rows (the X-block diagonal of
-// D, which the TPU kernel reads off its product), then the downdated mean
+// v3's vector phase (grid F) runs before either tile and forms, per fold
+// and X column j, the weighted squared sum sum_l mask xw xu of the gathered
+// rows (the X-block diagonal of D, which the TPU kernel reads off its
+// product), then the downdated mean
 // (g_sum - sxv) / sw, the clamped reciprocal std, p = sw mX, q = [mX | the
 // Y part of yvec], i1 = r1 and i2 = [r1 | the Y part of yvec], into kvec
 // and cvec scratch that the tile phase then reads.
@@ -75,9 +118,9 @@
 // mY or 0] and i1, i2 into kvec and cvec. The TPU kernel's padded Y columns
 // get i2 = 1 from zero global sums through the std clamp; the unpadded
 // kernel writes the 1 itself (r stays 1 on a side that is not scaled). The
-// tile phase is the gathered reference-form one of cvm_fold_ozaki_df64_f64,
-// templated on T: a float32 batch runs in float32. Per fold it writes the
-// same K C sizeof(T) bytes as the packed kernel and reads L rows twice, so
+// tile phase is the CUDA-core tile's gathered reference form, templated on
+// T: a float32 batch runs in float32. Per fold it writes the same K C
+// sizeof(T) bytes as the packed kernel and reads L rows twice, so
 // at L = 4 it is bound by the stores like the packed route, which reads
 // prepared streams instead of gathering.
 //
@@ -313,6 +356,270 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
   }
 }
 
+// ---- the gathered float64 tile on the FP64 tensor cores ------------------
+
+// The tensor-core tile's shape: 64 x 64 outputs a block, 16-row slabs,
+// three in flight (the fastest measured; PERF.md).
+constexpr int kMmaTileM = 64;   // output tile height (K), a multiple of 32
+constexpr int kMmaTileN = 64;   // output tile width (C), a multiple of 32
+constexpr int kMmaSlab = 16;    // gathered rows per cp.async slab
+constexpr int kMmaStages = 3;   // slabs in flight
+constexpr int kMmaWarpTile = 32;  // each warp holds 32 x 32 outputs
+constexpr int kMmaThreads = kMmaTileM * kMmaTileN / kMmaWarpTile;
+constexpr int kMmaPad = 4;        // doubles of padding per staged row
+constexpr int kMmaOutLd = kMmaTileN + 8;  // row stride of the staged output
+// A slab: BK rows of A (tile height + pad), of B (width + pad), the mask.
+constexpr int kMmaSlabDoubles =
+    kMmaSlab * (kMmaTileM + kMmaPad + kMmaTileN + kMmaPad + 1);
+constexpr size_t kMmaSmemBytes =
+    sizeof(double) * kMmaStages * kMmaSlabDoubles;
+// 32 x 32 warp tiles need about 120 registers a thread: cap at 128.
+constexpr int kMmaMinBlocks = 65536 / (kMmaThreads * 128);
+
+// cp.async of one 16- or 8-byte piece; src-size 0 writes zeros and reads
+// nothing.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = live ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// mma.sync.aligned.m16n8k8 f64, D += A B over one 16 x 8 x 8 step
+// (lane = 4 g + t): A holds A[g + 8 (r % 2)][t + 4 (r / 2)], r < 4; B holds
+// B[t + 4 r][g], r < 2; D holds D[g + 8 (r / 2)][2 t + r % 2], r < 4.
+struct Dmma {
+  static constexpr int kM = 16, kK = 8, kA = 4, kB = 2, kC = 4;
+  __device__ __forceinline__ static void run(double (&d)[kC],
+                                             const double (&a)[kA],
+                                             const double (&b)[kB]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  }
+};
+
+// Block b computes tile t = b % n_tiles of fold f = b / n_tiles (tiles
+// row-major, kMmaTileM x kMmaTileN each) in the float64 reference form.
+// kVec: 16-byte copies, loads and stores (K, M even and every operand
+// 16-byte aligned), else 8-byte ones; kMasked: the rows carry a 0/1 mask.
+template <bool kVec, bool kMasked>
+__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
+gather_mma_kernel(const TileArgs<double> p, int64_t n_ct, int64_t n_tiles) {
+  constexpr int BM = kMmaTileM;
+  constexpr int BN = kMmaTileN;
+  constexpr int BK = kMmaSlab;
+  constexpr int LDA = BM + kMmaPad;
+  constexpr int LDB = BN + kMmaPad;
+  constexpr int kWarpsN = BN / kMmaWarpTile;
+  using Op = Dmma;
+  constexpr int FM = kMmaWarpTile / Op::kM;  // fragments along k
+  constexpr int FN = kMmaWarpTile / 8;       // fragments along c
+  constexpr int V = kVec ? 2 : 1;  // doubles per copy, load and store
+  constexpr int kAPieces = BM / V;
+  constexpr int kPieces = kAPieces + BN / V;
+  static_assert(BM % kMmaWarpTile == 0 && BN % kMmaWarpTile == 0,
+                "whole warp tiles");
+  static_assert(BK % Op::kK == 0, "a slab holds whole MMA steps");
+  static_assert(kMmaStages * kMmaSlabDoubles >= kMmaWarpTile * kMmaOutLd,
+                "a staged row of warp tiles must fit the slab buffers");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* slabs = reinterpret_cast<double*>(smem);
+
+  const int64_t f = blockIdx.x / n_tiles;
+  const int64_t t = blockIdx.x % n_tiles;
+  const int64_t k0 = (t / n_ct) * BM;
+  const int64_t c0 = (t % n_ct) * BN;
+  const int64_t L = p.L, K = p.K, C = p.C, KX = p.KX, M = p.M;
+  const int64_t* rows = p.rows + f * L;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wm = warp / kWarpsN;  // warp row: k0 + 32 wm
+  const int wn = warp % kWarpsN;  // warp column: c0 + 32 wn
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+
+  double acc[FM][FN][Op::kC];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int r = 0; r < Op::kC; ++r) acc[i][j][r] = 0.0;
+
+  // Slab s: rows 16 s .. +16 of the fold, A = xw[row][k0 ..], B = [xu |
+  // yu][row][c0 ..] and the rows' mask, into buffer s % kMmaStages. Each
+  // thread copies pieces of one row; it reads the index of its row in the
+  // next slab through L1 one slab ahead (slabs are issued in order).
+  constexpr int kRowThreads = kMmaThreads / BK;
+  constexpr int kThreadPieces = kPieces / kRowThreads;
+  static_assert(kMmaThreads % BK == 0 && kPieces % kRowThreads == 0,
+                "whole rows a thread group");
+  const int li = tid / kRowThreads;
+  const int lp = tid % kRowThreads;
+  int64_t r_next = li < L ? __ldg(rows + li) : 0;
+  auto issue = [&](int s) {
+    double* sa = slabs + (s % kMmaStages) * kMmaSlabDoubles;
+    double* sb = sa + BK * LDA;
+    const int64_t l = static_cast<int64_t>(s) * BK + li;
+    const bool live_row = l < L;
+    const int64_t r = r_next;
+    r_next = l + BK < L ? __ldg(rows + l + BK) : 0;
+#pragma unroll
+    for (int i = 0; i < kThreadPieces; ++i) {
+      const int pc = lp + i * kRowThreads;
+      const double* src = p.total;  // any valid address when not live
+      double* dst;
+      bool live;
+      if (pc < kAPieces) {
+        const int64_t col = k0 + pc * V;
+        live = live_row && col < K;
+        if (live) src = p.a + r * K + col;
+        dst = sa + li * LDA + pc * V;
+      } else {
+        const int64_t col = c0 + (pc - kAPieces) * V;
+        live = live_row && col < C;
+        if (live) {
+          src = col < KX ? p.b + r * K + col : p.yb + r * M + (col - KX);
+        }
+        dst = sb + li * LDB + (pc - kAPieces) * V;
+      }
+      cp_async<V * 8>(dst, src, live);
+    }
+    if (kMasked && lp == 0) {
+      cp_async<8>(sb + BK * LDB + li, live_row ? p.mask + f * L + l : p.total,
+                  live_row);
+    }
+  };
+
+  const int n_slabs = static_cast<int>((L + BK - 1) / BK);
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < n_slabs) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // slab s landed; slab s - 1's buffer is free
+    if (s + kMmaStages - 1 < n_slabs) issue(s + kMmaStages - 1);
+    cp_async_commit();
+    const double* sa = slabs + (s % kMmaStages) * kMmaSlabDoubles;
+    const double* sb = sa + BK * LDA;
+    const double* sm = sb + BK * LDB;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += Op::kK) {
+      // The fold's last slab: no MMA step over rows past L (all zero).
+      if (static_cast<int64_t>(s) * BK + kk >= L) break;
+      constexpr int kQ = Op::kK / 4;  // 4-row groups in one MMA step
+      double m[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) m[q] = kMasked ? sm[kk + tq + 4 * q] : 1.0;
+      double b[FN][Op::kB];
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int r = 0; r < Op::kB; ++r)
+          b[j][r] = sb[(kk + tq + 4 * r) * LDB + wn * 32 + j * 8 + g];
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        double a[Op::kA];
+#pragma unroll
+        for (int r = 0; r < Op::kA; ++r) {
+          const int q = r / 2;
+          a[r] = sa[(kk + tq + 4 * q) * LDA + wm * 32 + i * Op::kM + g +
+                    8 * (r % 2)];
+          if (kMasked) a[r] *= m[q];
+        }
+#pragma unroll
+        for (int j = 0; j < FN; ++j) Op::run(acc[i][j], a, b[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the epilogue reuses the slab buffers
+
+  // Epilogue, one row of warp tiles (32 rows, the warps of row wm = h) at
+  // a time: the accumulators to shared memory, then coalesced row pieces
+  // out. A thread keeps one column piece (the thread count is a multiple of
+  // the pieces a row has), so it reads that piece's q and i2 once.
+  double* so = slabs;
+  const double* kv = p.kvec + 2 * K * f;
+  const double* cv = p.cvec + 2 * C * f;
+  double* of = p.out + K * C * f;
+  constexpr int kRowPieces = BN / V;
+  constexpr int kRowsPerPass = kMmaThreads / kRowPieces;
+  static_assert(kMmaThreads % kRowPieces == 0 &&
+                    kMmaWarpTile % kRowsPerPass == 0,
+                "whole rows a pass");
+  const int cc = (tid % kRowPieces) * V;
+  const int64_t c = c0 + cc;
+  const bool col_live = c < C;
+  double q[V], i2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    q[v] = col_live ? __ldg(cv + c + v) : 0.0;
+    i2[v] = col_live ? __ldg(cv + C + c + v) : 0.0;
+  }
+#pragma unroll
+  for (int h = 0; h < BM / kMmaWarpTile; ++h) {
+    if (wm == h) {
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+          for (int r = 0; r < Op::kC; r += 2) {
+            double* d = so + (i * Op::kM + g + 8 * (r / 2)) * kMmaOutLd +
+                        wn * 32 + j * 8 + 2 * tq;
+            *reinterpret_cast<double2*>(d) =
+                make_double2(acc[i][j][r], acc[i][j][r + 1]);
+          }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kMmaWarpTile / kRowsPerPass; ++it) {
+      const int r = tid / kRowPieces + it * kRowsPerPass;
+      const int64_t k = k0 + h * kMmaWarpTile + r;
+      if (!col_live || k >= K) continue;
+      const double pk = __ldg(kv + k);
+      const double i1 = __ldg(kv + K + k);
+      const double* d = so + r * kMmaOutLd + cc;
+      if constexpr (kVec) {
+        const double2 tt =
+            __ldg(reinterpret_cast<const double2*>(p.total + k * C + c));
+        const double2 v = *reinterpret_cast<const double2*>(d);
+        __stcs(reinterpret_cast<double2*>(of + k * C + c),
+               make_double2((tt.x - fma(pk, q[0], v.x)) * i1 * i2[0],
+                            (tt.y - fma(pk, q[V - 1], v.y)) * i1 * i2[V - 1]));
+      } else {
+        const double tt = __ldg(p.total + k * C + c);
+        __stcs(of + k * C + c, (tt - fma(pk, q[0], *d)) * i1 * i2[0]);
+      }
+    }
+    __syncthreads();  // the next pass overwrites the staged rows
+  }
+}
+
 struct V3Args {
   const double* xw;     // (N, K)
   const double* xu;     // (N, K)
@@ -467,6 +774,44 @@ int launch_tile(const TileArgs<T>& a, int64_t F, int device, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kVec, bool kMasked>
+int launch_gather_mma_vm(const TileArgs<double>& a, int64_t F,
+                         void* stream) {
+  const int64_t n_ct = (a.C + kMmaTileN - 1) / kMmaTileN;
+  const int64_t n_tiles = n_ct * ((a.K + kMmaTileM - 1) / kMmaTileM);
+  if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_mma_kernel<kVec, kMasked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMmaSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gather_mma_kernel<kVec, kMasked>
+      <<<static_cast<unsigned>(F * n_tiles), kMmaThreads, kMmaSmemBytes,
+         static_cast<cudaStream_t>(stream)>>>(a, n_ct, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// The tensor-core tile for a gathered reference-form batch.
+int launch_gather_mma(const TileArgs<double>& a, int64_t F, int device,
+                      void* stream) {
+  if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = a.K % 2 == 0 && a.M % 2 == 0 && aligned16(a.total) &&
+                   aligned16(a.a) && aligned16(a.b) && aligned16(a.yb) &&
+                   aligned16(a.kvec) && aligned16(a.cvec) && aligned16(a.out);
+  if (vec) {
+    return a.mask ? launch_gather_mma_vm<true, true>(a, F, stream)
+                  : launch_gather_mma_vm<true, false>(a, F, stream);
+  }
+  return a.mask ? launch_gather_mma_vm<false, true>(a, F, stream)
+                : launch_gather_mma_vm<false, false>(a, F, stream);
+}
+
 }  // namespace
 
 // Factor-form downdate of the prepared streams (port of
@@ -503,9 +848,9 @@ extern "C" int cvm_fold_downdate_f32(
 }
 
 // Gathered product + reference-form epilogue (port of
-// fused_ozaki_downdate_df64). The product's right side is [xu | yu] with
-// KX (K or 0) X columns and M Y columns; xu may be null when KX is 0, yu
-// when M is 0; mask may be null.
+// fused_ozaki_downdate_df64), on the tensor-core tile. The product's right
+// side is [xu | yu] with KX (K or 0) X columns and M Y columns; xu may be
+// null when KX is 0, yu when M is 0; mask may be null.
 extern "C" int cvm_fold_ozaki_df64_f64(
     const double* total, const double* xw, const double* xu,
     const double* yu, const int64_t* rows, const double* mask,
@@ -513,12 +858,13 @@ extern "C" int cvm_fold_ozaki_df64_f64(
     int64_t L, int64_t K, int64_t KX, int64_t M, int device, void* stream) {
   TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
                      L, K, KX + M, KX, M};
-  return launch_tile<double, true, true>(a, F, device, stream);
+  return launch_gather_mma(a, F, device, stream);
 }
 
 // v3 (port of fused_ozaki_downdate_v3, and with sym != 0 of
 // fused_ozaki_downdate_v3_sym): the vector phase into the caller's kvec
-// (F, 2, K) and cvec (F, 2, K + M) scratch, then the gathered tile phase.
+// (F, 2, K) and cvec (F, 2, K + M) scratch, then the gathered tile phase:
+// the tensor-core tile, or with sym the CUDA-core tile's symmetric mode.
 // yu may be null when M is 0, mask may be null.
 extern "C" int cvm_fold_v3_f64(
     const double* total, const double* xw, const double* xu,
@@ -540,7 +886,7 @@ extern "C" int cvm_fold_v3_f64(
   TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
                      L, K, C, K, M};
   if (sym) return launch_tile<double, true, true, true>(a, F, device, stream);
-  return launch_tile<double, true, true>(a, F, device, stream);
+  return launch_gather_mma(a, F, device, stream);
 }
 
 namespace {

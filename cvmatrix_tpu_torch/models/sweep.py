@@ -44,6 +44,8 @@ from ..core.batch import (
     _large_fold_path,
     _rows_mask,
     downdate_from_operands,
+    host_folds,
+    host_mask,
     ozaki_v3_from_sources,
     prepare_fold_operands,
     prepare_loocv_sources,
@@ -114,11 +116,12 @@ def materialize_sweep(
 ) -> torch.Tensor:
     """Produce every fold's training matrices on the state's device.
 
-    ``idx_batch`` is an (F, L) fold-index batch (or (F,) for one-row folds),
-    ``mask_batch`` an optional (F, L) 0/1 mask. Returns a 0-d tensor on the
-    device: element [0, 0] of XTX plus element [0, 0] of XTY of the last
-    chunk's first fold (what the JAX package's sweep returns). Reading it
-    waits for the whole sweep.
+    ``idx_batch`` is an (F, L) fold-index batch (or (F,) for one-row folds)
+    with indices in [-N, N) (the negative ones wrapped), ``mask_batch`` an
+    optional (F, L) 0/1 mask; either may be a tensor on any device.
+    Returns a 0-d tensor on the device: element [0, 0] of XTX plus element
+    [0, 0] of XTY of the last chunk's first fold (what the JAX package's
+    sweep returns). Reading it waits for the whole sweep.
     """
     if impl not in IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
@@ -132,11 +135,8 @@ def materialize_sweep(
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors; the state is on "
                          f"{device}.")
-    idx = np.asarray(idx_batch.cpu() if isinstance(idx_batch, torch.Tensor)
-                     else idx_batch)
-    if idx.ndim == 1:
-        idx = idx[:, None]
-    mask = None if mask_batch is None else np.asarray(mask_batch)
+    idx = host_folds(idx_batch, state.N)
+    mask = host_mask(mask_batch)
     k = state.K
     m = (state.M or 0) if return_XTY else 0
     bs, n_chunks = sweep_chunking(config, idx.shape[0], k,
@@ -159,33 +159,31 @@ def materialize_sweep(
             sl = slice(c * bs, (c + 1) * bs)
             run_loocv_route(config, src, rows[sl], route, src.scal[sl],
                             return_XTY=return_XTY, impl=impl, out=buf)
+    elif route in ("packed", "packed_f32"):
+        # Host folds: checked on the host once, then moved whole.
+        ops, _ = prepare_fold_operands(config, state, idx, mask,
+                                       return_XTX=return_XTX,
+                                       return_XTY=return_XTY)
+        for c in range(n_chunks):
+            downdate_from_operands(slice_operands(ops, c * bs, bs),
+                                   impl=impl, out=buf)
+    elif route in ("v3", "v3_sym"):
+        src = prepare_ozaki_sources(config, state, idx, mask,
+                                    return_XTX=return_XTX,
+                                    return_XTY=return_XTY)
+        for c in range(n_chunks):
+            ozaki_v3_from_sources(config, slice_operands(src, c * bs, bs),
+                                  return_XTY=return_XTY, impl=impl, out=buf)
     else:
-        # Checked on the host once, then moved whole to the device.
-        rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
-        if route in ("packed", "packed_f32"):
-            ops, _ = prepare_fold_operands(config, state, rows, mask_d,
-                                           return_XTX=return_XTX,
-                                           return_XTY=return_XTY)
-            for c in range(n_chunks):
-                downdate_from_operands(slice_operands(ops, c * bs, bs),
-                                       impl=impl, out=buf)
-        elif route in ("v3", "v3_sym"):
-            src = prepare_ozaki_sources(config, state, rows, mask_d,
-                                        return_XTX=return_XTX,
-                                        return_XTY=return_XTY)
-            for c in range(n_chunks):
-                ozaki_v3_from_sources(config, slice_operands(src, c * bs, bs),
-                                      return_XTY=return_XTY, impl=impl,
-                                      out=buf)
-        else:
-            large = (_f32_kernel_path if route == "downdate_f32"
-                     else _large_fold_path)
-            for c in range(n_chunks):
-                sl = slice(c * bs, (c + 1) * bs)
-                large(config, state, rows[sl],
-                      None if mask_d is None else mask_d[sl],
-                      return_XTX=return_XTX, return_XTY=return_XTY,
-                      impl=impl, out=buf)
+        rows, mask_d = _rows_mask(config, state, idx, mask)
+        large = (_f32_kernel_path if route == "downdate_f32"
+                 else _large_fold_path)
+        for c in range(n_chunks):
+            sl = slice(c * bs, (c + 1) * bs)
+            large(config, state, rows[sl],
+                  None if mask_d is None else mask_d[sl],
+                  return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
+                  out=buf)
     if return_XTX and return_XTY:
         return buf[0, 0, 0] + buf[0, 0, k]
     return buf[0, 0, 0]
@@ -325,8 +323,10 @@ def cross_validate_reduce(
     """Map ``reduce_fn`` over every fold's training matrices on the state's
     device; only the reductions are kept.
 
-    ``idx_batch`` is a (P, L) fold-index batch, ``mask_batch`` an optional
-    (P, L) 0/1 mask of padded rows (see ``Partitioner.padded_batches``).
+    ``idx_batch`` is a (P, L) fold-index batch (indices in [-N, N), the
+    negative ones wrapped), ``mask_batch`` an optional (P, L) 0/1 mask of
+    padded rows (see ``Partitioner.padded_batches``); either may be a
+    tensor on any device.
     ``reduce_fn(matrices, stats)`` is applied per fold through
     ``torch.func.vmap`` over each chunk of at most ``batch_size`` folds:
     ``matrices`` is ``(XTX, XTY)`` or the one requested matrix and
@@ -356,13 +356,8 @@ def cross_validate_reduce(
     if impl == "cuda" and state.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors; the state is on "
                          f"{state.device}.")
-    idx = np.asarray(idx_batch.cpu() if isinstance(idx_batch, torch.Tensor)
-                     else idx_batch)
-    if idx.ndim == 1:
-        idx = idx[:, None]
-    mask = None if mask_batch is None else np.asarray(
-        mask_batch.cpu() if isinstance(mask_batch, torch.Tensor)
-        else mask_batch)
+    idx = host_folds(idx_batch, state.N)
+    mask = host_mask(mask_batch)
     n_folds = idx.shape[0]
     bs = min(batch_size, n_folds)
     # Equalise chunk sizes: padding to a multiple of a near-n chunk size
@@ -458,8 +453,7 @@ def _smallfold_reduce_loop(config, state, idx, mask, bs, reduce_fn,
     :func:`prepare_fold_operands` once for every fold, then per chunk the
     packed kernel on sliced operands and the reduction over sliced
     statistics."""
-    rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
-    ops, stats = prepare_fold_operands(config, state, rows, mask_d,
+    ops, stats = prepare_fold_operands(config, state, idx, mask,
                                        return_XTX=return_XTX,
                                        return_XTY=return_XTY)
     out = []
@@ -477,11 +471,10 @@ def _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn, return_XTY,
     :func:`prepare_ozaki_sources` and the statistics once for every fold,
     then per chunk the v3 kernel (symmetric under ``sym_loocv``) on
     sliced sources and the reduction."""
-    rows, mask_d = _rows_mask(config, state, torch.as_tensor(idx), mask)
-    src = prepare_ozaki_sources(config, state, rows, mask_d, return_XTX=True,
+    src = prepare_ozaki_sources(config, state, idx, mask, return_XTX=True,
                                 return_XTY=return_XTY)
     stats = _batch._summed_stats(
-        config, state, rows, mask_d,
+        config, state, src.rows, src.mask,
         **_batch._stat_flags(config, True, return_XTY))[:4]
     out = []
     for c0 in range(0, idx.shape[0], bs):

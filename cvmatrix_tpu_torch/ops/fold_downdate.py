@@ -277,8 +277,10 @@ def _out(name: str, out, shape, device, dtype) -> torch.Tensor:
 
 def device_rows(rows, n: int, device) -> torch.Tensor:
     """Fold rows (F, L) as int64 on ``device``. Host rows are range-checked
-    here; device rows must have been checked on the host before they were
-    moved (a check here would stall the stream once per chunk)."""
+    here; device rows pass unchecked (a check here would stall the stream
+    once per chunk): the entries that take them check them, ``core/batch``'s
+    operand builders once per call and ``smallfold_from_sources`` once per
+    sources (``LoocvSources.rows``)."""
     if isinstance(rows, torch.Tensor) and rows.device.type != "cpu":
         if rows.dtype != torch.int64 or rows.ndim != 2:
             raise ValueError("device fold rows must be an (F, L) int64 "

@@ -6,6 +6,8 @@ so it also runs where JAX is not installed; run it on a GPU machine with::
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -505,3 +507,162 @@ def test_slice_rows_kernel_matches_twin(dev, row_major, n_slices):
     assert got.dtype == torch.int8 and torch.equal(got, ref)
     first = got[0, :, 0] if row_major else got[:, 0, 0]
     assert first[:2].tolist() == ([4, -32] if n_slices > 1 else [4])
+
+
+# ---- the tensor-core tile: fold_ozaki_df64 and fold_v3 ------------------- #
+
+N_TILE = 1_200  # the edge cases gather up to 1,003 rows a fold
+TILE_L = (1, 3, 10, 17, 100, 1003)
+
+
+def _tile_fold_batches(rng, n_l):
+    """(rows, mask) pairs of one fold size: unmasked and masked, one fold
+    where L is 3 or 1,003, else four."""
+    f = 1 if n_l in (3, 1003) else 4
+    idx = np.stack([rng.choice(N_TILE, n_l, replace=False) for _ in range(f)])
+    mask = np.ones(idx.shape)
+    mask[::2, -max(1, n_l // 10):] = 0.0
+    return (idx, None), (idx, mask)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", list(itertools.product([True, False],
+                                                         repeat=4)))
+def test_tensor_core_tile_matches_twins(dev, flags, weighted):
+    """fold_ozaki_df64 and fold_v3 (the gathered float64 tile on the FP64
+    tensor cores) against their twins at 1e-12 of the twin's largest entry,
+    one launch of the wrapper's counter each, over the tile's edges: L in
+    1, 3, 10, 17, 100 and 1,003; K=40, M=6 (16-byte copies and stores) and
+    K=37 with M=0 (8-byte ones, XTX alone); XTY alone (with_x=False); one
+    fold and four; masked and unmasked."""
+    rng = np.random.default_rng(17)
+    cfg = T.CVConfig(*flags)
+    for k, m, xtx in ((40, 6, True), (37, 0, True), (40, 6, False)):
+        X = rng.random((N_TILE, k))
+        Y = rng.random((N_TILE, m)) if m else None
+        w = rng.random(N_TILE) if weighted else None
+        st = T.fit(cfg, X, Y, w, device=dev)
+        xty = m > 0
+        total = TB._total(st, xtx, xty)
+        xw = st.X if st.weights is None else st.WX
+        for n_l in TILE_L:
+            for idx, mask in _tile_fold_batches(rng, n_l):
+                rows, mask_d = TB._rows_mask(cfg, st, idx, mask)
+                stats5 = TB._summed_stats(cfg, st, rows, mask_d,
+                                          **TB._stat_flags(cfg, xtx, xty))
+                kvec, cvec = TB._reference_vectors(
+                    cfg, st, stats5, st.X.new_empty((idx.shape[0], 0)), xtx,
+                    xty)
+                args = (total, xw, st.X, st.Y if xty else None, rows, mask_d,
+                        kvec, cvec)
+                runs = [("fold_ozaki_df64", lambda impl: TFD.fold_ozaki_df64(
+                    *args, with_x=xtx, impl=impl))]
+                if xtx:
+                    src = TB.prepare_ozaki_sources(cfg, st, idx, mask,
+                                                   return_XTY=xty)
+                    runs.append(("fold_v3", lambda impl: (
+                        TB.ozaki_v3_from_sources(cfg, src, return_XTY=xty,
+                                                 impl=impl))))
+                for name, run in runs:
+                    before = TFD.launch_counts()
+                    got = run("cuda")
+                    after = TFD.launch_counts()
+                    assert {n: after[n] - before[n] for n in after
+                            if after[n] != before[n]} == {name: 1}
+                    ref = run("torch")
+                    torch.cuda.synchronize()
+                    assert got.shape == ref.shape == (
+                        idx.shape[0], k, (k if xtx else 0) + m)
+                    assert (got - ref).abs().max().item() <= (
+                        1e-12 * ref.abs().max().item()), (name, k, m, xtx,
+                                                          n_l, mask is None)
+
+
+# ---- fold rows and masks on the card ------------------------------------- #
+
+
+@pytest.mark.parametrize("n_l", [4, 20, 500])
+def test_cuda_mask_matches_numpy_mask(dev, n_l):
+    """A CUDA mask_batch through training_matrices_batched and
+    materialize_cv gives the NumPy mask's result bit for bit and launches
+    the same kernel (packed, v3, Ozaki-df64)."""
+    rng = np.random.default_rng(18)
+    X, Y = rng.random((N_ROUTES, K)), rng.random((N_ROUTES, M))
+    w = rng.random(N_ROUTES)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx = _folds(n_l, 5, n_l)
+    mask = np.ones(idx.shape)
+    mask[::2, -2:] = 0.0
+    results = {}
+    for name, m in (("numpy", mask), ("cuda", torch.from_numpy(mask).to(dev))):
+        before = TFD.launch_counts()
+        mats, _ = TB.training_matrices_batched(cfg, st, idx, m)
+        probe = TS.materialize_cv(cfg, X, Y, w, idx, m, batch_size=2,
+                                  device=dev)
+        after = TFD.launch_counts()
+        results[name] = (torch.cat(mats, 2), probe,
+                         {n: after[n] - before[n] for n in after
+                          if after[n] != before[n]})
+    (a, pa, la), (b, pb, lb) = results["numpy"], results["cuda"]
+    assert la == lb and len(la) == 1, (la, lb)
+    assert torch.equal(a, b) and torch.equal(pa, pb)
+
+
+def test_cuda_rows_outside_raise_before_launch(dev):
+    """CUDA (F, L) fold rows holding N raise ValueError from
+    prepare_fold_operands, prepare_ozaki_sources and
+    smallfold_from_sources before any kernel launches."""
+    X, Y, w = _data(19)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx = np.arange(12).reshape(3, 4)
+    src = TB.prepare_loocv_sources(cfg, st, idx)
+    bad = torch.from_numpy(idx).to(dev)
+    bad[1, 2] = N
+    before = _counts()
+    for call in (lambda: TB.prepare_fold_operands(cfg, st, bad),
+                 lambda: TB.prepare_ozaki_sources(cfg, st, bad),
+                 lambda: TB.smallfold_from_sources(
+                     cfg, src, bad, n_l=4, return_XTY=True,
+                     has_mask=False)):
+        with pytest.raises(ValueError, match="outside"):
+            call()
+    torch.cuda.synchronize()
+    assert _counts() == before
+    # in range, the same CUDA rows run
+    bad[1, 2] = 5
+    TB.smallfold_from_sources(cfg, src, bad, n_l=4, return_XTY=True,
+                              has_mask=False)
+    assert _counts()["fold_smallfold"] == before["fold_smallfold"] + 1
+
+
+def test_smallfold_checks_cuda_rows_once_per_sources(dev, monkeypatch):
+    """Sources built from CUDA rows check them once; smallfold_from_sources
+    on slices of ``src.rows`` checks nothing more (no sync a chunk), while
+    other CUDA rows are checked at each call."""
+    X, Y, w = _data(20)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx = torch.arange(24, device=dev).reshape(6, 4)
+    checks = []
+    real = TB._loocv.check_rows
+
+    def counting(rows, n):
+        checks.append(torch.as_tensor(rows).device.type)
+        return real(rows, n)
+
+    monkeypatch.setattr(TB._loocv, "check_rows", counting)
+    src = TB.prepare_loocv_sources(cfg, st, idx)
+    assert checks == ["cuda"] and src.rows.device.type == "cuda"
+    assert src.rows.data_ptr() != idx.data_ptr()
+    kw = dict(n_l=4, return_XTY=True, has_mask=False)
+    before = _counts()["fold_smallfold"]
+    got = [TB.smallfold_from_sources(cfg, src, src.rows[sl], src.scal[sl],
+                                     **kw) for sl in (slice(0, 2),
+                                                      slice(2, 6))]
+    assert checks == ["cuda"]
+    assert _counts()["fold_smallfold"] == before + 2
+    ref = TB.smallfold_from_sources(cfg, src, idx.clone(), **kw)
+    assert checks == ["cuda", "cuda"]
+    assert torch.equal(torch.cat(got), ref)

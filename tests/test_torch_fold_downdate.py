@@ -333,7 +333,9 @@ def test_wrapper_argument_errors():
     for bad in (np.array([[0, N]]), np.array([[-1, 2]])):
         with pytest.raises(ValueError, match=r"outside \[0, 200\)"):
             TB.prepare_ozaki_sources(cfg, st, bad)
-        with pytest.raises(ValueError, match=r"outside \[0, 200\)"):
+    # the batched engine wraps [-N, 0) as NumPy does; beyond it raises
+    for bad in (np.array([[0, N]]), np.array([[-N - 1, 2]])):
+        with pytest.raises(ValueError, match=r"outside \[-200, 200\)"):
             TB.training_matrices_batched(cfg, st, bad)
     with pytest.raises(ValueError, match="return_XTX"):
         TB.prepare_ozaki_sources(cfg, st, IDX_LARGE, return_XTX=False)
