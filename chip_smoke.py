@@ -29,9 +29,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    fold batch per route (L=4 packed, L=100 v3, L=1,000 Ozaki-df64,
    L=1,025 epilogue), each also masked; every call must launch its route's
    kernel; bound 1e-12 max|twin|. Then the tensor-core tile's edges
-   through ``fold_ozaki_df64`` and ``fold_v3``: L = 1, 3, 10, 17, 100 and
-   1,003, K=37 with M=0, XTY alone, one fold, masked and unmasked, for
-   TTTT and FFFF, weighted and not, at the same bound, one launch each.
+   through ``fold_ozaki_df64``, ``fold_v3`` and ``fold_v3(sym=True)``:
+   L = 1, 3, 10, 17, 100 and 1,003, K=37 with M=0, XTY alone (no v3), one
+   fold, masked and unmasked, for TTTT and FFFF, weighted and not, at the
+   same bound, one launch each; the symmetric X blocks exactly symmetric
+   and their upper entries the full tile's bit for bit.
    Then the first full-width chunk of each phase 7 sweep (P=25,000,
    10,000, 1,000, 100, 10 and the masked P=3 at N=100,000) through the
    kernel and through the twin, held at the same bound, and each route's
@@ -51,7 +53,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    M=10, through ``training_matrices_batched``: L=1 (LOOCV, or packed for
    XTY alone), L=4 and masked L=1 (packed f32), L=100 and masked L=1,025
    (``fused_downdate``); every call must launch its route's kernel and no
-   other; bound 1e-4 max|twin| (sums in float32 in another order).
+   other; bound 1e-4 max|twin| (sums in float32 in another order);
+   ``fused_downdate``'s kernel and twin each also read against the
+   float64 engine on the same data. Then
+   the float32 stream tile of ``fold_downdate_f32`` on seeded streams:
+   F=1, 2 and 3 at L=33,334 and F=2 at L=1,025 (split across blocks),
+   L=32 and 100 (unsplit), K=37 with C=43 and K=48 with C=52, unmasked
+   and masked, at the same bound, one launch a call, a second call
+   bit-equal; the kernel and the twin each also read against the same
+   formula in float64.
 10. Float32 LOOCV main path: phase 4's configuration and data cast to
     float32, all 100,000 folds through ``materialize_cv``, warm-up and
     timed, one ``fused_loocv_f32`` launch per chunk and no other kernel;
@@ -60,9 +70,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 11. Float32 K-fold at full width: the same data over P = 25,000 (L=4,
     packed f32), 1,000 (L=100) and 3 (L=33,334, masked; both
     ``fused_downdate``): warm-up and timed totals with the launch counts,
-    each P's first chunk against its twin and timed through both (and
-    ``torch.bmm`` of its blocks or streams, P=3 aside), each
-    probe fold against the oracle at 1e-3 max|oracle|.
+    each P's first chunk against its twin and timed through both, with
+    its split count, TFLOP/s, bound and ``torch.bmm`` of its blocks or
+    streams, each probe fold against the oracle at 1e-3 max|oracle|.
 12. TF32: the float32 fit under ``torch.set_float32_matmul_precision(
     "high")`` is bit for bit the fit under "highest" (a bare float32
     product under "high" is not).
@@ -75,7 +85,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
     bit, the symmetric X blocks exactly symmetric; every call launches
     its kernel and no other. Then each one's full-width chunk against its
     twin, timed in turns beside the kernel it varies (one fold per block,
-    or the full kernel).
+    or the full kernel); the symmetric v3 chunks at P=1,000 and 10,000
+    also beside ``torch.bmm`` of the gathered blocks.
 14. The policy-routed main paths at full width: phase 4's configuration
     through ``materialize_cv`` under ``set_routing`` (sym LOOCV, sym at
     P=10,000 and P=1,000, df64x2 LOOCV, f32x2 float32 LOOCV, and sym with
@@ -542,11 +553,39 @@ def main() -> int:
         f"each unmasked and masked): worst max|diff| {fold_err}, worst "
         f"relative {fold_rel}")
 
-    # The tensor-core tile's edges, through fold_ozaki_df64 and fold_v3:
-    # ragged L, K=37 with M=0 (8-byte copies, XTX alone), XTY alone, one
-    # fold, masked and unmasked; one launch of the wrapper's counter each.
+    def v3_args(src):
+        """``fold_v3``'s operands from ``OzakiSources``."""
+        return (src.total, src.xw, src.xu, src.yu, src.rows, src.mask,
+                src.gx, src.sxv, src.yvec, src.scal)
+
+    def v3_flags(cfg_v, with_y):
+        return dict(center_xtx=cfg_v.center_X,
+                    center_xty=cfg_v.center_X or cfg_v.center_Y,
+                    scale_x=cfg_v.scale_X, scale_y=cfg_v.scale_Y,
+                    with_y=with_y, resolution=cfg_v.resolution)
+
+    def sym_checks(label, got, full):
+        """The symmetric kernel's X block exactly symmetric, and its upper
+        triangle and XTY columns the full kernel's bit for bit."""
+        k_s = got.shape[1]
+        x = got[:, :, :k_s]
+        iu_s = torch.triu_indices(k_s, k_s, device=got.device)
+        if not torch.equal(x, x.mT):
+            raise AssertionError(f"{label}: X block not exactly symmetric")
+        if not (torch.equal(got[:, iu_s[0], iu_s[1]],
+                            full[:, iu_s[0], iu_s[1]])
+                and torch.equal(got[:, :, k_s:], full[:, :, k_s:])):
+            raise AssertionError(f"{label}: upper entries differ from the "
+                                 "full tile's")
+
+    # The tensor-core tile's edges, through fold_ozaki_df64, fold_v3 and
+    # fold_v3(sym=True): ragged L, K=37 with M=0 (8-byte copies, XTX alone),
+    # XTY alone (no v3), one fold, masked and unmasked; one launch of the
+    # wrapper's counter each; the symmetric X blocks exactly symmetric and
+    # their upper entries bit-equal to the full tile's.
     rng = np.random.default_rng(SEED + 5)
-    edge_err = {"fold_ozaki_df64": 0.0, "fold_v3": 0.0}
+    edge_err = {"fold_ozaki_df64": 0.0, "fold_v3": 0.0, "fold_v3_sym": 0.0}
+    fold_err["fold_v3_sym"] = fold_rel["fold_v3_sym"] = 0.0
     cases = 0
     for flags, w in itertools.product(((True,) * 4, (False,) * 4),
                                       (ws, None)):
@@ -581,6 +620,10 @@ def main() -> int:
                             TB.ozaki_v3_from_sources(cfg_s, vsrc,
                                                      return_XTY=xty,
                                                      impl=impl))
+                        runs["fold_v3_sym"] = lambda impl: FD.fold_v3(
+                            *v3_args(vsrc), **v3_flags(cfg_s, xty),
+                            sym=True, impl=impl)
+                    outs = {}
                     for name, run in runs.items():
                         label = (f"{cfg_s}, K={k_e}, M={m_e}, xtx={xtx}, "
                                  f"L={n_l}, F={f_e}, mask={mk is not None}")
@@ -599,14 +642,18 @@ def main() -> int:
                             raise AssertionError(
                                 f"{label}: {name} kernel vs twin max|diff| "
                                 f"{err:.3e} > {TWIN_RTOL:g} * {scale:.3e}")
+                        if name == "fold_v3_sym":
+                            sym_checks(label, got, outs["fold_v3"])
+                        outs[name] = got
                         fold_err[name] = max(fold_err[name], err)
                         fold_rel[name] = max(fold_rel[name], err / scale)
                         edge_err[name] = max(edge_err[name], err / scale)
                         cases += 1
     log(f"[tile-edges] {cases} cases of the tensor-core tile (N={n_small}; "
         f"L={list(TILE_EDGE_L)}; K={K}, M={M} and K=37, M=0; XTY alone; "
-        f"F=1 and 4; unmasked and masked; TTTT and FFFF, weighted and not): "
-        f"worst relative {edge_err}")
+        f"F=1 and 4; unmasked and masked; TTTT and FFFF, weighted and not; "
+        f"symmetric v3 exactly symmetric, its upper entries the full "
+        f"tile's bit for bit): worst relative {edge_err}")
 
     def chunk_idx(p):
         _, idx, mask = Partitioner(np.arange(N) % p).padded_batches()
@@ -825,11 +872,18 @@ def main() -> int:
     f32_batches = [(one, None), (one, mask_one), (folds(4, 16), None),
                    (folds(100, 8), None), (big, mask_big)]
     Xs32, Ys32, ws32 = (a.astype(np.float32) for a in (Xs, Ys, ws))
+    # fused_downdate's kernel and twin, each against the float64 engine on
+    # the same float32 data (worst relative to its largest entry)
+    vs64 = {"kernel": 0.0, "twin": 0.0}
     cases = 0
     for flags in itertools.product([True, False], repeat=4):
         for w in (ws32, None):
             cfg_s = CVConfig(*flags, ddof=1, dtype=np.float32)
             st_s = fit(cfg_s, Xs32, Ys32, w, device=dev)
+            cfg_d = CVConfig(*flags, ddof=1)
+            st_d = fit(cfg_d, Xs32.astype(np.float64), Ys32.astype(np.float64),
+                       None if w is None else w.astype(np.float64),
+                       device=dev)
             for (xtx, xty), (idx, mask) in itertools.product(
                     ((True, True), (True, False), (False, True)),
                     f32_batches):
@@ -856,11 +910,83 @@ def main() -> int:
                         f"xtx={xtx}, xty={xty})")
                 fold_err[name] = max(fold_err[name], err)
                 fold_rel[name] = max(fold_rel[name], err / scale)
+                if name == "fold_downdate_f32":
+                    ref64 = batch(cfg_d, st_d, idx, mask, xtx, xty, "torch")
+                    scale64 = ref64.abs().max().item()
+                    for who, val in (("kernel", got), ("twin", ref)):
+                        vs64[who] = max(vs64[who], (val.double() - ref64)
+                                        .abs().max().item() / scale64)
                 cases += 1
     log(f"[f32-twin] {cases} cases (N={n_small}; L=1, masked L=1, L=4, 100, "
         f"masked L=1,025): worst max|diff| "
         f"{ {n: fold_err[n] for n in ROUTE_WRAPPER_F32.values()} }, worst "
-        f"relative { {n: fold_rel[n] for n in ROUTE_WRAPPER_F32.values()} }")
+        f"relative { {n: fold_rel[n] for n in ROUTE_WRAPPER_F32.values()} }; "
+        f"fold_downdate_f32 against the float64 engine on the same data, "
+        f"worst relative kernel {vs64['kernel']:.3e}, twin "
+        f"{vs64['twin']:.3e}")
+
+    # The float32 stream tile's edges, on seeded streams: few folds of
+    # L=33,334 and 1,025 (masked rows zero in xv) split across blocks, L=32
+    # and 100 unsplit, and widths that take 4-, 8- and 16-byte copies; one
+    # launch a call, and the same bits from a second call. The kernel and
+    # the twin are each also read against the same formula in float64.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32_edge = 0.0
+    vs64 = {"kernel": 0.0, "twin": 0.0}
+    cases = 0
+    for f_e, n_l, k_e, c_e in ((1, 33_334, K, K + M), (2, 33_334, K, K + M),
+                               (3, 33_334, K, K + M), (2, 1_025, K, K + M),
+                               (8, 32, K, K + M), (8, 100, K, K + M),
+                               (5, 100, 37, 43), (5, 100, 48, 52)):
+        splits = FD.downdate_f32_splits(f_e, k_e, c_e, n_l, n_sm)
+        if (splits > 1) != (n_l > 1_000):
+            raise AssertionError(f"f32 edge F={f_e}, L={n_l}: {splits} "
+                                 "splits")
+        ops = [torch.from_numpy(rng.random(s, dtype=np.float32)).to(dev)
+               for s in ((k_e, c_e), (f_e, n_l, k_e), (f_e, n_l, c_e),
+                         (f_e, 2, k_e), (f_e, 2, c_e))]
+        ops[0] *= n_l
+        for masked in (False, True):
+            if masked:
+                ops[1][::2, -n_l // 10:] = 0.0
+            label = (f"f32 stream tile F={f_e}, L={n_l}, K={k_e}, C={c_e}, "
+                     f"masked={masked}, {splits} split(s)")
+            got = []
+            for _ in range(2):
+                before = launch_counts(FD, TL, SR)
+                got.append(FD.fold_downdate_f32(*ops, impl="cuda"))
+                after = launch_counts(FD, TL, SR)
+                moved = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+                if moved != {"fold_downdate_f32": 1}:
+                    raise AssertionError(f"{label}: launched {moved}")
+            ref = FD.fold_downdate_f32(*ops, impl="torch")
+            torch.cuda.synchronize()
+            if not torch.equal(*got):
+                raise AssertionError(f"{label}: a second call differs")
+            err = (got[0] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= F32_TWIN_RTOL * scale:
+                raise AssertionError(f"{label}: kernel vs twin max|diff| "
+                                     f"{err:.3e} > {F32_TWIN_RTOL:g} * "
+                                     f"{scale:.3e}")
+            fold_err["fold_downdate_f32"] = max(
+                fold_err["fold_downdate_f32"], err)
+            f32_edge = max(f32_edge, err / scale)
+            ref64 = FD.downdate_f32_reference(*(o.double() for o in ops))
+            scale64 = ref64.abs().max().item()
+            for who, val in (("kernel", got[0]), ("twin", ref)):
+                vs64[who] = max(vs64[who], (val.double() - ref64).abs().max()
+                                .item() / scale64)
+            cases += 1
+            del ref64
+        del ops, got, ref
+    log(f"[f32-edges] {cases} cases of the float32 stream tile (F=1, 2, 3 "
+        f"at L=33,334 and F=2 at L=1,025 split; L=32 and 100 unsplit; K=37, "
+        f"C=43 and K=48, C=52; unmasked and masked): worst relative "
+        f"{f32_edge:.3e}, a second call bit-equal, one launch a call; "
+        f"against float64, worst relative kernel {vs64['kernel']:.3e}, "
+        f"twin {vs64['twin']:.3e}")
 
     # ---- 10. float32 LOOCV main path -----------------------------------------
     cfg32 = CVConfig(True, True, True, True, ddof=1, dtype=np.float32)
@@ -977,21 +1103,25 @@ def main() -> int:
                 total32, blocks.Xv_w, m2, kvec, cvec, impl=impl,
                 out=buf if impl == "cuda" else None))
                 for impl in ("cuda", "torch")}
+            splits = FD.downdate_f32_splits(bs_p, K, K + M, idx.shape[1],
+                                            n_sm)
+            label += f", {splits} split(s)"
         hold(label, expect, run["cuda"](), run["torch"](), F32_TWIN_RTOL)
         pair = time_pair(label, expect, run["cuda"], run["torch"],
-                         buf.numel(), 4)
+                         buf.numel(), 4,
+                         flops=(product_flops(bs_p, idx.shape[1])
+                                if expect == "fold_downdate_f32" else None))
+        if expect == "fold_downdate_f32":
+            lib = library_ms(blocks.Xv_w, m2)
+            what = "the blocks"
+        else:
+            lib = library_ms(ops.u, ops.v)
+            what = "the u, v streams"
+        chunk_bound = bound(*fold_cost(bs_p, idx.shape[1], 4, gathered=False))
+        log(f"[kfold-chunk] {label}: torch.bmm of {what} {lib:.4f} ms; bound "
+            f"{chunk_bound[0]:.4f} ms ({chunk_bound[1]})  [{card}]")
         if p != 3:  # the kernels line times the unmasked route's chunk
-            if expect == "fold_downdate_f32":
-                lib = library_ms(blocks.Xv_w, m2)
-                what = "the blocks"
-            else:
-                lib = library_ms(ops.u, ops.v)
-                what = "the u, v streams"
-            log(f"[kfold-chunk] {label}: torch.bmm of {what} {lib:.4f} ms  "
-                f"[{card}]")
-            chunk_times[expect] = (
-                *pair, *bound(*fold_cost(bs_p, idx.shape[1], 4,
-                                         gathered=False)), lib)
+            chunk_times[expect] = (*pair, *chunk_bound, lib)
         run = buf = ops = blocks = m2 = None
 
         def cv32(idx=idx, mask=mask):
@@ -1056,8 +1186,9 @@ def main() -> int:
     default_policy = policy()
     new_kernels = ("fused_loocv_x2", "fused_loocv_f32x2", "fused_loocv_sym",
                    "fold_v3_sym")
-    for name in new_kernels:
-        fold_err[name] = fold_rel[name] = 0.0
+    for name in new_kernels:  # fold_v3_sym's phase 6 edges stay counted
+        fold_err.setdefault(name, 0.0)
+        fold_rel.setdefault(name, 0.0)
 
     def only(before, name, label):
         after = launch_counts(FD, TL, SR)
@@ -1250,9 +1381,12 @@ def main() -> int:
             finally:
                 set_routing(sym_loocv=False)
 
+        a_blk, b_blk = gathered_blocks(st, idx[:bs_p])
         fns = {"plain sym": lambda: v3(True, "torch"),
                "full kernel": lambda: v3(False, "cuda", buf1),
-               "sym kernel": lambda: v3(True, "cuda", buf2)}
+               "sym kernel": lambda: v3(True, "cuda", buf2),
+               # the library call: torch.bmm of the full gathered blocks
+               "torch.bmm": lambda: torch.bmm(a_blk.mT, b_blk)}
         label = (f"fold_v3_sym: P={p:,} chunk of {bs_p} folds x "
                  f"L={idx.shape[1]}")
         ref = fns["plain sym"]()
@@ -1262,15 +1396,16 @@ def main() -> int:
         symmetric(buf2, label)
         upper_vs_full("fold_v3_sym", buf2, buf1)
         ms = time_turns(label, fns, {"plain sym": 3, "full kernel": 10,
-                                     "sym kernel": 10})
+                                     "sym kernel": 10, "torch.bmm": 10})
+        sym_bound = bound(*fold_cost(bs_p, idx.shape[1], 8, sym=True))
+        log(f"[policy-chunk] {label}: sym kernel {ms['sym kernel']:.4f} ms, "
+            f"full kernel {ms['full kernel']:.4f} ms, torch.bmm of the "
+            f"gathered blocks {ms['torch.bmm']:.4f} ms; bound "
+            f"{sym_bound[0]:.4f} ms ({sym_bound[1]})  [{card}]")
         if p == 1_000:
-            lib = library_ms(*gathered_blocks(st, idx[:bs_p]))
-            log(f"[policy-chunk] {label}: torch.bmm of the gathered blocks "
-                f"{lib:.4f} ms  [{card}]")
-            chunk_times["fold_v3_sym"] = (
-                ms["sym kernel"], ms["plain sym"],
-                *bound(*fold_cost(bs_p, idx.shape[1], 8, sym=True)), lib)
-        del src, buf1, buf2, ref
+            chunk_times["fold_v3_sym"] = (ms["sym kernel"], ms["plain sym"],
+                                          *sym_bound, ms["torch.bmm"])
+        del src, buf1, buf2, ref, a_blk, b_blk
 
     # ---- 14. policy-routed sweeps at full width -----------------------------
     policy_launches = {name: 0 for name in new_kernels}

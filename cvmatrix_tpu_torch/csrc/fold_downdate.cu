@@ -32,21 +32,28 @@
 // applies all four and the tile kernels need no flags. The TPU kernels
 // carry float64 as f32 pairs and form D from int8 mantissa slices on the
 // MXU because the TPU has no float64; the H100 has, so D is accumulated
-// here in the element type T (float64 or float32) on the unpadded shape and
-// each output is written once with row stride C. Two tile kernels:
+// here in the element type (float64 or float32) on the unpadded shape and
+// each output is written once with row stride C. The reference form is
+// evaluated in two orders: in float64 (total - fma(p, q, D)) i1 i2, in
+// float32 fused_downdate's ((total - D) - p q)(i1 i2), since in float32 the
+// two orders differ by a few ulps of total. Float32 products stay in
+// float32 on FP32 FMA, never on TF32 tensor cores.
 //
-//   gather_mma_kernel (the gathered float64 product on the FP64 tensor
-//       cores): cvm_fold_ozaki_df64_f64 and cvm_fold_v3_f64 without sym,
-//       the ports of fused_ozaki_downdate_df64 and fused_ozaki_downdate_v3.
-//   fold_tile_kernel (FMA on the CUDA cores): every other entry, templated
-//       on T, on where the rows come from (streams or a gather by index),
-//       on the epilogue form and on the symmetric mode. The float32 entries
-//       compute in float32 on FP32 FMA, never on TF32 tensor cores.
+// Per fold the product costs 2 L K C flops and the output K C sizeof(T)
+// bytes of writes: folds of a few rows are bound by the stores, folds of
+// hundreds of rows by the product. Three tile kernels, one per kind of
+// operand and bound:
 //
-// The tensor-core tile. Per fold the product costs 2 L K C flops and the
-// output K C 8 bytes of writes: at L = 1,000 (Ozaki-df64) and L = 100 (v3)
-// the FLOPs bound it, at L = 10 (v3 at P = 10,000) the stores. The CUDA-core
-// tile reached 9-11 TFLOP/s on the FLOP-bound chunks against 67 TFLOP/s for
+//   gather_mma_kernel, the gathered float64 product on the FP64 tensor
+//       cores: cvm_fold_ozaki_df64_f64, and cvm_fold_v3_f64 with and
+//       without sym. FLOP-bound at L = 100-1,000, store-bound at L = 10.
+//   stream_f32_kernel, the float32 stream product on FP32 FMA:
+//       cvm_fold_downdate_f32 (L >= 32 by the routing gate). FLOP-bound.
+//   fold_tile_kernel, FMA on the CUDA cores: cvm_fold_packed_f64/_f32 and
+//       cvm_fold_smallfold_f64/_f32, folds of a few rows, store-bound.
+//
+// The tensor-core tile (gather_mma_kernel). The CUDA-core tile reached
+// 9-11 TFLOP/s on the FLOP-bound float64 chunks against 67 TFLOP/s for
 // FP64 on the tensor cores, held back by synchronous staging, 4 FMAs per
 // staged value and a 64-register cap. This one:
 //   - forms D with mma.sync.aligned.m16n8k8 f64 (DMMA; wgmma has no f64
@@ -76,33 +83,74 @@
 //   - stages the finished accumulators through shared memory, 32 rows at a
 //     time, and writes each output row piece coalesced with 16-byte
 //     streaming stores (8-byte where C is odd), reading total from L2 in the
-//     same pattern; blocks stay tile-major within a fold (below).
-// The product is summed in another order than the CUDA-core tile's or the
-// twin's torch.bmm; the epilogue is the float64 reference form below.
+//     same pattern; blocks are numbered tile-major within a fold, so blocks
+//     that run together write neighbouring pieces of the same rows.
+//   - symmetric v3 (sym): each fold's X block is symmetric up to rounding,
+//     so only the tiles with tile row <= tile column are launched, numbered
+//     row by row (tile row ti holds tile columns ti .. n_ct - 1; C >= K), 36
+//     of 64 at K=500, M=10; every tile that holds XTY columns is among them.
+//     Each tile runs the full tile's MMA sequence over the same slabs, so a
+//     stored upper entry is the full tile's bit for bit. The epilogue
+//     stages all 64 rows at once, and the finished values go back to the
+//     staged rows; an upper tile's X columns are then also stored
+//     transposed into the mirror tile, a warp writing 32 consecutive
+//     doubles of one mirror row a step, read down a column of the staged
+//     rows (an XOR swizzle of their column pairs keeps that read at 2 lanes
+//     a bank and the fragment writes and row reads conflict-free). Staging
+//     32 rows a pass with 8-byte mirror stores of 4 doubles a row was
+//     measured slower at L = 10 than the CUDA-core tile it replaces. A
+//     diagonal tile stores j >= i of its X part (element by element where a
+//     16-byte pair straddles the diagonal) and mirrors j > i, so
+//     out[f][j][i] = out[f][i][j] for i < j < K exactly. Where the product
+//     bounds the kernel (L = 100) this cuts its work to 36/64; where the
+//     stores do (L = 10) the bytes written stay the same.
+// The product is summed over the rows in order, one FMA a row and output
+// (as the CUDA-core tile and the twin's float64 torch.bmm); the epilogue is
+// the float64 reference form.
 //
-// The reference form is evaluated in two orders. In float64 it is
-// (total - fma(p, q, D)) i1 i2; in float32 it follows fused_downdate's
-// order, ((total - D) - p q)(i1 i2), since in float32 the two orders
-// differ by a few ulps of total.
+// The float32 stream tile (stream_f32_kernel), the port of fused_downdate.
+// The CUDA-core tile reached 17.7 TFLOP/s on it (67 TFLOP/s of FP32 FMA on
+// the card): 16 FMAs a thread a row cost 8 scalar shared loads, so shared-
+// memory issue bound its loop. This one:
+//   - uses 128 x 128 output tiles, 256 threads, 8 x 8 accumulators a thread
+//     (rows ty * 4 + i and 64 + ty * 4 + i, columns likewise from tx), read
+//     from shared memory as float4: 64 FMAs for 4 shared loads a row. The
+//     A loads of a warp are broadcasts, the B loads contiguous. 2 blocks an
+//     SM at the 128-register cap.
+//   - stages 16-row slabs of both streams with cp.async, three in flight,
+//     16-byte copies where K and C are multiples of 4 and every operand is
+//     16-byte aligned, 8-byte where they are even (m2 rows of C = 510
+//     floats start 8-byte aligned), else 4-byte; one width for every copy,
+//     load and store (the copies are about 1% of the instructions of a
+//     slab's FMAs). Rows past L and columns past K or C are zero-filled.
+//   - stages each 64-row half of the finished tile through shared memory
+//     and writes each output row piece coalesced with streaming stores,
+//     reading total from L2, in fused_downdate's order.
+//   - splits each fold's L rows across S blocks when few folds leave the
+//     SMs idle (P = 3: three folds of 33,334 rows are 48 tiles for 132
+//     SMs). The caller picks S (ops/fold_downdate.downdate_f32_splits, a
+//     function of F, K, C, L and the SM count) and passes an (S, F, K, C)
+//     workspace: each block writes the raw partial product of its rows
+//     there (kept in L2), and split_reduce_f32_kernel sums the S partials
+//     in a fixed order and applies the epilogue. No atomics, so a call
+//     gives the same bits every time.
 //
-// What bounds the CUDA-core tile: per fold the product costs 2 L K C flops
-// and the output K C sizeof(T) bytes of writes, so folds of a few rows (the
-// packed routes, the small-fold route at L = 4) are bound by device-memory
-// writes and folds of hundreds of rows by FMA throughput. It covers both: one
-// block of 256 threads per (fold, 64 x 64 output tile), each thread holding
-// a 4 x 4 block of the tile in registers; row blocks of up to 16 rows of
-// both operands are staged in shared memory, so each staged value feeds 4
-// FMAs from registers; the epilogue reads total (2 MB at K=500, M=10,
-// resident in L2) and stores with an evict-first hint. Two choices measured
-// on the card: blocks are numbered tile-major within a fold, so blocks that
-// run together write neighbouring pieces of the same rows (rows of C = 510
+// The CUDA-core tile (fold_tile_kernel), for the packed and small-fold
+// routes (L = 4): per fold it writes K C sizeof(T) bytes and reads L rows,
+// so the stores bound it. One block of 256 threads per (fold, 64 x 64
+// output tile), each thread holding a 4 x 4 block of the tile in
+// registers; row blocks of up to 16 rows of both operands are staged in
+// shared memory; the epilogue reads total (2 MB at K=500, M=10, resident
+// in L2) and stores with an evict-first hint. Two choices measured on the
+// card: blocks are numbered tile-major within a fold, so blocks that run
+// together write neighbouring pieces of the same rows (rows of C = 510
 // doubles are not 128-byte aligned, and a fold-major order left partial
 // sectors to be evicted apart), and registers are capped at 64 for four
 // blocks per SM (a few bytes spill); together they cut a float64 chunk's
 // time by 27-37% at L = 4-1,000 (K=500, M=10, H100 80GB HBM3 at 700 W).
 // Edge tiles (C = 510 is no multiple of 64) are guarded on load and store.
 //
-// v3's vector phase (grid F) runs before either tile and forms, per fold
+// v3's vector phase (grid F) runs before its tile and forms, per fold
 // and X column j, the weighted squared sum sum_l mask xw xu of the gathered
 // rows (the X-block diagonal of D, which the TPU kernel reads off its
 // product), then the downdated mean
@@ -123,18 +171,6 @@
 // sizeof(T) bytes as the packed kernel and reads L rows twice, so
 // at L = 4 it is bound by the stores like the packed route, which reads
 // prepared streams instead of gathering.
-//
-// Symmetric v3 (the port of fused_ozaki_downdate_v3_sym): each fold's X
-// block is symmetric up to rounding, so only the 64 x 64 tiles with tile
-// row <= tile column are launched (every tile that holds XTY columns is
-// among them: a tile below the diagonal holds X columns only), 36 of 64 at
-// K=500, M=10. An upper tile stores its X columns a second time, transposed
-// into the mirror tile, through shared memory so that both stores are
-// coalesced; a diagonal tile stores j >= i of its X part and mirrors j > i,
-// so out[f][j][i] = out[f][i][j] for i < j < K exactly. The vector phase
-// is unchanged. Where the product's FMAs bound the kernel (hundreds of
-// rows a fold) this cuts the work to 36/64; where the stores do (L = 10),
-// the bytes written stay the same.
 //
 // Rows are int64 and range-checked on the host before any launch.
 // Plain C interface, bound with ctypes (cvmatrix_tpu_torch/ops/
@@ -194,8 +230,8 @@ __device__ __forceinline__ void column_stats(
 template <typename T>
 struct TileArgs {
   const T* total;       // (K, C)
-  const T* a;           // streams: u or xv (F, L, K);  gather: xw (N, K)
-  const T* b;           // streams: v or m2 (F, L, C);  gather: xu (N, K)
+  const T* a;           // streams: u (F, L, K);  gather: xw (N, K)
+  const T* b;           // streams: v (F, L, C);  gather: xu (N, K)
                         // or null
   const T* yb;          // gather: yu (N, M) or null
   const int64_t* rows;  // gather: (F, L)
@@ -210,40 +246,19 @@ struct TileArgs {
 // row-major order: out[f][k0 .. +64][c0 .. +64]. Neighbouring blocks, which
 // run at nearly the same time, so write neighbouring parts of the same rows.
 // kGather: rows gathered by index (else the contiguous (F, L, .) streams);
-// kRefForm: the reference-form epilogue (else the factor form); kSym: the
-// tiles are only those on or above the diagonal, numbered row by row (tile
-// row ti holds tile columns ti .. n_ct - 1), and X columns are mirrored.
-template <typename T, bool kGather, bool kRefForm, bool kSym>
+// kRefForm: the reference-form epilogue (else the factor form).
+template <typename T, bool kGather, bool kRefForm>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
-  // The staged rows, and for kSym the output tile once the product is done.
-  constexpr size_t kStageBytes = 2 * kStage * kTile * sizeof(T);
-  constexpr size_t kMirrorBytes = kTile * (kTile + 1) * sizeof(T);
-  constexpr size_t kBytes =
-      kSym && kMirrorBytes > kStageBytes ? kMirrorBytes : kStageBytes;
-  __shared__ __align__(16) unsigned char smem[kBytes];
-  T (*sa)[kTile] = reinterpret_cast<T (*)[kTile]>(smem);
-  T (*sb)[kTile] = sa + kStage;
+  __shared__ T sa[kStage][kTile];
+  __shared__ T sb[kStage][kTile];
   __shared__ int64_t srow[kStage];
   __shared__ T smask[kStage];
 
   const int64_t f = blockIdx.x / n_tiles;
-  int64_t t = blockIdx.x % n_tiles;
-  int64_t ti, tj;
-  if (kSym) {
-    ti = 0;
-    while (t >= n_ct - ti) {
-      t -= n_ct - ti;
-      ++ti;
-    }
-    tj = ti + t;
-  } else {
-    ti = t / n_ct;
-    tj = t % n_ct;
-  }
-  const int64_t k0 = ti * kTile;
-  const int64_t c0 = tj * kTile;
-  const bool diagonal = kSym && ti == tj;
+  const int64_t t = blockIdx.x % n_tiles;
+  const int64_t k0 = (t / n_ct) * kTile;
+  const int64_t c0 = (t % n_ct) * kTile;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int64_t L = p.L, K = p.K, C = p.C;
@@ -304,9 +319,6 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
     __syncthreads();
   }
 
-  // kSym: the tile's values staged for the mirror (the staging buffers
-  // are free after the last __syncthreads of the loop).
-  T (*stile)[kTile + 1] = reinterpret_cast<T (*)[kTile + 1]>(smem);
   const T* kv = p.kvec + 2 * K * f;
   const T* cv = p.cvec + 2 * C * f;
   T* of = p.out + K * C * f;
@@ -327,8 +339,6 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
     for (int j = 0; j < 4; ++j) {
       const int64_t c = c0 + tx + 16 * j;
       if (c >= C) continue;
-      // A diagonal tile's X part below the diagonal is the mirror's.
-      if (diagonal && c < K && c < k) continue;
       const T t = __ldg(p.total + k * C + c);
       T val;
       if constexpr (!kRefForm) {
@@ -339,19 +349,6 @@ fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
         val = ((t - acc[i][j]) - pk * qc[j]) * (i1 * i2c[j]);
       }
       __stcs(of + k * C + c, val);
-      if (kSym) stile[ty + 16 * i][tx + 16 * j] = val;
-    }
-  }
-  if (kSym) {
-    __syncthreads();
-    // out[c0 + a][k0 + b] = value(k0 + b, c0 + a) for the tile's X columns
-    // strictly above the diagonal; consecutive threads take consecutive b.
-    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-      const int a = e / kTile;
-      const int b = e % kTile;
-      const int64_t cm = c0 + a;   // source column = mirror row
-      const int64_t km = k0 + b;   // source row = mirror column
-      if (cm < K && km < cm) __stcs(of + cm * C + km, stile[b][a]);
     }
   }
 }
@@ -376,8 +373,8 @@ constexpr size_t kMmaSmemBytes =
 // 32 x 32 warp tiles need about 120 registers a thread: cap at 128.
 constexpr int kMmaMinBlocks = 65536 / (kMmaThreads * 128);
 
-// cp.async of one 16- or 8-byte piece; src-size 0 writes zeros and reads
-// nothing.
+// cp.async of one 16-, 8- or 4-byte piece; src-size 0 writes zeros and
+// reads nothing.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool live) {
@@ -387,8 +384,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                  "l"(src), "r"(n));
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(src), "r"(n));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(kBytes), "r"(n));
   }
 }
 
@@ -417,11 +414,13 @@ struct Dmma {
   }
 };
 
-// Block b computes tile t = b % n_tiles of fold f = b / n_tiles (tiles
-// row-major, kMmaTileM x kMmaTileN each) in the float64 reference form.
-// kVec: 16-byte copies, loads and stores (K, M even and every operand
-// 16-byte aligned), else 8-byte ones; kMasked: the rows carry a 0/1 mask.
-template <bool kVec, bool kMasked>
+// Block b computes tile t = b % n_tiles of fold f = b / n_tiles in the
+// float64 reference form: tiles row-major, kMmaTileM x kMmaTileN each, or
+// with kSym only those on or above the diagonal, row by row, with the X
+// columns mirrored (see the file's comment). kVec: 16-byte copies, loads
+// and stores (K, M even and every operand 16-byte aligned), else 8-byte
+// ones; kMasked: the rows carry a 0/1 mask.
+template <bool kVec, bool kMasked, bool kSym>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
 gather_mma_kernel(const TileArgs<double> p, int64_t n_ct, int64_t n_tiles) {
   constexpr int BM = kMmaTileM;
@@ -441,14 +440,28 @@ gather_mma_kernel(const TileArgs<double> p, int64_t n_ct, int64_t n_tiles) {
   static_assert(BK % Op::kK == 0, "a slab holds whole MMA steps");
   static_assert(kMmaStages * kMmaSlabDoubles >= kMmaWarpTile * kMmaOutLd,
                 "a staged row of warp tiles must fit the slab buffers");
+  static_assert(!kSym || BM == BN, "the mirror of a tile is a tile");
 
   extern __shared__ __align__(16) unsigned char smem[];
   double* slabs = reinterpret_cast<double*>(smem);
 
   const int64_t f = blockIdx.x / n_tiles;
-  const int64_t t = blockIdx.x % n_tiles;
-  const int64_t k0 = (t / n_ct) * BM;
-  const int64_t c0 = (t % n_ct) * BN;
+  int64_t t = blockIdx.x % n_tiles;
+  int64_t ti, tj;
+  if constexpr (kSym) {
+    ti = 0;
+    while (t >= n_ct - ti) {
+      t -= n_ct - ti;
+      ++ti;
+    }
+    tj = ti + t;
+  } else {
+    ti = t / n_ct;
+    tj = t % n_ct;
+  }
+  const int64_t k0 = ti * BM;
+  const int64_t c0 = tj * BN;
+  const bool diagonal = kSym && ti == tj;
   const int64_t L = p.L, K = p.K, C = p.C, KX = p.KX, M = p.M;
   const int64_t* rows = p.rows + f * L;
   const int tid = threadIdx.x;
@@ -558,10 +571,28 @@ gather_mma_kernel(const TileArgs<double> p, int64_t n_ct, int64_t n_tiles) {
   cp_async_wait<0>();
   __syncthreads();  // the epilogue reuses the slab buffers
 
-  // Epilogue, one row of warp tiles (32 rows, the warps of row wm = h) at
-  // a time: the accumulators to shared memory, then coalesced row pieces
-  // out. A thread keeps one column piece (the thread count is a multiple of
-  // the pieces a row has), so it reads that piece's q and i2 once.
+  // Epilogue, kStagedRows rows at a time: the accumulators to shared
+  // memory, then coalesced row pieces out. The full tile stages one row of
+  // warp tiles (32 rows, the warps of row wm = h) a pass, with the row
+  // stride padded to kMmaOutLd. The symmetric tile stages all 64 rows at
+  // once, unpadded, with each row's column pairs XOR-swizzled within groups
+  // of 8 pairs by the row's last 3 bits (swz), so that the fragment writes
+  // and the row reads fall on distinct banks and the mirror's reads down a
+  // column on 2 lanes a bank. A thread keeps one column piece (the thread
+  // count is a multiple of the pieces a row has), so it reads that piece's
+  // q and i2 once.
+  constexpr int kStagedRows = kSym ? BM : kMmaWarpTile;
+  constexpr int kLd = kSym ? BN : kMmaOutLd;
+  static_assert(kMmaStages * kMmaSlabDoubles >= kStagedRows * kLd,
+                "the staged rows must fit the slab buffers");
+  auto at = [](int row, int col) {  // (row, col) of the staged rows
+    if constexpr (kSym) {
+      const int swz = ((row & 1) << 2) | ((row >> 1) & 3);
+      return row * kLd + (((col >> 1) ^ swz) << 1) + (col & 1);
+    } else {
+      return row * kLd + col;
+    }
+  };
   double* so = slabs;
   const double* kv = p.kvec + 2 * K * f;
   const double* cv = p.cvec + 2 * C * f;
@@ -569,11 +600,13 @@ gather_mma_kernel(const TileArgs<double> p, int64_t n_ct, int64_t n_tiles) {
   constexpr int kRowPieces = BN / V;
   constexpr int kRowsPerPass = kMmaThreads / kRowPieces;
   static_assert(kMmaThreads % kRowPieces == 0 &&
-                    kMmaWarpTile % kRowsPerPass == 0,
+                    kStagedRows % kRowsPerPass == 0,
                 "whole rows a pass");
   const int cc = (tid % kRowPieces) * V;
   const int64_t c = c0 + cc;
   const bool col_live = c < C;
+  // kSym: the tile holds X columns, so its X part is mirrored.
+  const bool mirror = kSym && c0 < K;
   double q[V], i2[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -581,42 +614,358 @@ gather_mma_kernel(const TileArgs<double> p, int64_t n_ct, int64_t n_tiles) {
     i2[v] = col_live ? __ldg(cv + C + c + v) : 0.0;
   }
 #pragma unroll
-  for (int h = 0; h < BM / kMmaWarpTile; ++h) {
-    if (wm == h) {
+  for (int h = 0; h < BM / kStagedRows; ++h) {
+    if (wm * kMmaWarpTile / kStagedRows == h) {
+      const int row0 = wm * kMmaWarpTile - h * kStagedRows;
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
         for (int j = 0; j < FN; ++j)
 #pragma unroll
           for (int r = 0; r < Op::kC; r += 2) {
-            double* d = so + (i * Op::kM + g + 8 * (r / 2)) * kMmaOutLd +
-                        wn * 32 + j * 8 + 2 * tq;
+            double* d = so + at(row0 + i * Op::kM + g + 8 * (r / 2),
+                                wn * 32 + j * 8 + 2 * tq);
             *reinterpret_cast<double2*>(d) =
                 make_double2(acc[i][j][r], acc[i][j][r + 1]);
           }
     }
     __syncthreads();
 #pragma unroll
-    for (int it = 0; it < kMmaWarpTile / kRowsPerPass; ++it) {
+    for (int it = 0; it < kStagedRows / kRowsPerPass; ++it) {
       const int r = tid / kRowPieces + it * kRowsPerPass;
-      const int64_t k = k0 + h * kMmaWarpTile + r;
+      const int64_t k = k0 + h * kStagedRows + r;
       if (!col_live || k >= K) continue;
       const double pk = __ldg(kv + k);
       const double i1 = __ldg(kv + K + k);
-      const double* d = so + r * kMmaOutLd + cc;
+      double* d = so + at(r, cc);
+      // A diagonal tile's X part below the diagonal is the mirror's
+      // (k < K here, so c + v < k means an X column).
+      const bool store0 = !(diagonal && c < k);
       if constexpr (kVec) {
         const double2 tt =
             __ldg(reinterpret_cast<const double2*>(p.total + k * C + c));
         const double2 v = *reinterpret_cast<const double2*>(d);
-        __stcs(reinterpret_cast<double2*>(of + k * C + c),
-               make_double2((tt.x - fma(pk, q[0], v.x)) * i1 * i2[0],
-                            (tt.y - fma(pk, q[V - 1], v.y)) * i1 * i2[V - 1]));
+        const double2 val =
+            make_double2((tt.x - fma(pk, q[0], v.x)) * i1 * i2[0],
+                         (tt.y - fma(pk, q[V - 1], v.y)) * i1 * i2[V - 1]);
+        if (store0) {
+          __stcs(reinterpret_cast<double2*>(of + k * C + c), val);
+        } else if (!(diagonal && c + 1 < k)) {  // the pair straddles it
+          __stcs(of + k * C + c + 1, val.y);
+        }
+        if (kSym) *reinterpret_cast<double2*>(d) = val;
       } else {
         const double tt = __ldg(p.total + k * C + c);
-        __stcs(of + k * C + c, (tt - fma(pk, q[0], *d)) * i1 * i2[0]);
+        const double val = (tt - fma(pk, q[0], *d)) * i1 * i2[0];
+        if (store0) __stcs(of + k * C + c, val);
+        if (kSym) *d = val;
+      }
+    }
+    if (mirror) {
+      __syncthreads();  // the tile's finished values are staged
+      // out[c0 + a][k0 + b] = value(k0 + b, c0 + a) for the X columns
+      // c0 + a right of the row; a warp writes 32 consecutive b of one
+      // mirror row (256 bytes) a step.
+      for (int e = tid; e < BN * kStagedRows; e += kMmaThreads) {
+        const int a = e / kStagedRows;
+        const int b = e % kStagedRows;
+        const int64_t cm = c0 + a;  // source column = mirror row
+        const int64_t km = k0 + h * kStagedRows + b;  // source row
+        if (cm < K && km < cm) __stcs(of + cm * C + km, so[at(b, a)]);
       }
     }
     __syncthreads();  // the next pass overwrites the staged rows
+  }
+}
+
+// ---- the float32 stream tile on FP32 FMA (fused_downdate) ---------------
+
+// The float32 stream tile's shape: 128 x 128 outputs a block, 8 x 8 a
+// thread, 16-row slabs three in flight, 2 blocks an SM.
+constexpr int kF32Tile = 128;     // output tile edge (K and C)
+constexpr int kF32Half = kF32Tile / 2;
+constexpr int kF32Slab = 16;      // stream rows per cp.async slab
+constexpr int kF32Stages = 3;     // slabs in flight
+constexpr int kF32Threads = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kF32BlocksPerSM = 2;  // caps registers at 128
+constexpr int kF32SlabFloats = 2 * kF32Slab * kF32Tile;  // A and B rows
+constexpr int kF32OutLd = kF32Tile + 4;  // row stride of a staged half
+constexpr int kF32SmemFloats =
+    kF32Stages * kF32SlabFloats > kF32Half * kF32OutLd
+        ? kF32Stages * kF32SlabFloats
+        : kF32Half * kF32OutLd;
+constexpr size_t kF32SmemBytes = sizeof(float) * kF32SmemFloats;
+
+struct F32Args {
+  const float* total;  // (K, C)
+  const float* xv;     // (F, L, K)
+  const float* m2;     // (F, L, C)
+  const float* kvec;   // (F, 2, K): [p, i1]
+  const float* cvec;   // (F, 2, C): [q, i2]
+  float* out;          // (F, K, C)
+  float* work;         // (S, F, K, C) partial products, or null (S = 1)
+  int64_t F, L, K, C;
+  int64_t per;         // rows of a fold a split block multiplies
+};
+
+template <int V>
+struct VecF;
+template <>
+struct VecF<1> {
+  using type = float;
+};
+template <>
+struct VecF<2> {
+  using type = float2;
+};
+template <>
+struct VecF<4> {
+  using type = float4;
+};
+
+template <int V>
+__device__ __forceinline__ void load_v(float (&d)[V], const float* src) {
+  const auto v = *reinterpret_cast<const typename VecF<V>::type*>(src);
+  if constexpr (V == 1) {
+    d[0] = v;
+  } else if constexpr (V == 2) {
+    d[0] = v.x, d[1] = v.y;
+  } else {
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void ldg_v(float (&d)[V], const float* src) {
+  const auto v = __ldg(reinterpret_cast<const typename VecF<V>::type*>(src));
+  if constexpr (V == 1) {
+    d[0] = v;
+  } else if constexpr (V == 2) {
+    d[0] = v.x, d[1] = v.y;
+  } else {
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ typename VecF<V>::type pack_v(const float (&d)[V]) {
+  if constexpr (V == 1) {
+    return d[0];
+  } else if constexpr (V == 2) {
+    return make_float2(d[0], d[1]);
+  } else {
+    return make_float4(d[0], d[1], d[2], d[3]);
+  }
+}
+
+// fused_downdate's epilogue, in its order.
+__device__ __forceinline__ float downdate_f32(float t, float d, float pk,
+                                              float q, float i1, float i2) {
+  return ((t - d) - pk * q) * (i1 * i2);
+}
+
+// Block b computes tile t = b % n_tiles of fold f and split s, where
+// b / n_tiles = s F + f (tiles row-major, 128 x 128 each): with kSplit the
+// raw product of rows s per .. (s + 1) per of the fold into work[s][f],
+// else the whole fold's product through the epilogue into out[f]. V: floats
+// per copy, load and store (K and C multiples of V, operands aligned).
+template <int V, bool kSplit>
+__global__ void __launch_bounds__(kF32Threads, kF32BlocksPerSM)
+stream_f32_kernel(const F32Args p, int64_t n_ct, int64_t n_tiles) {
+  constexpr int BT = kF32Tile;
+  constexpr int BK = kF32Slab;
+  constexpr int kAPieces = BT / V;
+  constexpr int kPieces = 2 * kAPieces;
+  constexpr int kRowThreads = kF32Threads / BK;
+  constexpr int kThreadPieces = kPieces / kRowThreads;
+  static_assert(kF32Threads == 16 * 16 && BT == 2 * 4 * 16,
+                "16 x 16 threads, 8 x 8 outputs each");
+  static_assert(kF32Threads % BK == 0 && kPieces % kRowThreads == 0,
+                "whole rows a thread group");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* slabs = reinterpret_cast<float*>(smem);
+
+  const int64_t t = blockIdx.x % n_tiles;
+  const int64_t sf = blockIdx.x / n_tiles;
+  const int64_t f = sf % p.F;
+  const int64_t s = sf / p.F;
+  const int64_t k0 = (t / n_ct) * BT;
+  const int64_t c0 = (t % n_ct) * BT;
+  const int64_t L = p.L, K = p.K, C = p.C;
+  const int64_t l_begin = kSplit ? s * p.per : 0;
+  const int64_t l_end = kSplit ? (l_begin + p.per < L ? l_begin + p.per : L)
+                               : L;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  // Slab s: rows l_begin + 16 s .. +16, A = xv[f][row][k0 ..], B =
+  // m2[f][row][c0 ..], into buffer s % kF32Stages. Each thread copies
+  // pieces of one row.
+  const int li = tid / kRowThreads;
+  const int lp = tid % kRowThreads;
+  auto issue = [&](int si) {
+    float* sa = slabs + (si % kF32Stages) * kF32SlabFloats;
+    float* sb = sa + BK * BT;
+    const int64_t l = l_begin + static_cast<int64_t>(si) * BK + li;
+    const bool live_row = l < l_end;
+    const float* arow = p.xv + (f * L + l) * K;
+    const float* brow = p.m2 + (f * L + l) * C;
+#pragma unroll
+    for (int i = 0; i < kThreadPieces; ++i) {
+      const int pc = lp + i * kRowThreads;
+      const float* src = p.total;  // any valid address when not live
+      float* dst;
+      bool live;
+      if (pc < kAPieces) {
+        const int64_t col = k0 + pc * V;
+        live = live_row && col < K;
+        if (live) src = arow + col;
+        dst = sa + li * BT + pc * V;
+      } else {
+        const int64_t col = c0 + (pc - kAPieces) * V;
+        live = live_row && col < C;
+        if (live) src = brow + col;
+        dst = sb + li * BT + (pc - kAPieces) * V;
+      }
+      cp_async<V * 4>(dst, src, live);
+    }
+  };
+
+  const int64_t n_rows = l_end > l_begin ? l_end - l_begin : 0;
+  const int n_slabs = static_cast<int>((n_rows + BK - 1) / BK);
+#pragma unroll
+  for (int si = 0; si < kF32Stages - 1; ++si) {
+    if (si < n_slabs) issue(si);
+    cp_async_commit();
+  }
+  for (int si = 0; si < n_slabs; ++si) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();  // slab si landed; slab si - 1's buffer is free
+    if (si + kF32Stages - 1 < n_slabs) issue(si + kF32Stages - 1);
+    cp_async_commit();
+    const float* sa = slabs + (si % kF32Stages) * kF32SlabFloats;
+    const float* sb = sa + BK * BT;
+    const int64_t live = n_rows - static_cast<int64_t>(si) * BK;
+#pragma unroll
+    for (int r = 0; r < BK; ++r) {
+      if (r >= live) break;  // the last slab: rows past the end are zero
+      const float4 a0 = *reinterpret_cast<const float4*>(sa + r * BT + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(sa + r * BT + kF32Half + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(sb + r * BT + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(sb + r * BT + kF32Half + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the epilogue reuses the slab buffers
+
+  // Epilogue, one 64-row half of the tile at a time (thread rows ty * 4 +
+  // i, then 64 + ty * 4 + i): the accumulators to shared memory, then
+  // coalesced row pieces out. A thread keeps one column piece, so it reads
+  // that piece's q and i2 once.
+  float* so = slabs;
+  constexpr int kRowPieces = BT / V;
+  constexpr int kRowsPerPass = kF32Threads / kRowPieces;
+  static_assert(kF32Threads % kRowPieces == 0 &&
+                    kF32Half % kRowsPerPass == 0,
+                "whole rows a pass");
+  const int cc = (tid % kRowPieces) * V;
+  const int64_t c = c0 + cc;
+  const bool col_live = c < C;
+  const float* kv = p.kvec + 2 * K * f;
+  float q[V], i2[V];
+  if (!kSplit && col_live) {
+    ldg_v<V>(q, p.cvec + 2 * C * f + c);
+    ldg_v<V>(i2, p.cvec + 2 * C * f + C + c);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* d = so + (ty * 4 + i) * kF32OutLd + tx * 4;
+      const int ai = 4 * h + i;
+      *reinterpret_cast<float4*>(d) =
+          make_float4(acc[ai][0], acc[ai][1], acc[ai][2], acc[ai][3]);
+      *reinterpret_cast<float4*>(d + kF32Half) =
+          make_float4(acc[ai][4], acc[ai][5], acc[ai][6], acc[ai][7]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int it = 0; it < kF32Half / kRowsPerPass; ++it) {
+      const int r = tid / kRowPieces + it * kRowsPerPass;
+      const int64_t k = k0 + h * kF32Half + r;
+      if (!col_live || k >= K) continue;
+      float d[V];
+      load_v<V>(d, so + r * kF32OutLd + cc);
+      if constexpr (kSplit) {
+        // kept in L2 for split_reduce_f32_kernel
+        *reinterpret_cast<typename VecF<V>::type*>(
+            p.work + ((s * p.F + f) * K + k) * C + c) = pack_v<V>(d);
+      } else {
+        const float pk = __ldg(kv + k);
+        const float i1 = __ldg(kv + K + k);
+        float tt[V];
+        ldg_v<V>(tt, p.total + k * C + c);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          d[v] = downdate_f32(tt[v], d[v], pk, q[v], i1, i2[v]);
+        }
+        __stcs(reinterpret_cast<typename VecF<V>::type*>(
+                   p.out + (f * K + k) * C + c),
+               pack_v<V>(d));
+      }
+    }
+    __syncthreads();  // the next half overwrites the staged rows
+  }
+}
+
+// The split path's second kernel: out = the epilogue of the S partial
+// products, summed in split order, V floats a thread.
+template <int V>
+__global__ void split_reduce_f32_kernel(const F32Args p, int64_t splits) {
+  const int64_t K = p.K, C = p.C;
+  const int64_t fkc = p.F * K * C;
+  const int64_t n = fkc / V;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < n; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t o = e * V;
+    const int64_t c = o % C;
+    const int64_t k = (o / C) % K;
+    const int64_t f = o / (K * C);
+    float d[V], w[V], tt[V], q[V], i2[V];
+    load_v<V>(d, p.work + o);
+    for (int64_t s = 1; s < splits; ++s) {
+      load_v<V>(w, p.work + s * fkc + o);
+#pragma unroll
+      for (int v = 0; v < V; ++v) d[v] += w[v];
+    }
+    ldg_v<V>(tt, p.total + k * C + c);
+    ldg_v<V>(q, p.cvec + 2 * C * f + c);
+    ldg_v<V>(i2, p.cvec + 2 * C * f + C + c);
+    const float pk = __ldg(p.kvec + 2 * K * f + k);
+    const float i1 = __ldg(p.kvec + 2 * K * f + K + k);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      d[v] = downdate_f32(tt[v], d[v], pk, q[v], i1, i2[v]);
+    }
+    __stcs(reinterpret_cast<typename VecF<V>::type*>(p.out + o),
+           pack_v<V>(d));
   }
 }
 
@@ -757,65 +1106,129 @@ __global__ void smallfold_vectors_kernel(const SmallfoldArgs<T> p) {
   }
 }
 
-template <typename T, bool kGather, bool kRefForm, bool kSym = false>
+template <typename T, bool kGather, bool kRefForm>
 int launch_tile(const TileArgs<T>& a, int64_t F, int device, void* stream) {
   if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_ct = (a.C + kTile - 1) / kTile;
-  const int64_t n_kt = (a.K + kTile - 1) / kTile;
-  // kSym: tile rows ti < n_kt hold columns ti .. n_ct - 1 (C >= K).
-  const int64_t n_tiles =
-      kSym ? n_kt * n_ct - n_kt * (n_kt - 1) / 2 : n_ct * n_kt;
+  const int64_t n_tiles = n_ct * ((a.K + kTile - 1) / kTile);
   if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  fold_tile_kernel<T, kGather, kRefForm, kSym>
+  fold_tile_kernel<T, kGather, kRefForm>
       <<<static_cast<unsigned>(F * n_tiles), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(a, n_ct, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kVec, bool kMasked>
+template <bool kVec, bool kMasked, bool kSym>
 int launch_gather_mma_vm(const TileArgs<double>& a, int64_t F,
                          void* stream) {
   const int64_t n_ct = (a.C + kMmaTileN - 1) / kMmaTileN;
-  const int64_t n_tiles = n_ct * ((a.K + kMmaTileM - 1) / kMmaTileM);
+  const int64_t n_kt = (a.K + kMmaTileM - 1) / kMmaTileM;
+  // kSym: tile rows ti < n_kt hold columns ti .. n_ct - 1 (C >= K).
+  const int64_t n_tiles =
+      kSym ? n_kt * n_ct - n_kt * (n_kt - 1) / 2 : n_ct * n_kt;
   if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      gather_mma_kernel<kVec, kMasked>,
+      gather_mma_kernel<kVec, kMasked, kSym>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMmaSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather_mma_kernel<kVec, kMasked>
+  gather_mma_kernel<kVec, kMasked, kSym>
       <<<static_cast<unsigned>(F * n_tiles), kMmaThreads, kMmaSmemBytes,
          static_cast<cudaStream_t>(stream)>>>(a, n_ct, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
-// The tensor-core tile for a gathered reference-form batch.
+// The tensor-core tile for a gathered reference-form batch (kSym: the
+// symmetric v3 tiles, C >= K).
+template <bool kSym>
 int launch_gather_mma(const TileArgs<double>& a, int64_t F, int device,
                       void* stream) {
   if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
+  if (kSym && a.C < a.K) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = a.K % 2 == 0 && a.M % 2 == 0 && aligned16(a.total) &&
-                   aligned16(a.a) && aligned16(a.b) && aligned16(a.yb) &&
-                   aligned16(a.kvec) && aligned16(a.cvec) && aligned16(a.out);
+  const bool vec = a.K % 2 == 0 && a.M % 2 == 0 && aligned(a.total, 16) &&
+                   aligned(a.a, 16) && aligned(a.b, 16) &&
+                   aligned(a.yb, 16) && aligned(a.kvec, 16) &&
+                   aligned(a.cvec, 16) && aligned(a.out, 16);
   if (vec) {
-    return a.mask ? launch_gather_mma_vm<true, true>(a, F, stream)
-                  : launch_gather_mma_vm<true, false>(a, F, stream);
+    return a.mask ? launch_gather_mma_vm<true, true, kSym>(a, F, stream)
+                  : launch_gather_mma_vm<true, false, kSym>(a, F, stream);
   }
-  return a.mask ? launch_gather_mma_vm<false, true>(a, F, stream)
-                : launch_gather_mma_vm<false, false>(a, F, stream);
+  return a.mask ? launch_gather_mma_vm<false, true, kSym>(a, F, stream)
+                : launch_gather_mma_vm<false, false, kSym>(a, F, stream);
+}
+
+template <int V>
+int launch_stream_f32_v(F32Args a, int64_t splits, cudaStream_t stream) {
+  const int64_t n_ct = (a.C + kF32Tile - 1) / kF32Tile;
+  const int64_t n_tiles = n_ct * ((a.K + kF32Tile - 1) / kF32Tile);
+  if (splits * a.F * n_tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>(splits * a.F * n_tiles);
+  const int smem = static_cast<int>(kF32SmemBytes);
+  if (splits == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stream_f32_kernel<V, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stream_f32_kernel<V, false>
+        <<<blocks, kF32Threads, smem, stream>>>(a, n_ct, n_tiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // Rows a split takes: whole slabs, the last split the rest.
+  const int64_t per = (a.L + splits - 1) / splits;
+  a.per = (per + kF32Slab - 1) / kF32Slab * kF32Slab;
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_f32_kernel<V, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_f32_kernel<V, true>
+      <<<blocks, kF32Threads, smem, stream>>>(a, n_ct, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n = a.F * a.K * a.C / V;
+  const int64_t grid = (n + 255) / 256 < 65536 ? (n + 255) / 256 : 65536;
+  split_reduce_f32_kernel<V>
+      <<<static_cast<unsigned>(grid), 256, 0, stream>>>(a, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 stream tile, in S = splits blocks a fold (work (S, F, K, C)
+// when S > 1).
+int launch_stream_f32(const F32Args& a, int64_t splits, int device,
+                      void* stream) {
+  if (a.F <= 0 || a.K <= 0 || a.C <= 0) return 0;
+  if (splits < 1 || (splits > 1 && !a.work)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto fits = [&](int v) {
+    const int bytes = 4 * v;
+    return a.K % v == 0 && a.C % v == 0 && aligned(a.total, bytes) &&
+           aligned(a.xv, bytes) && aligned(a.m2, bytes) &&
+           aligned(a.cvec, bytes) && aligned(a.out, bytes) &&
+           aligned(a.work, bytes);
+  };
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (fits(4)) return launch_stream_f32_v<4>(a, splits, st);
+  if (fits(2)) return launch_stream_f32_v<2>(a, splits, st);
+  return launch_stream_f32_v<1>(a, splits, st);
 }
 
 }  // namespace
 
 // Factor-form downdate of the prepared streams (port of
-// fused_downdate_df64_packed). All pointers are device pointers.
+// fused_downdate_df64_packed), on the CUDA-core tile: L = 4 at P = 25,000,
+// bound by its stores. All pointers are device pointers.
 extern "C" int cvm_fold_packed_f64(
     const double* total, const double* u, const double* v,
     const double* kvec, const double* cvec, double* out, int64_t F,
@@ -825,7 +1238,8 @@ extern "C" int cvm_fold_packed_f64(
   return launch_tile<double, false, false>(a, F, device, stream);
 }
 
-// The same factor form in float32 (port of fused_downdate_f32_packed).
+// The same factor form in float32 (port of fused_downdate_f32_packed), on
+// the CUDA-core tile in float32, likewise bound by its stores.
 extern "C" int cvm_fold_packed_f32(
     const float* total, const float* u, const float* v, const float* kvec,
     const float* cvec, float* out, int64_t F, int64_t L, int64_t K,
@@ -837,20 +1251,24 @@ extern "C" int cvm_fold_packed_f32(
 
 // Reference-form downdate of the contiguous streams xv (F, L, K) and
 // m2 (F, L, C) in float32 (port of fused_downdate); kvec = [a1, inv1],
-// cvec = [mb, inv2].
+// cvec = [mb, inv2]. Runs the float32 stream tile, FLOP-bound on FP32 FMA
+// (folds of at least 32 rows): 8 x 8 outputs a thread from float4 shared
+// loads and cp.async slabs. With splits > 1 each fold's rows are shared by
+// that many blocks, whose partial products go to work (splits, F, K, C)
+// and are summed by a second kernel; work may be null when splits is 1.
 extern "C" int cvm_fold_downdate_f32(
     const float* total, const float* xv, const float* m2, const float* kvec,
-    const float* cvec, float* out, int64_t F, int64_t L, int64_t K,
-    int64_t C, int device, void* stream) {
-  TileArgs<float> a{total, xv, m2, nullptr, nullptr, nullptr, kvec, cvec,
-                    out, L, K, C, 0, 0};
-  return launch_tile<float, false, true>(a, F, device, stream);
+    const float* cvec, float* out, float* work, int64_t F, int64_t L,
+    int64_t K, int64_t C, int64_t splits, int device, void* stream) {
+  F32Args a{total, xv, m2, kvec, cvec, out, work, F, L, K, C, L};
+  return launch_stream_f32(a, splits, device, stream);
 }
 
 // Gathered product + reference-form epilogue (port of
-// fused_ozaki_downdate_df64), on the tensor-core tile. The product's right
-// side is [xu | yu] with KX (K or 0) X columns and M Y columns; xu may be
-// null when KX is 0, yu when M is 0; mask may be null.
+// fused_ozaki_downdate_df64), on the tensor-core tile: FLOP-bound at
+// L = 1,000. The product's right side is [xu | yu] with KX (K or 0) X
+// columns and M Y columns; xu may be null when KX is 0, yu when M is 0;
+// mask may be null.
 extern "C" int cvm_fold_ozaki_df64_f64(
     const double* total, const double* xw, const double* xu,
     const double* yu, const int64_t* rows, const double* mask,
@@ -858,14 +1276,15 @@ extern "C" int cvm_fold_ozaki_df64_f64(
     int64_t L, int64_t K, int64_t KX, int64_t M, int device, void* stream) {
   TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
                      L, K, KX + M, KX, M};
-  return launch_gather_mma(a, F, device, stream);
+  return launch_gather_mma<false>(a, F, device, stream);
 }
 
 // v3 (port of fused_ozaki_downdate_v3, and with sym != 0 of
 // fused_ozaki_downdate_v3_sym): the vector phase into the caller's kvec
-// (F, 2, K) and cvec (F, 2, K + M) scratch, then the gathered tile phase:
-// the tensor-core tile, or with sym the CUDA-core tile's symmetric mode.
-// yu may be null when M is 0, mask may be null.
+// (F, 2, K) and cvec (F, 2, K + M) scratch, then the tensor-core tile, all
+// tiles or with sym the upper ones and the X block's mirror. FLOP-bound at
+// L = 100 (P = 1,000), store-bound at L = 10 (P = 10,000). yu may be null
+// when M is 0, mask may be null.
 extern "C" int cvm_fold_v3_f64(
     const double* total, const double* xw, const double* xu,
     const double* yu, const int64_t* rows, const double* mask,
@@ -885,8 +1304,8 @@ extern "C" int cvm_fold_v3_f64(
   if (err != cudaSuccess) return static_cast<int>(err);
   TileArgs<double> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
                      L, K, C, K, M};
-  if (sym) return launch_tile<double, true, true, true>(a, F, device, stream);
-  return launch_gather_mma(a, F, device, stream);
+  return sym ? launch_gather_mma<true>(a, F, device, stream)
+             : launch_gather_mma<false>(a, F, device, stream);
 }
 
 namespace {
@@ -915,8 +1334,9 @@ int smallfold(const T* total, const T* xw, const T* xu, const T* yu,
 
 // Masked multi-row LOOCV sources (port of fused_smallfold_df64): the
 // small-fold vector phase into the caller's kvec (F, 2, K) and cvec
-// (F, 2, K + M) scratch, then the gathered reference-form tile phase. yu, yw
-// and gy may be null when M is 0, mask may be null.
+// (F, 2, K + M) scratch, then the CUDA-core tile's gathered reference form,
+// bound by its stores at L = 4. yu, yw and gy may be null when M is 0, mask
+// may be null.
 extern "C" int cvm_fold_smallfold_f64(
     const double* total, const double* xw, const double* xu,
     const double* yu, const double* yw, const int64_t* rows,

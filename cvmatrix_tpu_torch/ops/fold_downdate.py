@@ -31,7 +31,8 @@ rows, the product ``D = Xv_w^T [Xv_u | Yv_u]`` and then one epilogue:
   :func:`fold_ozaki_df64` takes ``kvec``/``cvec`` precomputed.
   ``fold_v3(..., sym=True)`` ports ``fused_ozaki_downdate_v3_sym``: the
   X block's upper triangle computed, its strictly lower triangle the
-  mirror (twin :func:`v3_sym_reference`).
+  mirror (twin :func:`v3_sym_reference`). All three run the float64 tile
+  on the FP64 tensor cores.
 - :func:`fold_smallfold` ports ``fused_smallfold_df64``, the masked
   multi-row LOOCV kernel, on the LOOCV sources in either dtype: the same
   reference form after a vector phase that derives both sides' vectors
@@ -89,6 +90,7 @@ __all__ = [
     "fold_v3",
     "fold_smallfold",
     "fold_epilogue",
+    "downdate_f32_splits",
     "device_rows",
     "launch_counts",
     "reset_launch_counts",
@@ -309,9 +311,9 @@ def _run(name: str, fn, *args, device) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
-def _streams(name, fn_name, total, a, b, kvec, cvec, out, dtype):
-    """Check the (F, L, K) and (F, L, C) stream operands of a tile kernel,
-    then launch ``fn_name`` -> (F, K, C)."""
+def _streams(name, total, a, b, kvec, cvec, out, dtype):
+    """Check the (F, L, K) and (F, L, C) stream operands of a tile kernel
+    -> the (F, K, C) output and ``(F, L, K, C)``."""
     device = a.device
     f_folds, n_l, k = a.shape
     c = total.shape[1]
@@ -320,11 +322,44 @@ def _streams(name, fn_name, total, a, b, kvec, cvec, out, dtype):
     _shape(f"{name} streams", b, (f_folds, n_l, c))
     _shape(f"{name} kvec", kvec, (f_folds, 2, k))
     _shape(f"{name} cvec", cvec, (f_folds, 2, c))
-    out = _out(name, out, (f_folds, k, c), device, dtype)
-    fn = _fn("fold_downdate", fn_name, 6, 4)
-    _run(name, fn, _ptr(total), _ptr(a), _ptr(b), _ptr(kvec), _ptr(cvec),
-         _ptr(out), f_folds, n_l, k, c, device=device)
-    return out
+    return _out(name, out, (f_folds, k, c), device, dtype), (f_folds, n_l, k,
+                                                              c)
+
+
+# The float32 stream tile of ``cvm_fold_downdate_f32``: its output tile
+# edge and the blocks an SM holds (constants of csrc/fold_downdate.cu), and
+# the split rule's limits: at most 8 blocks share a fold's rows, each at
+# least 512 of them.
+_F32_TILE = 128
+_F32_BLOCKS_PER_SM = 2
+_F32_MAX_SPLITS = 8
+_F32_MIN_SPLIT_ROWS = 512
+
+
+def downdate_f32_splits(f_folds: int, k: int, c: int, n_l: int,
+                        n_sm: int) -> int:
+    """How many blocks share each fold's L rows in ``fold_downdate_f32``'s
+    kernel (1: no split).
+
+    A batch whose 128 x 128 tiles fill two waves of the card (2 blocks an
+    SM) or more is not split. Otherwise S in 1 .. 8 is the one that
+    minimises the rows the busiest SM multiplies, ``ceil(tiles S / SMs)
+    ceil(L / S)`` (the smallest S on ties), among splits of at least 512
+    rows. At K=500, C=510 on 132 SMs: three folds of 33,334 rows (P=3) give
+    8; 500 folds of 100 rows (P=1,000) give 1.
+    """
+    tiles = f_folds * -(-k // _F32_TILE) * -(-c // _F32_TILE)
+    if tiles >= 2 * n_sm * _F32_BLOCKS_PER_SM:
+        return 1
+    best, best_rows = 1, -(-tiles // n_sm) * n_l
+    for s in range(2, _F32_MAX_SPLITS + 1):
+        per = -(-n_l // s)
+        if per < _F32_MIN_SPLIT_ROWS:
+            break
+        rows = -(-tiles * s // n_sm) * per
+        if rows < best_rows:
+            best, best_rows = s, rows
+    return best
 
 
 def fold_packed(total, u, v, kvec, cvec, *, impl: str = "auto",
@@ -334,13 +369,16 @@ def fold_packed(total, u, v, kvec, cvec, *, impl: str = "auto",
     if not _use_kernel("fold_packed", impl, u.device):
         res = packed_reference(total, u, v, kvec, cvec)
         return res if out is None else out.copy_(res)
-    if u.dtype == torch.float32:
-        out = _streams("fold_packed", "cvm_fold_packed_f32", total, u, v,
-                       kvec, cvec, out, torch.float32)
+    f32 = u.dtype == torch.float32
+    out, dims = _streams("fold_packed", total, u, v, kvec, cvec, out,
+                         torch.float32 if f32 else torch.float64)
+    fn = _fn("fold_downdate",
+             "cvm_fold_packed_f32" if f32 else "cvm_fold_packed_f64", 6, 4)
+    _run("fold_packed", fn, _ptr(total), _ptr(u), _ptr(v), _ptr(kvec),
+         _ptr(cvec), _ptr(out), *dims, device=u.device)
+    if f32:
         fold_packed.launches_f32 += 1
     else:
-        out = _streams("fold_packed", "cvm_fold_packed_f64", total, u, v,
-                       kvec, cvec, out, torch.float64)
         fold_packed.launches += 1
     return out
 
@@ -348,12 +386,27 @@ def fold_packed(total, u, v, kvec, cvec, *, impl: str = "auto",
 def fold_downdate_f32(total, xv, m2, kvec, cvec, *, impl: str = "auto",
                       out=None) -> torch.Tensor:
     """``fused_downdate``'s reference-form downdate of the float32 streams
-    ``xv`` (F, L, K) and ``m2`` (F, L, C) -> (F, K, C) float32."""
+    ``xv`` (F, L, K) and ``m2`` (F, L, C) -> (F, K, C) float32.
+
+    On the card, a batch of few large folds shares each fold's rows among
+    :func:`downdate_f32_splits` blocks, whose partial products go to an
+    (S, F, K, C) workspace that a second kernel sums in a fixed order; the
+    call still counts one launch."""
     if not _use_kernel("fold_downdate_f32", impl, xv.device):
         res = downdate_f32_reference(total, xv, m2, kvec, cvec)
         return res if out is None else out.copy_(res)
-    out = _streams("fold_downdate_f32", "cvm_fold_downdate_f32", total, xv,
-                   m2, kvec, cvec, out, torch.float32)
+    device = xv.device
+    out, (f_folds, n_l, k, c) = _streams("fold_downdate_f32", total, xv, m2,
+                                         kvec, cvec, out, torch.float32)
+    splits = downdate_f32_splits(
+        f_folds, k, c, n_l,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    work = (torch.empty((splits, f_folds, k, c), dtype=torch.float32,
+                        device=device) if splits > 1 else None)
+    fn = _fn("fold_downdate", "cvm_fold_downdate_f32", 7, 5)
+    _run("fold_downdate_f32", fn, _ptr(total), _ptr(xv), _ptr(m2),
+         _ptr(kvec), _ptr(cvec), _ptr(out), _ptr(work), f_folds, n_l, k, c,
+         splits, device=device)
     fold_downdate_f32.launches += 1
     return out
 

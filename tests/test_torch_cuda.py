@@ -578,6 +578,87 @@ def test_tensor_core_tile_matches_twins(dev, flags, weighted):
                                                           n_l, mask is None)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k,m", [(130, 3), (37, 0), (40, 6)])
+def test_sym_v3_tensor_core_tile(dev, k, m, masked):
+    """fold_v3(sym=True) on the tensor-core tile: one launch of its counter,
+    the X block exactly symmetric, the upper triangle and the XTY columns
+    bit-equal to the full tile's, within 1e-12 of the twin's largest entry;
+    ragged K (8-byte copies at K=130, M=3 and K=37, M=0; 16-byte ones at
+    K=40, M=6, where pairs straddle the diagonal), L from 1 to 103."""
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(N_TILE, k)) * 2 + 0.5
+    Y = rng.normal(size=(N_TILE, m)) if m else None
+    w = rng.random(N_TILE)
+    for flags in ((True,) * 4, (False,) * 4, (True, False, False, True)):
+        cfg = T.CVConfig(*flags)
+        st = T.fit(cfg, X, Y, w, device=dev)
+        for n_l in (1, 10, 40, 103):
+            idx = np.stack([rng.choice(N_TILE, n_l, replace=False)
+                            for _ in range(3)])
+            mask = None
+            if masked:
+                mask = np.ones(idx.shape)
+                mask[::2, -max(1, n_l // 10):] = 0.0
+            src = TB.prepare_ozaki_sources(cfg, st, idx, mask,
+                                           return_XTY=m > 0)
+            args = (src.total, src.xw, src.xu, src.yu, src.rows, src.mask,
+                    src.gx, src.sxv, src.yvec, src.scal)
+            kw = dict(center_xtx=cfg.center_X,
+                      center_xty=cfg.center_X or cfg.center_Y,
+                      scale_x=cfg.scale_X, scale_y=cfg.scale_Y, with_y=m > 0,
+                      resolution=cfg.resolution)
+            before = TFD.launch_counts()
+            got = TFD.fold_v3(*args, **kw, sym=True)
+            after = TFD.launch_counts()
+            assert {n: after[n] - before[n] for n in after
+                    if after[n] != before[n]} == {"fold_v3_sym": 1}
+            full = TFD.fold_v3(*args, **kw)
+            ref = TFD.fold_v3(*args, **kw, sym=True, impl="torch")
+            torch.cuda.synchronize()
+            x = got[:, :, :k]
+            assert torch.equal(x, x.mT)
+            iu = torch.triu_indices(k, k, device=dev)
+            assert torch.equal(got[:, iu[0], iu[1]], full[:, iu[0], iu[1]])
+            assert torch.equal(got[:, :, k:], full[:, :, k:])
+            assert (got - ref).abs().max().item() <= (
+                1e-12 * ref.abs().max().item()), (flags, n_l)
+
+
+# (folds, rows, K, C): split across blocks, and not
+F32_TILE_CASES = [(3, 33_334, 500, 510), (1, 4_000, 130, 133),
+                  (2, 2_000, 48, 52), (8, 100, 130, 133), (6, 32, 500, 510),
+                  (5, 77, 37, 43)]
+
+
+@pytest.mark.parametrize("f,n_l,k,c", F32_TILE_CASES)
+def test_downdate_f32_stream_tile(dev, f, n_l, k, c):
+    """fold_downdate_f32 on the float32 stream tile, split and unsplit as
+    downdate_f32_splits says, masked rows and not: within 1e-4 of the
+    twin's largest entry, one launch a call, the same bits from a second
+    call."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = TFD.downdate_f32_splits(f, k, c, n_l, n_sm)
+    assert (splits > 1) == (n_l >= 2_000), splits
+    rng = np.random.default_rng(22)
+    ops = [torch.from_numpy(rng.random(s, dtype=np.float32)).to(dev)
+           for s in ((k, c), (f, n_l, k), (f, n_l, c), (f, 2, k), (f, 2, c))]
+    ops[0] *= n_l
+    for masked in (False, True):
+        if masked:
+            ops[1][::2, -max(1, n_l // 10):] = 0.0
+        got = []
+        for _ in range(2):
+            before = TFD.fold_downdate_f32.launches
+            got.append(TFD.fold_downdate_f32(*ops))
+            assert TFD.fold_downdate_f32.launches == before + 1
+        ref = TFD.fold_downdate_f32(*ops, impl="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1])
+        assert (got[0] - ref).abs().max().item() <= (
+            1e-4 * ref.abs().max().item())
+
+
 # ---- fold rows and masks on the card ------------------------------------- #
 
 

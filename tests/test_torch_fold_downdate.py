@@ -346,6 +346,56 @@ def test_wrapper_argument_errors():
         TB.training_matrices_batched(cfg, st, IDX_LARGE, impl="xla")
 
 
+# ---- the float32 stream tile's split rule (fold_downdate_f32) ----------- #
+
+
+def _busiest_sm_rows(f, k, c, n_l, n_sm, s):
+    tiles = f * -(-k // 128) * -(-c // 128)
+    return -(-tiles * s // n_sm) * -(-n_l // s)
+
+
+@pytest.mark.parametrize("f,k,c,n_l,n_sm,expect", [
+    (3, 500, 510, 33_334, 132, 8),    # P=3 at K=500, M=10
+    (2, 500, 510, 33_334, 132, 4),    # ties go to the smaller split
+    (1, 500, 510, 33_334, 132, 8),
+    (500, 500, 510, 100, 132, 1),     # P=1,000: many folds
+    (33, 500, 510, 33_334, 132, 1),   # 528 tiles: two waves of 132 SMs
+    (32, 500, 510, 33_334, 132, 1),   # 512 tiles: no split does better
+    (20, 500, 510, 33_334, 132, 7),
+    (1, 500, 510, 100, 132, 1),       # rows too few to split
+    (1, 500, 510, 1_100, 132, 2),     # 550 rows a split at S=2, not at 3
+    (3, 500, 510, 33_334, 114, 7),    # another SM count, another split
+    (1, 37, 43, 5_000, 132, 8),
+])
+def test_downdate_f32_splits_rule(f, k, c, n_l, n_sm, expect):
+    """The split count is a function of (F, K, C, L, SMs): none from two
+    waves of 128 x 128 tiles up (2 blocks an SM), else the S in 1 .. 8
+    with at least 512 rows a split that minimises the rows the busiest SM
+    multiplies, the smallest on ties."""
+    got = TFD.downdate_f32_splits(f, k, c, n_l, n_sm)
+    assert got == expect
+    tiles = f * -(-k // 128) * -(-c // 128)
+    if tiles >= 4 * n_sm:
+        assert got == 1
+        return
+    allowed = [s for s in range(1, 9) if s == 1 or -(-n_l // s) >= 512]
+    costs = {s: _busiest_sm_rows(f, k, c, n_l, n_sm, s) for s in allowed}
+    assert got == min(allowed, key=lambda s: (costs[s], s))
+
+
+def test_downdate_f32_cpu_wrapper_runs_the_twin():
+    """On CPU tensors fold_downdate_f32 runs its twin (no split, no card
+    query) and counts no launch, writing ``out`` where given."""
+    rng = np.random.default_rng(23)
+    ops = [torch.from_numpy(rng.random(s, dtype=np.float32))
+           for s in ((6, 9), (2, 40, 6), (2, 40, 9), (2, 2, 6), (2, 2, 9))]
+    before = TFD.launch_counts()
+    buf = torch.empty((2, 6, 9))
+    got = TFD.fold_downdate_f32(*ops, out=buf)
+    assert got is buf and TFD.launch_counts() == before
+    assert torch.equal(buf, TFD.downdate_f32_reference(*ops))
+
+
 # ---- the symmetric v3 kernel's twin (fused_ozaki_downdate_v3_sym) -------- #
 
 NS, KS, MS = 300, 130, 3  # kp = cp = 256: two 128-tiles a side in JAX
