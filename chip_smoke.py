@@ -33,13 +33,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    L = 1, 3, 10, 17, 100 and 1,003, K=37 with M=0, XTY alone (no v3), one
    fold, masked and unmasked, for TTTT and FFFF, weighted and not, at the
    same bound, one launch each; the symmetric X blocks exactly symmetric
-   and their upper entries the full tile's bit for bit.
+   and their upper entries the full tile's bit for bit. Then the row-stream
+   tile (``fold_packed`` and ``fold_smallfold``) at its edges: L = 1, 2, 3,
+   4, 9, 17 and 31; [XTX | XTY] at K=37, M=3 and K=500, M=10, XTX alone
+   at K=37, XTY alone (packed); one fold and 67; masked and not; operands
+   and out as fold-offset views of a larger batch and not; one launch a
+   call, a second call bit-equal, at the same bound.
    Then the first full-width chunk of each phase 7 sweep (P=25,000,
    10,000, 1,000, 100, 10 and the masked P=3 at N=100,000) through the
    kernel and through the twin, held at the same bound, and each route's
    chunk timed through both, the product chunks with their TFLOP/s and
-   ``torch.bmm`` of the same gathered blocks (of the u, v streams for
-   the packed chunk) in the same run.
+   ``torch.bmm`` of the same gathered blocks in the same run; the packed
+   chunk, bound by its stores, in turns with ``torch.bmm`` of its u, v
+   streams and a pure write of its output bytes (``fill_``), the store
+   rate the card reaches, logged as a ceiling beside the 3.35 TB/s bound.
 7. K-fold path at full width: the configuration of phase 4 through
    ``materialize_cv`` over ``Partitioner(np.arange(N) % P)`` for P =
    25,000, 10,000, 1,000, 100, 10 and 3 (the last masked), once to warm
@@ -61,7 +68,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    L=32 and 100 (unsplit), K=37 with C=43 and K=48 with C=52, unmasked
    and masked, at the same bound, one launch a call, a second call
    bit-equal; the kernel and the twin each also read against the same
-   formula in float64.
+   formula in float64. Then the row-stream tile's edges of phase 6 in
+   float32 at 1e-4.
 10. Float32 LOOCV main path: phase 4's configuration and data cast to
     float32, all 100,000 folds through ``materialize_cv``, warm-up and
     timed, one ``fused_loocv_f32`` launch per chunk and no other kernel;
@@ -71,8 +79,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
     packed f32), 1,000 (L=100) and 3 (L=33,334, masked; both
     ``fused_downdate``): warm-up and timed totals with the launch counts,
     each P's first chunk against its twin and timed through both, with
-    its split count, TFLOP/s, bound and ``torch.bmm`` of its blocks or
-    streams, each probe fold against the oracle at 1e-3 max|oracle|.
+    its split count, TFLOP/s, bound and ``torch.bmm`` of its blocks (the
+    packed chunk in turns with ``torch.bmm`` of its streams and a pure
+    write, as in phase 6), each probe fold against the oracle at 1e-3
+    max|oracle|.
 12. TF32: the float32 fit under ``torch.set_float32_matmul_precision(
     "high")`` is bit for bit the fit under "highest" (a bare float32
     product under "high" is not).
@@ -106,8 +116,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
     of the twin's largest entry, one launch of the dtype's kernel each.
     Then at full width on phase 4's data: the first 962-fold chunk of
     P=25,000 through the kernel (``smallfold_from_sources`` on the rows the
-    sources checked, so no sync), its twin and the packed kernel,
-    all three within 1e-12 and timed in turns; fit +
+    sources checked, so no sync), its twin and the packed kernel, all three
+    within 1e-12, timed in turns with ``torch.bmm`` of the gathered blocks
+    and a pure write of the output, as in phase 6, and the same chunk
+    through the float32 instance on phase 10's data; for each, the vector
+    phase's share of the device time under ``torch.profiler``; fit +
     ``prepare_loocv_sources`` + ``smallfold_from_sources`` over all folds
     of P=25,000 (L=4) and of the masked P=30,000 (10,000 folds of 4 rows,
     20,000 of 3) in ``materialize_cv``'s chunks, warm-up and timed beside the
@@ -147,8 +160,10 @@ ORACLE_RTOL = 1e-10
 KFOLD_P = ((25_000, "fold_packed"), (10_000, "fold_v3"), (1_000, "fold_v3"),
            (100, "fold_ozaki_df64"), (10, "fold_epilogue"),
            (3, "fold_epilogue"))
-# Fold sizes at which phase 6 holds the tensor-core tile against its twins.
+# Fold sizes at which phase 6 holds the tensor-core tile against its twins,
+# and phases 6 and 9 the row-stream tile (the packed and small-fold routes).
 TILE_EDGE_L = (1, 3, 10, 17, 100, 1003)
+ROW_EDGE_L = (1, 2, 3, 4, 9, 17, 31)
 ROUTE_WRAPPER = {"packed": "fold_packed", "v3": "fold_v3",
                  "ozaki_df64": "fold_ozaki_df64", "epilogue": "fold_epilogue"}
 KERNEL_SOURCES = {
@@ -655,6 +670,99 @@ def main() -> int:
         f"symmetric v3 exactly symmetric, its upper entries the full "
         f"tile's bit for bit): worst relative {edge_err}")
 
+    def rowstream_edges(dtype):
+        """The row-stream tile through ``fold_packed`` (the route's own
+        operands) and ``fold_smallfold`` at its edges: L in ROW_EDGE_L;
+        [XTX | XTY] at K=37, M=3 and K=500, M=10, XTX alone at K=37 and
+        XTY alone (C=3, packed); one fold and 67; masked (padded slots at
+        index 0) and not; operands, rows and out as fold-offset views of a
+        larger batch (narrower stores) and not. One launch a call, a second
+        call bit-equal, 1e-12 (float64) or 1e-4 (float32) of the twin's
+        largest entry; logs the worst relative error of each kernel."""
+        f64 = dtype == np.float64
+        rtol = TWIN_RTOL if f64 else F32_TWIN_RTOL
+        sfx = "" if f64 else "_f32"
+        worst = {"fold_packed" + sfx: 0.0, "fold_smallfold" + sfx: 0.0}
+        for name in worst:
+            fold_err.setdefault(name, 0.0)
+            fold_rel.setdefault(name, 0.0)
+        cfg_e = CVConfig(True, True, True, True, ddof=1, dtype=dtype)
+        rng_e = np.random.default_rng(SEED + 6)
+
+        def check(name, label, run):
+            got = []
+            for _ in range(2):
+                before = launch_counts(FD, TL, SR)
+                got.append(run("cuda").clone())
+                after = launch_counts(FD, TL, SR)
+                moved = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+                if moved != {name: 1}:
+                    raise AssertionError(f"{label}: launched {moved}")
+            ref = run("torch")
+            torch.cuda.synchronize()
+            if not torch.equal(*got):
+                raise AssertionError(f"{label}: a second call differs")
+            err = (got[0] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= rtol * scale:
+                raise AssertionError(f"{label}: {name} kernel vs twin "
+                                     f"max|diff| {err:.3e} > {rtol:g} * "
+                                     f"{scale:.3e}")
+            fold_err[name] = max(fold_err[name], err)
+            fold_rel[name] = max(fold_rel[name], err / scale)
+            worst[name] = max(worst[name], err / scale)
+
+        cases = 0
+        for k_e, m_e in ((37, 3), (37, 0), (K, M)):
+            st_e = fit(cfg_e, Xs[:, :k_e].astype(dtype),
+                       Ys[:, :m_e].astype(dtype) if m_e else None,
+                       ws.astype(dtype), device=dev)
+            sides = ((True, True), (False, True)) if m_e else ((True, False),)
+            if k_e == K:
+                sides = sides[:1]
+            for n_l, f_e, masked, view in itertools.product(
+                    ROW_EDGE_L, (1, 67), (False, True), (0, 1)):
+                idx = rng_e.integers(0, n_small, (f_e + view, n_l))
+                mask = None
+                if masked:
+                    mask = np.ones(idx.shape)
+                    mask[::2, -max(1, n_l // 3):] = 0.0
+                    idx[mask == 0] = 0  # padded slots
+                label = (f"row-stream {dtype.__name__} K={k_e}, M={m_e}, "
+                         f"L={n_l}, F={f_e}, masked={masked}, view={view}")
+                for xtx, xty in sides:
+                    ops_e = TB.slice_operands(TB.prepare_fold_operands(
+                        cfg_e, st_e, idx, mask, return_XTX=xtx,
+                        return_XTY=xty)[0], view, f_e)
+                    out_e = torch.empty(
+                        (f_e + view, k_e, ops_e.total.shape[1]),
+                        dtype=st_e.X.dtype, device=dev)
+                    check("fold_packed" + sfx, f"{label}, xtx={xtx}",
+                          lambda impl: TB.downdate_from_operands(
+                              ops_e, impl=impl,
+                              out=out_e[view:] if impl == "cuda" else None))
+                    cases += 1
+                src_e = prepare_loocv_sources(cfg_e, st_e, idx, mask,
+                                              return_XTY=m_e > 0)
+                out_e = torch.empty((f_e + view, k_e, k_e + m_e),
+                                    dtype=st_e.X.dtype, device=dev)
+                check("fold_smallfold" + sfx, label,
+                      lambda impl: TB.smallfold_from_sources(
+                          cfg_e, src_e, src_e.rows[view:], src_e.scal[view:],
+                          None if mask is None else src_e.mask[view:],
+                          n_l=n_l, return_XTY=m_e > 0, has_mask=masked,
+                          impl=impl,
+                          out=out_e[view:] if impl == "cuda" else None))
+                cases += 1
+        log(f"[row-edges] {cases} cases of the row-stream tile in "
+            f"{dtype.__name__} (N={n_small}; L={list(ROW_EDGE_L)}; K=37 with "
+            f"M=3 and M=0, XTY alone, K={K}, M={M}; F=1 and 67; masked and "
+            f"not; fold-offset views and not): worst relative {worst}, a "
+            f"second call bit-equal, one launch a call")
+
+    rowstream_edges(np.float64)
+
     def chunk_idx(p):
         _, idx, mask = Partitioner(np.arange(N) % p).padded_batches()
         bs_p, n_chunks_p = chunking(p, K, K + M)
@@ -690,6 +798,36 @@ def main() -> int:
             f"{gb / min(ms['cuda']) * 1e3:.1f} GB/s{rate}  [{card}]")
         return min(ms["cuda"]), min(ms["torch"])
 
+    def time_turns(label, fns, reps, tag="policy-chunk"):
+        """CUDA-event ms of each of ``fns`` ({name: fn}), in turns, there
+        and back; the best of the two."""
+        order = list(fns) + list(fns)[::-1]
+        ms = {n: [] for n in fns}
+        for n in order:
+            ms[n].append(cuda_ms(fns[n], reps[n]))
+        log(f"[{tag}] {label}: " + ", ".join(
+            f"{n} {ms[n]} ms" for n in fns) + f" (order {order})  [{card}]")
+        return {n: min(v) for n, v in ms.items()}
+
+    def store_chunk(label, fns, buf, cost):
+        """A store-bound chunk (``fns``: "plain", "kernel", "torch.bmm" and
+        any others) timed in turns beside a pure write of its output bytes
+        (``buf.fill_``): the store rate this card reaches, logged as a
+        ceiling beside the bound at 3.35 TB/s, never in its place."""
+        with highest_precision():  # torch.bmm in full float32
+            ms = time_turns(label, {**fns, "fill_": lambda: buf.fill_(1.0)},
+                            {n: 3 if n == "plain" else 10
+                             for n in (*fns, "fill_")}, tag="store-chunk")
+        gb = buf.numel() * buf.element_size() / 1e9
+        b = bound(*cost)
+        log(f"[store-chunk] {label}: kernel {ms['kernel']:.4f} ms "
+            f"({gb / ms['kernel']:.2f} TB/s of stores), torch.bmm "
+            f"{ms['torch.bmm']:.4f} ms ({gb / ms['torch.bmm']:.2f} TB/s), "
+            f"pure write {ms['fill_']:.4f} ms ({gb / ms['fill_']:.2f} TB/s: "
+            f"the ceiling); bound {b[0]:.4f} ms ({b[1]}, 3.35 TB/s)  "
+            f"[{card}]")
+        return ms
+
     def product_flops(f, n_l):
         return 2 * f * n_l * K * (K + M)
 
@@ -713,13 +851,12 @@ def main() -> int:
         ops, impl=impl, out=buf if impl == "cuda" else None))
         for impl in ("cuda", "torch")}
     hold(label, "fold_packed", run["cuda"](), run["torch"]())
-    pair = time_pair(label, "fold_packed", run["cuda"], run["torch"],
-                     buf.numel())
-    lib = library_ms(ops.u, ops.v)
-    log(f"[kfold-chunk] {label}: torch.bmm of the u, v streams {lib:.4f} ms"
-        f"  [{card}]")
-    chunk_times["fold_packed"] = (
-        *pair, *bound(*fold_cost(bs_p, 4, 8, gathered=False)), lib)
+    cost = fold_cost(bs_p, 4, 8, gathered=False)
+    ms = store_chunk(label + ", packed float64", {
+        "plain": run["torch"], "kernel": run["cuda"],
+        "torch.bmm": lambda: torch.bmm(ops.u.mT, ops.v)}, buf, cost)
+    chunk_times["fold_packed"] = (ms["kernel"], ms["plain"], *bound(*cost),
+                                  ms["torch.bmm"])
     del ops, run
     for p in (1_000, 10_000):
         idx, _, bs_p, _ = chunk_idx(p)
@@ -987,6 +1124,7 @@ def main() -> int:
         f"{f32_edge:.3e}, a second call bit-equal, one launch a call; "
         f"against float64, worst relative kernel {vs64['kernel']:.3e}, "
         f"twin {vs64['twin']:.3e}")
+    rowstream_edges(np.float32)
 
     # ---- 10. float32 LOOCV main path -----------------------------------------
     cfg32 = CVConfig(True, True, True, True, ddof=1, dtype=np.float32)
@@ -1107,19 +1245,21 @@ def main() -> int:
                                             n_sm)
             label += f", {splits} split(s)"
         hold(label, expect, run["cuda"](), run["torch"](), F32_TWIN_RTOL)
-        pair = time_pair(label, expect, run["cuda"], run["torch"],
-                         buf.numel(), 4,
-                         flops=(product_flops(bs_p, idx.shape[1])
-                                if expect == "fold_downdate_f32" else None))
-        if expect == "fold_downdate_f32":
-            lib = library_ms(blocks.Xv_w, m2)
-            what = "the blocks"
+        cost = fold_cost(bs_p, idx.shape[1], 4, gathered=False)
+        chunk_bound = bound(*cost)
+        if expect == "fold_packed_f32":
+            ms = store_chunk(label + ", packed float32", {
+                "plain": run["torch"], "kernel": run["cuda"],
+                "torch.bmm": lambda: torch.bmm(ops.u.mT, ops.v)}, buf, cost)
+            pair, lib = (ms["kernel"], ms["plain"]), ms["torch.bmm"]
         else:
-            lib = library_ms(ops.u, ops.v)
-            what = "the u, v streams"
-        chunk_bound = bound(*fold_cost(bs_p, idx.shape[1], 4, gathered=False))
-        log(f"[kfold-chunk] {label}: torch.bmm of {what} {lib:.4f} ms; bound "
-            f"{chunk_bound[0]:.4f} ms ({chunk_bound[1]})  [{card}]")
+            pair = time_pair(label, expect, run["cuda"], run["torch"],
+                             buf.numel(), 4,
+                             flops=product_flops(bs_p, idx.shape[1]))
+            lib = library_ms(blocks.Xv_w, m2)
+            log(f"[kfold-chunk] {label}: torch.bmm of the blocks {lib:.4f} "
+                f"ms; bound {chunk_bound[0]:.4f} ms ({chunk_bound[1]})  "
+                f"[{card}]")
         if p != 3:  # the kernels line times the unmasked route's chunk
             chunk_times[expect] = (*pair, *chunk_bound, lib)
         run = buf = ops = blocks = m2 = None
@@ -1300,17 +1440,6 @@ def main() -> int:
         f"sym - full over the computed entries {upper_diff}")
 
     # Full-width chunks: x2 beside one fold per block, sym beside full.
-    def time_turns(label, fns, reps, tag="policy-chunk"):
-        """CUDA-event ms of each of ``fns`` ({name: fn}), in turns, there
-        and back; the best of the two."""
-        order = list(fns) + list(fns)[::-1]
-        ms = {n: [] for n in fns}
-        for n in order:
-            ms[n].append(cuda_ms(fns[n], reps[n]))
-        log(f"[{tag}] {label}: " + ", ".join(
-            f"{n} {ms[n]} ms" for n in fns) + f" (order {order})  [{card}]")
-        return {n: min(v) for n, v in ms.items()}
-
     bs_x2 = bs + bs % 2  # the chunk a sweep takes under x2
     rows_x2 = torch.arange(bs_x2, dtype=torch.int64).pin_memory()
     for cfg_c, st_c, item, x2name in ((cfg, st, 8, "fused_loocv_x2"),
@@ -1569,8 +1698,6 @@ def main() -> int:
                     reduce_fn=trace_fn).sum().item())
 
     # ---- 16. small-fold LOOCV sources ------------------------------------------
-    for name in ("fold_smallfold", "fold_smallfold_f32"):
-        fold_err[name] = fold_rel[name] = 0.0
     rng = np.random.default_rng(SEED + 4)
     idx4 = np.stack([rng.choice(n_small, 4, replace=False)
                      for _ in range(16)])
@@ -1625,18 +1752,20 @@ def main() -> int:
     ops, _ = TB.prepare_fold_operands(cfg, st, rows_c)
     buf1 = torch.empty((bs_p, K, K + M), dtype=torch.float64, device=dev)
     buf2 = torch.empty_like(buf1)
+    a_blk, b_blk = gathered_blocks(st, rows_c)
     kw = dict(n_l=4, return_XTY=True, has_mask=False)
     fns = {
         "plain": lambda: TB.smallfold_from_sources(cfg, src, src.rows,
                                                    impl="torch", **kw),
-        "smallfold": lambda: TB.smallfold_from_sources(
+        "kernel": lambda: TB.smallfold_from_sources(
             cfg, src, src.rows, impl="cuda", out=buf1, **kw),
         "packed": lambda: TB.downdate_from_operands(ops, impl="cuda",
                                                     out=buf2),
+        "torch.bmm": lambda: torch.bmm(a_blk.mT, b_blk),
     }
     label = f"P=25,000 chunk of {bs_p} folds x L=4"
     ref = fns["plain"]()
-    fns["smallfold"]()
+    fns["kernel"]()
     fns["packed"]()
     held("fold_smallfold", buf1, ref, TWIN_RTOL, label)
     scale = ref.abs().max().item()
@@ -1646,18 +1775,64 @@ def main() -> int:
         raise AssertionError(f"{label}: packed vs twin {d_packed:.3e}, "
                              f"smallfold vs packed {d_kernels:.3e} > "
                              f"{TWIN_RTOL:g} * {scale:.3e}")
-    ms = time_turns(label, fns, {"plain": 3, "smallfold": 10, "packed": 10},
-                    tag="smallfold-chunk")
-    lib = library_ms(*gathered_blocks(st, rows_c))
-    chunk_times["fold_smallfold"] = (
-        ms["smallfold"], ms["plain"], *bound(*fold_cost(bs_p, 4, 8)), lib)
+    cost = fold_cost(bs_p, 4, 8)
+    ms = store_chunk(label + ", small-fold float64", fns, buf1, cost)
+    chunk_times["fold_smallfold"] = (ms["kernel"], ms["plain"], *bound(*cost),
+                                     ms["torch.bmm"])
     log(f"[smallfold-chunk] {label}: smallfold vs twin "
         f"{(buf1 - ref).abs().max().item():.3e}, packed vs twin "
         f"{d_packed:.3e}, smallfold vs packed {d_kernels:.3e} (max|twin| "
-        f"{scale:.3e}); torch.bmm of the gathered blocks {lib:.4f} ms; "
-        f"smallfold writes {buf1.numel() * 8 / ms['smallfold'] / 1e6:.1f} "
-        f"GB/s  [{card}]")
-    del src, ops, buf1, buf2, ref, fns
+        f"{scale:.3e})  [{card}]")
+
+    def vector_share(label, fn, reps=10):
+        """The device time of the small-fold entry's two kernels over
+        ``reps`` calls under ``torch.profiler``: the vector phase's share."""
+        try:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        except Exception as e:  # a measurement, not a check
+            log(f"[profile] {label}: not measured (profiler: "
+                f"{type(e).__name__}: {e})")
+            return
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        try:
+            prof.stop()
+            us = {n: sum(e.self_device_time_total for e in prof.key_averages()
+                         if n in e.key) / reps
+                  for n in ("smallfold_vectors_kernel", "rowstream_kernel")}
+        except Exception as e:  # a measurement, not a check
+            log(f"[profile] {label}: not measured (profiler: "
+                f"{type(e).__name__}: {e})")
+            return
+        vec, tile = us["smallfold_vectors_kernel"], us["rowstream_kernel"]
+        share = f"{vec / (vec + tile):.1%}" if vec + tile else "not measured"
+        log(f"[profile] {label}: vector phase {vec / 1e3:.4f} ms, row-stream "
+            f"tile {tile / 1e3:.4f} ms a call under torch.profiler; the "
+            f"vector phase's share {share}  [{card}]")
+
+    vector_share(label + ", small-fold float64", fns["kernel"])
+    del src, ops, buf1, buf2, ref, fns, a_blk, b_blk
+
+    # The same chunk through the float32 instance, on phase 10's data.
+    src = prepare_loocv_sources(cfg32, st32, rows_c)
+    buf1 = torch.empty((bs_p, K, K + M), dtype=torch.float32, device=dev)
+    a_blk, b_blk = gathered_blocks(st32, rows_c)
+    fns = {
+        "plain": lambda: TB.smallfold_from_sources(cfg32, src, src.rows,
+                                                   impl="torch", **kw),
+        "kernel": lambda: TB.smallfold_from_sources(
+            cfg32, src, src.rows, impl="cuda", out=buf1, **kw),
+        "torch.bmm": lambda: torch.bmm(a_blk.mT, b_blk),
+    }
+    label32 = label + ", small-fold float32"
+    held("fold_smallfold_f32", fns["kernel"](), fns["plain"](),
+         F32_TWIN_RTOL, label32)
+    store_chunk(label32, fns, buf1, fold_cost(bs_p, 4, 4))
+    vector_share(label32, fns["kernel"])
+    del src, buf1, a_blk, b_blk, fns
 
     def smallfold_cv(idx, mask):
         """The fit, then ``prepare_loocv_sources`` and

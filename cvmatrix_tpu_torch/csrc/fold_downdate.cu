@@ -49,10 +49,11 @@
 //       without sym. FLOP-bound at L = 100-1,000, store-bound at L = 10.
 //   stream_f32_kernel, the float32 stream product on FP32 FMA:
 //       cvm_fold_downdate_f32 (L >= 32 by the routing gate). FLOP-bound.
-//   fold_tile_kernel, FMA on the CUDA cores: cvm_fold_packed_f64/_f32 and
-//       cvm_fold_smallfold_f64/_f32, folds of a few rows, store-bound.
+//   rowstream_kernel, whole output rows from registers: cvm_fold_packed_f64/
+//       _f32 and cvm_fold_smallfold_f64/_f32, folds of a few rows, bound by
+//       the stores.
 //
-// The tensor-core tile (gather_mma_kernel). The CUDA-core tile reached
+// The tensor-core tile (gather_mma_kernel). A CUDA-core tile reached
 // 9-11 TFLOP/s on the FLOP-bound float64 chunks against 67 TFLOP/s for
 // FP64 on the tensor cores, held back by synchronous staging, 4 FMAs per
 // staged value and a 64-register cap. This one:
@@ -98,18 +99,18 @@
 //     rows (an XOR swizzle of their column pairs keeps that read at 2 lanes
 //     a bank and the fragment writes and row reads conflict-free). Staging
 //     32 rows a pass with 8-byte mirror stores of 4 doubles a row was
-//     measured slower at L = 10 than the CUDA-core tile it replaces. A
+//     measured slower at L = 10 than the CUDA-core tile it replaced. A
 //     diagonal tile stores j >= i of its X part (element by element where a
 //     16-byte pair straddles the diagonal) and mirrors j > i, so
 //     out[f][j][i] = out[f][i][j] for i < j < K exactly. Where the product
 //     bounds the kernel (L = 100) this cuts its work to 36/64; where the
 //     stores do (L = 10) the bytes written stay the same.
 // The product is summed over the rows in order, one FMA a row and output
-// (as the CUDA-core tile and the twin's float64 torch.bmm); the epilogue is
-// the float64 reference form.
+// (as the row-stream tile and the twin's float64 torch.bmm); the epilogue
+// is the float64 reference form.
 //
 // The float32 stream tile (stream_f32_kernel), the port of fused_downdate.
-// The CUDA-core tile reached 17.7 TFLOP/s on it (67 TFLOP/s of FP32 FMA on
+// A CUDA-core tile reached 17.7 TFLOP/s on it (67 TFLOP/s of FP32 FMA on
 // the card): 16 FMAs a thread a row cost 8 scalar shared loads, so shared-
 // memory issue bound its loop. This one:
 //   - uses 128 x 128 output tiles, 256 threads, 8 x 8 accumulators a thread
@@ -135,20 +136,38 @@
 //     in a fixed order and applies the epilogue. No atomics, so a call
 //     gives the same bits every time.
 //
-// The CUDA-core tile (fold_tile_kernel), for the packed and small-fold
-// routes (L = 4): per fold it writes K C sizeof(T) bytes and reads L rows,
-// so the stores bound it. One block of 256 threads per (fold, 64 x 64
-// output tile), each thread holding a 4 x 4 block of the tile in
-// registers; row blocks of up to 16 rows of both operands are staged in
-// shared memory; the epilogue reads total (2 MB at K=500, M=10, resident
-// in L2) and stores with an evict-first hint. Two choices measured on the
-// card: blocks are numbered tile-major within a fold, so blocks that run
-// together write neighbouring pieces of the same rows (rows of C = 510
-// doubles are not 128-byte aligned, and a fold-major order left partial
-// sectors to be evicted apart), and registers are capped at 64 for four
-// blocks per SM (a few bytes spill); together they cut a float64 chunk's
-// time by 27-37% at L = 4-1,000 (K=500, M=10, H100 80GB HBM3 at 700 W).
-// Edge tiles (C = 510 is no multiple of 64) are guarded on load and store.
+// The row-stream tile (rowstream_kernel), for the packed and small-fold
+// routes (L = 4 on the main path, L < 32 on any route): per fold it writes
+// K C sizeof(T) bytes and reads L rows, so the stores bound it. It streams
+// whole output rows, as the LOOCV kernel's tile phase does:
+//   - a block writes 32 rows of one fold (a band of 256 V columns of them
+//     where C is wider), threads along the columns, V elements each; blocks
+//     are numbered row band by row band within a fold. A warp's store
+//     covers 32 V consecutive elements of one row (512 bytes at V = 2 in
+//     float64), so only a row's first and last sector are shared, with the
+//     same block's next row.
+//   - each thread sums a[l][k] b[l][c] for a group of rows at a time in
+//     registers, over the fold's rows in order (one FMA a row, from 0): b is
+//     read once a group from L1/L2, a (the band's rows) is staged once in
+//     shared memory, 32 fold rows a slab (restaged a group only where
+//     L > 32), and read as a broadcast.
+//   - V is the widest of 16 bytes, 8 (float32) and one element that C
+//     (and where gathered K and M) and the alignment of total, b, yb, cvec
+//     and out allow, so fold-offset views of a batch take narrower stores;
+//     rows of C = 510 floats start 8-byte aligned, so the float32 main path
+//     stores 8 bytes a thread (256 bytes a warp).
+//   - total is read along the rows, V wide, from L2 (2 MB in float64).
+//   - each block's first loads (indices, then gathered rows, then total)
+//     wait on memory, so the blocks in flight set the rate: float32 keeps 8
+//     rows in registers at a 64-register cap (4 blocks an SM), float64 4
+//     rows at 80 (3 blocks), both without spills. Without a cap the
+//     compiler took more registers and the chunks took longer; 8 float64
+//     rows under 64 registers spill.
+// Measured against it on the main path's chunks, in variant builds that
+// are not kept: 8 and 16 rows a block (slower), 64 (no faster), the other
+// register rules, and 1-D bulk copies (cp.async.bulk) of each row group
+// staged in shared memory in place of the threads' stores (slower at every
+// chunk).
 //
 // v3's vector phase (grid F) runs before its tile and forms, per fold
 // and X column j, the weighted squared sum sum_l mask xw xu of the gathered
@@ -166,7 +185,7 @@
 // mY or 0] and i1, i2 into kvec and cvec. The TPU kernel's padded Y columns
 // get i2 = 1 from zero global sums through the std clamp; the unpadded
 // kernel writes the 1 itself (r stays 1 on a side that is not scaled). The
-// tile phase is the CUDA-core tile's gathered reference form, templated on
+// tile phase is the row-stream tile's gathered reference form, templated on
 // T: a float32 batch runs in float32. Per fold it writes the same K C
 // sizeof(T) bytes as the packed kernel and reads L rows twice, so
 // at L = 4 it is bound by the stores like the packed route, which reads
@@ -182,10 +201,6 @@
 
 namespace {
 
-constexpr int kTile = 64;       // output tile edge (K and C)
-constexpr int kStage = 16;      // rows per shared-memory stage
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kBlocksPerSM = 4;  // caps registers at 64 for occupancy
 constexpr int kVecThreads = 256;
 
 constexpr int kCenterXTX = 1;
@@ -242,113 +257,203 @@ struct TileArgs {
   int64_t L, K, C, KX, M;
 };
 
-// Block b writes tile t = b % n_tiles of fold f = b / n_tiles, tiles in
-// row-major order: out[f][k0 .. +64][c0 .. +64]. Neighbouring blocks, which
-// run at nearly the same time, so write neighbouring parts of the same rows.
-// kGather: rows gathered by index (else the contiguous (F, L, .) streams);
-// kRefForm: the reference-form epilogue (else the factor form).
-template <typename T, bool kGather, bool kRefForm>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-fold_tile_kernel(const TileArgs<T> p, int64_t n_ct, int64_t n_tiles) {
-  __shared__ T sa[kStage][kTile];
-  __shared__ T sb[kStage][kTile];
-  __shared__ int64_t srow[kStage];
-  __shared__ T smask[kStage];
+// ---- the store-bound row-stream tile (packed and small-fold entries) -----
 
-  const int64_t f = blockIdx.x / n_tiles;
-  const int64_t t = blockIdx.x % n_tiles;
-  const int64_t k0 = (t / n_ct) * kTile;
-  const int64_t c0 = (t % n_ct) * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+// The row-stream tile's shape: a block writes kRowBand whole rows of one
+// fold (a band of up to kRowThreads V columns of them where C is wider),
+// RowShape::kRegRows rows at a time from registers, under a register cap
+// of RowShape::kMinBlocks blocks an SM; the fold's rows are staged kRowSlab
+// at a time; the fastest shape measured without spills (see the file's
+// comment).
+constexpr int kRowBand = 32;
+constexpr int kRowThreads = 256;
+constexpr int kRowSlab = 32;
+
+// Float32 keeps 8 rows in registers (4 at 16-byte vectors) at 64 registers,
+// 4 blocks an SM; float64 keeps 4 at 80 registers, 3 blocks an SM.
+template <typename T, int V>
+struct RowShape {
+  static constexpr int kRegRows = sizeof(T) == sizeof(float) && V <= 2 ? 8 : 4;
+  static constexpr int kMinBlocks = sizeof(T) == sizeof(float) ? 4 : 3;
+  static_assert(kRowBand % kRegRows == 0, "whole register row groups");
+};
+
+// V elements of T as one load or store.
+template <typename T, int V>
+struct Vec;
+template <>
+struct Vec<double, 1> {
+  using type = double;
+};
+template <>
+struct Vec<double, 2> {
+  using type = double2;
+};
+template <>
+struct Vec<float, 1> {
+  using type = float;
+};
+template <>
+struct Vec<float, 2> {
+  using type = float2;
+};
+template <>
+struct Vec<float, 4> {
+  using type = float4;
+};
+
+template <int V, typename T>
+__device__ __forceinline__ void unpack_v(T (&d)[V],
+                                        const typename Vec<T, V>::type v) {
+  if constexpr (V == 1) {
+    d[0] = v;
+  } else if constexpr (V == 2) {
+    d[0] = v.x, d[1] = v.y;
+  } else {
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  }
+}
+
+// V elements from shared memory, and through the read-only path.
+template <int V, typename T>
+__device__ __forceinline__ void load_v(T (&d)[V], const T* src) {
+  unpack_v<V, T>(d, *reinterpret_cast<const typename Vec<T, V>::type*>(src));
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void ldg_v(T (&d)[V], const T* src) {
+  unpack_v<V, T>(d,
+                 __ldg(reinterpret_cast<const typename Vec<T, V>::type*>(src)));
+}
+
+template <int V, typename T>
+__device__ __forceinline__ typename Vec<T, V>::type pack_v(const T (&d)[V]) {
+  typename Vec<T, V>::type v;
+  if constexpr (V == 1) {
+    v = d[0];
+  } else if constexpr (V == 2) {
+    v.x = d[0], v.y = d[1];
+  } else {
+    v.x = d[0], v.y = d[1], v.z = d[2], v.w = d[3];
+  }
+  return v;
+}
+
+// One output from its product sum d: the factor form, or the reference
+// form in its dtype's order (see the file's comment).
+template <typename T, bool kRefForm>
+__device__ __forceinline__ T fold_value(T t, T d, T pk, T q, T i1, T i2) {
+  if constexpr (!kRefForm) {
+    return t * (i1 * i2) - fma_t(pk, q, d);
+  } else if constexpr (sizeof(T) == sizeof(double)) {
+    return (t - fma_t(pk, q, d)) * i1 * i2;
+  } else {
+    return ((t - d) - pk * q) * (i1 * i2);
+  }
+}
+
+// Block b writes rows k0 .. k0 + kRowBand of fold f, columns c0 .. c0 +
+// blockDim.x V of them, where b = (f n_bands + band) n_cb + column band, so
+// blocks that run together write neighbouring rows of one fold. Thread t
+// takes columns c0 + t V .. + V: for RowShape::kRegRows rows at a time it
+// sums a[l][k] b[l][c] over the fold's rows in order (one FMA a row, from 0),
+// then stores the epilogue's values V wide with an evict-first hint.
+// kGather: rows gathered by index, a = xw[row] mask and
+// b = [xu | yu][row] (else the streams a = u, b = v); kRefForm: the
+// reference-form epilogue (else the factor form). V: elements a load and
+// store (C, and where gathered K and M, multiples of V; total, b, yb, cvec
+// and out V-aligned).
+template <typename T, bool kGather, bool kRefForm, int V>
+__global__ void __launch_bounds__(kRowThreads, RowShape<T, V>::kMinBlocks)
+rowstream_kernel(const TileArgs<T> p, int64_t n_bands, int64_t n_cb) {
+  constexpr int R = RowShape<T, V>::kRegRows;
+  __shared__ T sa[kRowSlab][kRowBand];
+  __shared__ int64_t srow[kRowSlab];
+
+  const int64_t blk = blockIdx.x;
+  const int64_t f = blk / n_cb / n_bands;
+  const int64_t k0 = blk / n_cb % n_bands * kRowBand;
+  const int64_t c0 = blk % n_cb * blockDim.x * V;
   const int64_t L = p.L, K = p.K, C = p.C;
-
-  T acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
-
-  for (int64_t l0 = 0; l0 < L; l0 += kStage) {
-    const int nl = static_cast<int>(L - l0 < kStage ? L - l0 : kStage);
-    if (kGather) {
-      if (threadIdx.x < kStage) {
-        const int li = threadIdx.x;
-        const int64_t fl = f * L + l0 + li;
-        srow[li] = li < nl ? p.rows[fl] : 0;
-        smask[li] = li < nl ? (p.mask ? p.mask[fl] : T(1)) : T(0);
-      }
-      __syncthreads();
-    }
-    // Only the stage's live rows are staged: the FMA loop reads no others.
-    for (int e = threadIdx.x; e < nl * kTile; e += kThreads) {
-      const int li = e / kTile;
-      const int j = e % kTile;
-      const int64_t ka = k0 + j;
-      const int64_t cb = c0 + j;
-      T va = T(0);
-      T vb = T(0);
-      if (kGather) {
-        const int64_t r = srow[li];
-        if (ka < K) va = __ldg(p.a + r * K + ka) * smask[li];
-        if (cb < C) {
-          vb = cb < p.KX ? __ldg(p.b + r * K + cb)
-                         : __ldg(p.yb + r * p.M + (cb - p.KX));
-        }
-      } else {
-        const int64_t fl = f * L + l0 + li;
-        if (ka < K) va = __ldg(p.a + fl * K + ka);
-        if (cb < C) vb = __ldg(p.b + fl * C + cb);
-      }
-      sa[li][j] = va;
-      sb[li][j] = vb;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int li = 0; li < nl; ++li) {
-      T av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sa[li][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sb[li][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma_t(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
+  const int tid = threadIdx.x;
+  const int64_t c = c0 + static_cast<int64_t>(tid) * V;
+  const bool col_live = c < C;
+  const int nb = static_cast<int>(K - k0 < kRowBand ? K - k0 : kRowBand);
   const T* kv = p.kvec + 2 * K * f;
-  const T* cv = p.cvec + 2 * C * f;
   T* of = p.out + K * C * f;
-  T qc[4], i2c[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int64_t c = c0 + tx + 16 * j;
-    qc[j] = c < C ? __ldg(cv + c) : T(0);
-    i2c[j] = c < C ? __ldg(cv + C + c) : T(0);
+  // the thread's column of b: row l at bcol + l bld (the row's index where
+  // gathered, l counted from the fold's first row in the streams)
+  const T* bcol = !kGather ? p.b + L * C * f + c
+                           : c < p.KX ? p.b + c : p.yb + (c - p.KX);
+  const int64_t bld = !kGather ? C : c < p.KX ? K : p.M;
+  T q[V], i2[V];
+  if (col_live) {
+    ldg_v<V>(q, p.cvec + 2 * C * f + c);
+    ldg_v<V>(i2, p.cvec + 2 * C * f + C + c);
   }
+  const bool one_slab = L <= kRowSlab;  // staged once for the whole band
+
+  for (int g = 0; g < nb; g += R) {
+    T acc[R][V];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t k = k0 + ty + 16 * i;
-    if (k >= K) continue;
-    const T pk = __ldg(kv + k);
-    const T i1 = __ldg(kv + K + k);
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t c = c0 + tx + 16 * j;
-      if (c >= C) continue;
-      const T t = __ldg(p.total + k * C + c);
-      T val;
-      if constexpr (!kRefForm) {
-        val = t * (i1 * i2c[j]) - fma_t(pk, qc[j], acc[i][j]);
-      } else if constexpr (sizeof(T) == sizeof(double)) {
-        val = (t - fma_t(pk, qc[j], acc[i][j])) * i1 * i2c[j];
-      } else {
-        val = ((t - acc[i][j]) - pk * qc[j]) * (i1 * i2c[j]);
+      for (int v = 0; v < V; ++v) acc[r][v] = T(0);
+    for (int64_t l0 = 0; l0 < L; l0 += kRowSlab) {
+      const int nl = static_cast<int>(L - l0 < kRowSlab ? L - l0 : kRowSlab);
+      if (g == 0 || !one_slab) {
+        if (g > 0 || l0 > 0) __syncthreads();  // the last slab is read
+        // fold rows l0 .. l0 + nl: a of the band's rows into sa (zero past
+        // K), and where gathered their indices into srow
+        for (int e = tid; e < nl * kRowBand; e += blockDim.x) {
+          const int li = e / kRowBand;
+          const int r = e % kRowBand;
+          const int64_t fl = f * L + l0 + li;
+          T va = T(0);
+          if constexpr (kGather) {
+            const int64_t row = __ldg(p.rows + fl);
+            if (r == 0) srow[li] = row;
+            if (r < nb) {
+              va = __ldg(p.a + row * K + k0 + r) *
+                   (p.mask ? __ldg(p.mask + fl) : T(1));
+            }
+          } else if (r < nb) {
+            va = __ldg(p.a + fl * K + k0 + r);
+          }
+          sa[li][r] = va;
+        }
+        __syncthreads();
       }
-      __stcs(of + k * C + c, val);
+      if (!col_live) continue;
+#pragma unroll 4
+      for (int li = 0; li < nl; ++li) {
+        T bv[V];
+        ldg_v<V>(bv, bcol + (kGather ? srow[li] : l0 + li) * bld);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const T av = sa[li][g + r];
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[r][v] = fma_t(av, bv[v], acc[r][v]);
+        }
+      }
+    }
+
+    const int nr = nb - g < R ? nb - g : R;  // live rows of the group
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= nr || !col_live) break;
+      const int64_t k = k0 + g + r;
+      const T pk = __ldg(kv + k);
+      const T i1 = __ldg(kv + K + k);
+      T val[V];
+      ldg_v<V>(val, p.total + k * C + c);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        val[v] = fold_value<T, kRefForm>(val[v], acc[r][v], pk, q[v], i1,
+                                         i2[v]);
+      }
+      __stcs(reinterpret_cast<typename Vec<T, V>::type*>(of + k * C + c),
+             pack_v<V>(val));
     }
   }
 }
@@ -709,54 +814,7 @@ struct F32Args {
 };
 
 template <int V>
-struct VecF;
-template <>
-struct VecF<1> {
-  using type = float;
-};
-template <>
-struct VecF<2> {
-  using type = float2;
-};
-template <>
-struct VecF<4> {
-  using type = float4;
-};
-
-template <int V>
-__device__ __forceinline__ void load_v(float (&d)[V], const float* src) {
-  const auto v = *reinterpret_cast<const typename VecF<V>::type*>(src);
-  if constexpr (V == 1) {
-    d[0] = v;
-  } else if constexpr (V == 2) {
-    d[0] = v.x, d[1] = v.y;
-  } else {
-    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void ldg_v(float (&d)[V], const float* src) {
-  const auto v = __ldg(reinterpret_cast<const typename VecF<V>::type*>(src));
-  if constexpr (V == 1) {
-    d[0] = v;
-  } else if constexpr (V == 2) {
-    d[0] = v.x, d[1] = v.y;
-  } else {
-    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ typename VecF<V>::type pack_v(const float (&d)[V]) {
-  if constexpr (V == 1) {
-    return d[0];
-  } else if constexpr (V == 2) {
-    return make_float2(d[0], d[1]);
-  } else {
-    return make_float4(d[0], d[1], d[2], d[3]);
-  }
-}
+using VecF = Vec<float, V>;
 
 // fused_downdate's epilogue, in its order.
 __device__ __forceinline__ float downdate_f32(float t, float d, float pk,
@@ -1106,20 +1164,6 @@ __global__ void smallfold_vectors_kernel(const SmallfoldArgs<T> p) {
   }
 }
 
-template <typename T, bool kGather, bool kRefForm>
-int launch_tile(const TileArgs<T>& a, int64_t F, int device, void* stream) {
-  if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_ct = (a.C + kTile - 1) / kTile;
-  const int64_t n_tiles = n_ct * ((a.K + kTile - 1) / kTile);
-  if (F * n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  fold_tile_kernel<T, kGather, kRefForm>
-      <<<static_cast<unsigned>(F * n_tiles), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(a, n_ct, n_tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <bool kVec, bool kMasked, bool kSym>
 int launch_gather_mma_vm(const TileArgs<double>& a, int64_t F,
                          void* stream) {
@@ -1142,6 +1186,48 @@ int launch_gather_mma_vm(const TileArgs<double>& a, int64_t F,
 
 bool aligned(const void* ptr, int bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+template <typename T, bool kGather, bool kRefForm, int V>
+int launch_rowstream_v(const TileArgs<T>& a, int64_t F, cudaStream_t s) {
+  // Threads along the columns: a multiple of 32 up to kRowThreads, V
+  // columns each; wider rows take several column bands.
+  const int64_t n_vec = a.C / V;
+  const int threads = static_cast<int>(
+      n_vec < kRowThreads ? (n_vec + 31) / 32 * 32 : kRowThreads);
+  const int64_t n_cb = (n_vec + threads - 1) / threads;
+  const int64_t n_bands = (a.K + kRowBand - 1) / kRowBand;
+  if (F * n_bands * n_cb > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  rowstream_kernel<T, kGather, kRefForm, V>
+      <<<static_cast<unsigned>(F * n_bands * n_cb), threads, 0, s>>>(
+          a, n_bands, n_cb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row-stream tile, V as wide as C (and where gathered K and M) and the
+// alignment of total, b, yb, cvec and out allow: 16 bytes, else 8 (float32),
+// else one element.
+template <typename T, bool kGather, bool kRefForm>
+int launch_rowstream(const TileArgs<T>& a, int64_t F, int device,
+                     void* stream) {
+  if (F <= 0 || a.K <= 0 || a.C <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto fits = [&](int v) {
+    const int bytes = v * static_cast<int>(sizeof(T));
+    return a.C % v == 0 && (!kGather || (a.K % v == 0 && a.M % v == 0)) &&
+           aligned(a.total, bytes) && aligned(a.b, bytes) &&
+           aligned(a.yb, bytes) && aligned(a.cvec, bytes) &&
+           aligned(a.out, bytes);
+  };
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (fits(4)) return launch_rowstream_v<T, kGather, kRefForm, 4>(a, F, st);
+  }
+  if (fits(2)) return launch_rowstream_v<T, kGather, kRefForm, 2>(a, F, st);
+  return launch_rowstream_v<T, kGather, kRefForm, 1>(a, F, st);
 }
 
 // The tensor-core tile for a gathered reference-form batch (kSym: the
@@ -1227,7 +1313,7 @@ int launch_stream_f32(const F32Args& a, int64_t splits, int device,
 }  // namespace
 
 // Factor-form downdate of the prepared streams (port of
-// fused_downdate_df64_packed), on the CUDA-core tile: L = 4 at P = 25,000,
+// fused_downdate_df64_packed), on the row-stream tile: L = 4 at P = 25,000,
 // bound by its stores. All pointers are device pointers.
 extern "C" int cvm_fold_packed_f64(
     const double* total, const double* u, const double* v,
@@ -1235,18 +1321,18 @@ extern "C" int cvm_fold_packed_f64(
     int64_t L, int64_t K, int64_t C, int device, void* stream) {
   TileArgs<double> a{total, u, v, nullptr, nullptr, nullptr, kvec, cvec,
                      out, L, K, C, 0, 0};
-  return launch_tile<double, false, false>(a, F, device, stream);
+  return launch_rowstream<double, false, false>(a, F, device, stream);
 }
 
 // The same factor form in float32 (port of fused_downdate_f32_packed), on
-// the CUDA-core tile in float32, likewise bound by its stores.
+// the row-stream tile in float32, likewise bound by its stores.
 extern "C" int cvm_fold_packed_f32(
     const float* total, const float* u, const float* v, const float* kvec,
     const float* cvec, float* out, int64_t F, int64_t L, int64_t K,
     int64_t C, int device, void* stream) {
   TileArgs<float> a{total, u, v, nullptr, nullptr, nullptr, kvec, cvec, out,
                     L, K, C, 0, 0};
-  return launch_tile<float, false, false>(a, F, device, stream);
+  return launch_rowstream<float, false, false>(a, F, device, stream);
 }
 
 // Reference-form downdate of the contiguous streams xv (F, L, K) and
@@ -1327,14 +1413,14 @@ int smallfold(const T* total, const T* xw, const T* xu, const T* yu,
   if (err != cudaSuccess) return static_cast<int>(err);
   TileArgs<T> a{total, xw, xu, yu, rows, mask, kvec, cvec, out,
                 L, K, K + M, K, M};
-  return launch_tile<T, true, true>(a, F, device, stream);
+  return launch_rowstream<T, true, true>(a, F, device, stream);
 }
 
 }  // namespace
 
 // Masked multi-row LOOCV sources (port of fused_smallfold_df64): the
 // small-fold vector phase into the caller's kvec (F, 2, K) and cvec
-// (F, 2, K + M) scratch, then the CUDA-core tile's gathered reference form,
+// (F, 2, K + M) scratch, then the row-stream tile's gathered reference form,
 // bound by its stores at L = 4. yu, yw and gy may be null when M is 0, mask
 // may be null.
 extern "C" int cvm_fold_smallfold_f64(

@@ -747,3 +747,104 @@ def test_smallfold_checks_cuda_rows_once_per_sources(dev, monkeypatch):
     ref = TB.smallfold_from_sources(cfg, src, idx.clone(), **kw)
     assert checks == ["cuda", "cuda"]
     assert torch.equal(torch.cat(got), ref)
+
+
+# ---- the row-stream tile: fold_packed and fold_smallfold ------------------ #
+
+ROW_L = (1, 2, 3, 4, 9, 17, 31)
+ROW_F = (1, 67)
+N_ROW = 1_200
+
+
+def _row_check(got, ref, dtype):
+    """Within 1e-12 (float64) or 1e-4 (float32) of the twin's largest
+    entry: float64 sums in another order by a few ulps, float32 ones by
+    the JAX package's f32 interpret bound."""
+    rtol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert got.dtype == ref.dtype == dtype
+    assert (got - ref).abs().max().item() <= rtol * ref.abs().max().item()
+
+
+def _one_launch(counter, run):
+    before = TFD.launch_counts()
+    got = run()
+    after = TFD.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {counter: 1}
+    return got
+
+
+@pytest.mark.parametrize("n_l", ROW_L)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rowstream_tile_packed(dev, dtype, n_l):
+    """fold_packed on the row-stream tile against its twin: [XTX | XTY] at
+    K=37, M=3 and at K=500, M=10, XTX alone (K=37) and XTY alone (C=3);
+    one fold and 67; rows masked out of u and not; operands and out as
+    fold-offset views of a larger batch (float32 views at odd L K, L C and
+    K C offsets take narrower stores) and not; one launch a call, and a
+    second call bit-equal to the first."""
+    counter = "fold_packed" if dtype == torch.float64 else "fold_packed_f32"
+    rng = np.random.default_rng(30 + n_l)
+    for (k, c), f, masked, view in itertools.product(
+            ((37, 40), (37, 37), (37, 3), (500, 510)), ROW_F, (False, True),
+            (False, True)):
+        g = f + view  # a view drops the batch's first fold
+
+        def t(*shape):
+            return torch.from_numpy(rng.random(shape)).to(dev, dtype)
+
+        total, u, v, kvec, cvec = (t(k, c) * n_l, t(g, n_l, k), t(g, n_l, c),
+                                   t(g, 2, k), t(g, 2, c))
+        if masked:
+            u[::2, -max(1, n_l // 3):] = 0.0
+        out = torch.empty((g, k, c), dtype=dtype, device=dev)
+        ops = (total, u[view:], v[view:], kvec[view:], cvec[view:])
+        got = _one_launch(counter, lambda: TFD.fold_packed(
+            *ops, out=out[view:]))
+        assert got.data_ptr() == out[view:].data_ptr()
+        again = TFD.fold_packed(*ops)
+        ref = TFD.fold_packed(*ops, impl="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (k, c, f, masked, view)
+        _row_check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("n_l", ROW_L)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rowstream_tile_smallfold(dev, dtype, n_l):
+    """fold_smallfold (its vector phase, then the row-stream tile's
+    gathered reference form) against its twin: K=37 with M=3 and M=0 (one
+    element a store) and K=500, M=10; one fold and 67; masked with padded
+    slots at index 0 and not; rows, scalars, mask and out as fold-offset
+    views and not; one launch a call, and a second call bit-equal."""
+    counter = ("fold_smallfold" if dtype == torch.float64
+               else "fold_smallfold_f32")
+    rng = np.random.default_rng(40 + n_l)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    cfg = T.CVConfig(True, True, True, True, dtype=np_dtype)
+    for (k, m), f, masked, view in itertools.product(
+            ((37, 3), (37, 0), (500, 10)), ROW_F, (False, True),
+            (False, True)):
+        X = rng.random((N_ROW, k))
+        Y = rng.random((N_ROW, m)) if m else None
+        st = T.fit(cfg, X, Y, rng.random(N_ROW), device=dev)
+        g = f + view
+        idx = rng.integers(0, N_ROW, (g, n_l))
+        mask = None
+        if masked:
+            mask = np.ones(idx.shape)
+            mask[::2, -max(1, n_l // 3):] = 0.0
+            idx[mask == 0] = 0  # padded slots
+        src = TB.prepare_loocv_sources(cfg, st, idx, mask, return_XTY=m > 0)
+        out = torch.empty((g, k, k + m), dtype=dtype, device=dev)
+        kw = dict(n_l=n_l, return_XTY=m > 0, has_mask=masked)
+        args = (src.rows[view:], src.scal[view:],
+                None if mask is None else src.mask[view:])
+        got = _one_launch(counter, lambda: TB.smallfold_from_sources(
+            cfg, src, *args, out=out[view:], **kw))
+        assert got.data_ptr() == out[view:].data_ptr()
+        again = TB.smallfold_from_sources(cfg, src, *args, **kw)
+        ref = TB.smallfold_from_sources(cfg, src, *args, impl="torch", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (k, m, f, masked, view)
+        _row_check(got, ref, dtype)

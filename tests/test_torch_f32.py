@@ -238,6 +238,37 @@ def test_cpu_wrappers_run_twins_and_count_nothing():
         "fold_smallfold", "fold_smallfold_f32"}
 
 
+_re = np.random.default_rng(32)
+# 6 folds of 31 seeded rows (under LARGE_FOLD_ROWS = 32), and ragged folds
+# of np.arange(N) % 7 (4 of 29 rows, 3 of 28) padded to 29 with a mask.
+IDX_L31 = np.stack([_re.choice(N, 31, replace=False) for _ in range(6)])
+_, IDX_RAGGED, MASK_RAGGED = J.Partitioner(np.arange(N) % 7).padded_batches()
+
+
+@pytest.mark.parametrize("case", ["L=31", "ragged L=29, masked"])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False, True, True, False),
+                                   (False,) * 4])
+def test_packed_f32_route_at_tile_edges(interpret_pallas, flags, case):
+    """The float32 packed route (the row-stream tile's float32 entry) at
+    the largest fold size its gate gives it and on ragged masked folds,
+    through training_matrices_batched, against fused_downdate_f32_packed in
+    interpret mode and the JAX XLA f32 engine on the same seeded data and
+    folds, at 1e-4 of the reference's largest entry; [XTX | XTY] and XTY
+    alone."""
+    idx, mask = ((IDX_L31, None) if case == "L=31"
+                 else (IDX_RAGGED, MASK_RAGGED.astype(np.float32)))
+    jcfg, js, cfg, st = fit_both(flags)
+    for xtx in (True, False):
+        assert TB.route_kernel(cfg, st, idx.shape[1], xtx, True,
+                               mask is not None) == "packed_f32"
+        got, _ = TB.training_matrices_batched(cfg, st, idx, mask,
+                                              return_XTX=xtx)
+        for impl in ("pallas", "xla"):
+            ref, _ = JB.training_matrices_batched(jcfg, js, idx, mask,
+                                                  return_XTX=xtx, impl=impl)
+            assert_near(as_np(got), as_np(ref), msg=f"{case} {xtx=} {impl}")
+
+
 # --------------------------------------------------------------------------- #
 # TF32 repair                                                                 #
 # --------------------------------------------------------------------------- #

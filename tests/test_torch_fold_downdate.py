@@ -485,3 +485,44 @@ def test_v3_sym_twin_is_the_v3_twin_mirrored(sym_on):
     assert torch.equal(sym[:, iu[0], iu[1]], full[:, iu[0], iu[1]])
     assert torch.equal(sym[:, :, KS:], full[:, :, KS:])
     assert not torch.equal(sym, full)
+
+
+# ---- the packed route at the row-stream tile's edges --------------------- #
+
+_re = np.random.default_rng(31)
+# (F, L) folds of seeded rows: 22 of 9 (under the fused gate's 10) and 6 of
+# 31 (under 32, for XTY alone); ragged folds of np.arange(N) % 23 (16 of 9
+# rows, 7 of 8) padded to 9 with a mask.
+IDX_L9 = np.stack([_re.choice(N, 9, replace=False) for _ in range(22)])
+IDX_L31 = np.stack([_re.choice(N, 31, replace=False) for _ in range(6)])
+_, IDX_RAGGED, MASK_RAGGED = J.Partitioner(np.arange(N) % 23).padded_batches()
+PACKED_EDGES = {
+    "L=9, [XTX | XTY]": (IDX_L9, None, True),
+    "L=31, XTY alone": (IDX_L31, None, False),
+    "ragged L=9, masked": (IDX_RAGGED, MASK_RAGGED, True),
+}
+
+
+@pytest.mark.parametrize("case", list(PACKED_EDGES))
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_packed_route_at_tile_edges_matches_jax(flags, case):
+    """The packed route (the row-stream tile's float64 entry) at the fold
+    sizes its gates give it, through training_matrices_batched, against
+    the JAX XLA engine on the same seeded data and folds at 1e-10
+    (``test_twins_match_jax_engine``'s bound): L=9 where the fused Ozaki
+    gate leaves the packed route at 10, L=31 with XTY alone (gate 32), and
+    ragged masked folds; weighted and not."""
+    idx, mask, xtx = PACKED_EDGES[case]
+    assert idx.shape[1] in (9, 31) and (mask is None or (mask == 0).any())
+    for weighted in (True, False):
+        jcfg, js, cfg, st = fit_both(flags, weighted, True)
+        assert TB.route_kernel(cfg, st, idx.shape[1], xtx, True,
+                               mask is not None) == "packed"
+        ref, _ = JB.training_matrices_batched(
+            jcfg, js, idx, mask, return_XTX=xtx, impl="xla")
+        got, _ = TB.training_matrices_batched(cfg, st, idx, mask,
+                                              return_XTX=xtx)
+        assert_allclose(as_np(got, xtx, True), as_np(ref, xtx, True),
+                        atol=1e-10, rtol=0, err_msg=f"{case} {weighted=}")
