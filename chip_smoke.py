@@ -43,7 +43,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    10,000, 1,000, 100, 10 and the masked P=3 at N=100,000) through the
    kernel and through the twin, held at the same bound, and each route's
    chunk timed through both, the product chunks with their TFLOP/s and
-   ``torch.bmm`` of the same gathered blocks in the same run; the packed
+   ``torch.bmm`` of the same gathered blocks in the same run, the
+   epilogue in turns with a same-traffic ceiling (``prod.sub_(total)``,
+   one in-place PyTorch call over the same bytes); the packed
    chunk, bound by its stores, in turns with ``torch.bmm`` of its u, v
    streams and a pure write of its output bytes (``fill_``), the store
    rate the card reaches, logged as a ceiling beside the 3.35 TB/s bound.
@@ -130,10 +132,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
     (100,000 x 500), ``pows`` from each column's largest magnitude,
     ``block_rows=32``, 10 slices, both layouts: the kernel bit-equal to its
     twin, slices within 65, the reconstruction within 2^-58 of the scaled
-    pair, one launch each, timed in turns with the twin.
-18. Prints the kernels' JSON line (fourteen kernels, each with its bound and
+    pair, one launch each, timed in turns with the twin (row-major also at
+    one slice, whose difference is the cost of the rounds, and beside a
+    ``copy_`` of the 0.9 GB the slicer moves, a ceiling).
+18. The wide-K path at full width (BASELINE.json config 4): weighted, all
+    four flags on, float64, N=5,000, K=20,000, M=1, data from seed 42 as
+    ``bench.py`` builds it, ``materialize_cv`` over
+    ``Partitioner(np.arange(N) % 10)`` (ten chunks of one fold of 500 rows,
+    each a ``torch.bmm`` and the epilogue), warm-up and timed, with the
+    launch counts read around the timed run (ten ``fold_epilogue``
+    launches, no other kernel), the builds of ``[XTX | XTY]`` counted (one
+    a sweep) and the peak device memory; the fit alone and the sweep
+    alone; the first chunk's product timed (TFLOP/s) and its epilogue held
+    against the twin at 1e-12 and timed as in phase 6; the probe and the
+    probe fold's entries on the first and last 128 columns of X and on Y
+    against ``tests/oracle.py`` fitted on those columns, at 1e-10.
+19. Prints the kernels' JSON line (fourteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
-    function), the card's name and power limit, and as the last line
+    function, and the epilogue again as ``fold_epilogue_widek`` on the
+    wide-K path), the card's name and power limit, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -154,6 +171,10 @@ import numpy as np
 import torch
 
 N, K, M, SEED = 100_000, 500, 10, 42
+KC = dict(k=K, c=K + M)  # the main path's (K, C), for the cost functions
+# The wide-K path (BASELINE.json config 4, benchmarks/widek_genomics.json
+# "default"): N, K, M, P.
+WIDEK = (5_000, 20_000, 1, 10)
 TWIN_RTOL = 1e-12
 ORACLE_RTOL = 1e-10
 # P -> the wrapper whose kernel the K-fold main path must launch
@@ -195,6 +216,9 @@ KERNEL_SOURCES = {
                        "cvmatrix_tpu/ops/kernels.py:1631"),
     "slice_rows": ("cvmatrix_tpu_torch/csrc/slice_rows.cu",
                    "cvmatrix_tpu/ops/kernels.py:2642"),
+    # the epilogue again, on phase 18's wide-K path
+    "fold_epilogue_widek": ("cvmatrix_tpu_torch/csrc/fold_epilogue.cu",
+                            "cvmatrix_tpu/ops/kernels.py:531"),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -235,27 +259,26 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fold_cost(f: int, n_l: int, item: int, sym: bool = False,
-              gathered: bool = True):
-    """Bytes and FLOPs of F folds of L rows each: the (F, K, C) output
-    written once, the total and the global sums read once, and each fold
-    row once as K + M values and its weight (the kernels' weighted and
-    unweighted copies of a row, and the per-fold vectors, derive from
-    these), plus its int64 index where the kernel gathers rows; the
-    product (2L FLOPs) and a four-FLOP epilogue per computed entry (the
-    symmetric kernels compute the upper triangle and the XTY columns)."""
-    c = K + M
-    nbytes = (item * (f * K * c + K * c + 2 * c + f * n_l * (c + 1))
+def fold_cost(f: int, n_l: int, item: int, *, k: int, c: int,
+              sym: bool = False, gathered: bool = True):
+    """Bytes and FLOPs of F folds of L rows each at (K, C) = (k, c), C = K
+    + M: the (F, K, C) output written once, the total and the global sums
+    read once, and each fold row once as C values and its weight (the
+    kernels' weighted and unweighted copies of a row, and the per-fold
+    vectors, derive from these), plus its int64 index where the kernel
+    gathers rows; the product (2L FLOPs) and a four-FLOP epilogue per
+    computed entry (the symmetric kernels compute the upper triangle and
+    the XTY columns)."""
+    nbytes = (item * (f * k * c + k * c + 2 * c + f * n_l * (c + 1))
               + (8 * f * n_l if gathered else 0))
-    computed = f * (K * (K + 1) // 2 + K * M) if sym else f * K * c
+    computed = f * (k * (k + 1) // 2 + k * (c - k)) if sym else f * k * c
     return nbytes, (2 * n_l + 4) * computed
 
 
-def epilogue_cost(f: int):
-    """The in-place epilogue: the product read and rewritten, the total
-    and the vectors; four FLOPs per entry."""
-    c = K + M
-    return 8 * (2 * f * K * c + K * c + 2 * f * (K + c)), 4 * f * K * c
+def epilogue_cost(f: int, *, k: int, c: int):
+    """The in-place epilogue of F folds at (K, C) = (k, c): the product
+    read and rewritten, the total and the vectors; four FLOPs per entry."""
+    return 8 * (2 * f * k * c + k * c + 2 * f * (k + c)), 4 * f * k * c
 
 
 def log(*a) -> None:
@@ -276,11 +299,15 @@ def dtype_name(itemsize: int) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` between CUDA events (warm)."""
+    """Mean milliseconds per call of ``fn`` between CUDA events (warm). The
+    device first spins for about 10 ms while the host queues the calls, so
+    host time between short launches is not counted (as on the main path,
+    where the host runs ahead of each chunk's product)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -443,7 +470,7 @@ def main() -> int:
     # kernel -> (ms, plain ms, bound ms, bound by, library ms) of the chunk
     # the kernels line reports
     chunk_times = {"fused_loocv": (kernel_ms, plain_ms,
-                                   *bound(*fold_cost(bs, 1, 8)), None)}
+                                   *bound(*fold_cost(bs, 1, 8, **KC)), None)}
     chunk_bytes = bs * K * (K + M) * 8
     log(f"[twin] one {bs}-fold chunk at K={K}, M={M} ({chunk_bytes / 1e9:.3f} "
         f"GB out): kernel {chunk_ms['cuda']} ms, plain {chunk_ms['torch']} ms "
@@ -828,6 +855,43 @@ def main() -> int:
             f"[{card}]")
         return ms
 
+    def epilogue_chunk(label, total, prod, kvec, cvec):
+        """The in-place epilogue over a product chunk (F, K, C), timed in
+        turns with its twin and with a same-traffic ceiling: one in-place
+        PyTorch elementwise call over the same bytes, ``prod.sub_(total)``
+        (the product read and rewritten, total read, broadcast over the
+        folds), which computes another function and so is no library
+        counterpart. A product smaller than twice the L2 is timed over
+        copies, each call taking the next, so that none is still in L2
+        when its turn comes again and the time reads against the
+        device-memory bound (on the main path the ``bmm`` has just written
+        the product, so part of it may still be there). -> the kernels
+        line's (ms, plain ms, bound ms, bound by, library ms)."""
+        f, k, c = prod.shape
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        nbytes = prod.numel() * prod.element_size()
+        n_copies = 1 if nbytes >= 2 * l2 else 1 + -(-3 * l2 // nbytes)
+        prods = [prod] + [prod.clone() for _ in range(n_copies - 1)]
+        turn = {n: itertools.cycle(prods) for n in ("plain", "kernel", "sub_")}
+        ms = time_turns(f"{label} ({n_copies} product copies)", {
+            "plain": lambda: FD.fold_epilogue(total, next(turn["plain"]),
+                                              kvec, cvec, impl="torch"),
+            "kernel": lambda: FD.fold_epilogue(total, next(turn["kernel"]),
+                                               kvec, cvec, impl="cuda"),
+            "sub_": lambda: next(turn["sub_"]).sub_(total)},
+            {"plain": 3, "kernel": 10, "sub_": 10}, tag="epilogue-chunk")
+        del prods, turn
+        cost = epilogue_cost(f, k=k, c=c)
+        b = bound(*cost)
+        tb = cost[0] / 1e9
+        log(f"[epilogue-chunk] {label}: kernel {ms['kernel']:.4f} ms "
+            f"({tb / ms['kernel']:.2f} TB/s, {b[0] / ms['kernel']:.1%} of "
+            f"the bound), same-traffic ceiling prod.sub_(total) "
+            f"{ms['sub_']:.4f} ms ({tb / ms['sub_']:.2f} TB/s), plain "
+            f"{ms['plain']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}: "
+            f"{tb:.3f} GB at 3.35 TB/s)  [{card}]")
+        return ms["kernel"], ms["plain"], *b, None
+
     def product_flops(f, n_l):
         return 2 * f * n_l * K * (K + M)
 
@@ -851,7 +915,7 @@ def main() -> int:
         ops, impl=impl, out=buf if impl == "cuda" else None))
         for impl in ("cuda", "torch")}
     hold(label, "fold_packed", run["cuda"](), run["torch"]())
-    cost = fold_cost(bs_p, 4, 8, gathered=False)
+    cost = fold_cost(bs_p, 4, 8, gathered=False, **KC)
     ms = store_chunk(label + ", packed float64", {
         "plain": run["torch"], "kernel": run["cuda"],
         "torch.bmm": lambda: torch.bmm(ops.u.mT, ops.v)}, buf, cost)
@@ -875,7 +939,7 @@ def main() -> int:
             f"{lib:.4f} ms  [{card}]")
         if p == 1_000:  # the kernels line reports the product-bound chunk
             chunk_times["fold_v3"] = (
-                *pair, *bound(*fold_cost(bs_p, idx.shape[1], 8)), lib)
+                *pair, *bound(*fold_cost(bs_p, idx.shape[1], 8, **KC)), lib)
         del src, run
     total = torch.cat([st.XTX, st.XTY], dim=1)
     flags = TB._stat_flags(cfg, True, True)
@@ -903,7 +967,7 @@ def main() -> int:
                 *time_pair(label, name, run["cuda"], run["torch"],
                            buf.numel(),
                            flops=product_flops(bs_p, idx.shape[1])),
-                *bound(*fold_cost(bs_p, idx.shape[1], 8)), lib)
+                *bound(*fold_cost(bs_p, idx.shape[1], 8, **KC)), lib)
             log(f"[kfold-chunk] {label}: torch.bmm of the gathered blocks "
                 f"{lib:.4f} ms  [{card}]")
             del run
@@ -918,13 +982,9 @@ def main() -> int:
              FD.fold_epilogue(total, prod.clone(), kvec, cvec, impl="cuda"),
              FD.fold_epilogue(total, prod.clone(), kvec, cvec, impl="torch"))
         if p == 10:
-            chunk_times[name] = (*time_pair(
-                label + ", epilogue over the product", name,
-                lambda: FD.fold_epilogue(total, prod, kvec, cvec,
-                                         impl="cuda"),
-                lambda: FD.fold_epilogue(total, prod, kvec, cvec,
-                                         impl="torch"), prod.numel()),
-                *bound(*epilogue_cost(bs_p)), None)
+            chunk_times[name] = epilogue_chunk(
+                label + ", epilogue over the product", total, prod, kvec,
+                cvec)
         del prod, blocks, stats5
     buf = None
 
@@ -1143,7 +1203,7 @@ def main() -> int:
     chunk_times["fused_loocv_f32"] = (
         *time_pair(label, "fused_loocv_f32", run["cuda"], run["torch"],
                    buf.numel(), 4),
-        *bound(*fold_cost(bs, 1, 4)), None)
+        *bound(*fold_cost(bs, 1, 4, **KC)), None)
     del src, buf, run
 
     idx_loo = Partitioner(np.arange(N)).padded_batches()[1]
@@ -1245,7 +1305,7 @@ def main() -> int:
                                             n_sm)
             label += f", {splits} split(s)"
         hold(label, expect, run["cuda"](), run["torch"](), F32_TWIN_RTOL)
-        cost = fold_cost(bs_p, idx.shape[1], 4, gathered=False)
+        cost = fold_cost(bs_p, idx.shape[1], 4, gathered=False, **KC)
         chunk_bound = bound(*cost)
         if expect == "fold_packed_f32":
             ms = store_chunk(label + ", packed float32", {
@@ -1468,7 +1528,7 @@ def main() -> int:
             f"{x2name}: {bs_x2}-fold LOOCV chunk, {dtype_name(item)}", fns,
             {"plain": 3, "one per block": 20, "x2": 20})
         chunk_times[x2name] = (ms["x2"], ms["plain"],
-                               *bound(*fold_cost(bs_x2, 1, item)), None)
+                               *bound(*fold_cost(bs_x2, 1, item, **KC)), None)
         del src, buf1, buf2, ref
 
     src = prepare_loocv_sources(cfg, st, rows_chunk)
@@ -1491,9 +1551,9 @@ def main() -> int:
     upper_vs_full("fused_loocv_sym", buf2, buf1)
     ms = time_turns(f"fused_loocv_sym: {bs}-fold LOOCV chunk", fns,
                     {"plain sym": 3, "full kernel": 20, "sym kernel": 20})
-    chunk_times["fused_loocv_sym"] = (ms["sym kernel"], ms["plain sym"],
-                                      *bound(*fold_cost(bs, 1, 8, sym=True)),
-                                      None)
+    chunk_times["fused_loocv_sym"] = (
+        ms["sym kernel"], ms["plain sym"],
+        *bound(*fold_cost(bs, 1, 8, sym=True, **KC)), None)
     del src, buf1, buf2, ref
 
     for p in (10_000, 1_000):
@@ -1526,7 +1586,7 @@ def main() -> int:
         upper_vs_full("fold_v3_sym", buf2, buf1)
         ms = time_turns(label, fns, {"plain sym": 3, "full kernel": 10,
                                      "sym kernel": 10, "torch.bmm": 10})
-        sym_bound = bound(*fold_cost(bs_p, idx.shape[1], 8, sym=True))
+        sym_bound = bound(*fold_cost(bs_p, idx.shape[1], 8, sym=True, **KC))
         log(f"[policy-chunk] {label}: sym kernel {ms['sym kernel']:.4f} ms, "
             f"full kernel {ms['full kernel']:.4f} ms, torch.bmm of the "
             f"gathered blocks {ms['torch.bmm']:.4f} ms; bound "
@@ -1775,7 +1835,7 @@ def main() -> int:
         raise AssertionError(f"{label}: packed vs twin {d_packed:.3e}, "
                              f"smallfold vs packed {d_kernels:.3e} > "
                              f"{TWIN_RTOL:g} * {scale:.3e}")
-    cost = fold_cost(bs_p, 4, 8)
+    cost = fold_cost(bs_p, 4, 8, **KC)
     ms = store_chunk(label + ", small-fold float64", fns, buf1, cost)
     chunk_times["fold_smallfold"] = (ms["kernel"], ms["plain"], *bound(*cost),
                                      ms["torch.bmm"])
@@ -1830,7 +1890,7 @@ def main() -> int:
     label32 = label + ", small-fold float32"
     held("fold_smallfold_f32", fns["kernel"](), fns["plain"](),
          F32_TWIN_RTOL, label32)
-    store_chunk(label32, fns, buf1, fold_cost(bs_p, 4, 4))
+    store_chunk(label32, fns, buf1, fold_cost(bs_p, 4, 4, **KC))
     vector_share(label32, fns["kernel"])
     del src, buf1, a_blk, b_blk, fns
 
@@ -1948,14 +2008,27 @@ def main() -> int:
                                  f"by {d:.3e} >= 2^-58")
         sr_recon = max(sr_recon, d)
         del ref, recon, sl
-        ms = time_turns(f"slice_rows {layout}, {N:,} x {K}, 10 slices", {
-            "plain": lambda kw=kw: SR.slice_rows(xh, xl, pows, impl="torch",
-                                                 **kw),
-            "kernel": lambda kw=kw, buf=buf: SR.slice_rows(
-                xh, xl, pows, out=buf, **kw)},
-            {"plain": 3, "kernel": 20}, tag="slice_rows")
+        fns = {"plain": lambda kw=kw: SR.slice_rows(xh, xl, pows,
+                                                    impl="torch", **kw),
+               "kernel": lambda kw=kw, buf=buf: SR.slice_rows(
+                   xh, xl, pows, out=buf, **kw)}
+        if row_major:
+            # One slice beside ten: the cost of the rounds. A copy of the
+            # bytes the slicer moves (8 read and 10 written an element):
+            # the rate this card reaches, a ceiling beside the bound.
+            buf1 = torch.empty((N, 1, K), dtype=torch.int8, device=dev)
+            fns["kernel, 1 slice"] = lambda: SR.slice_rows(
+                xh, xl, pows, out=buf1, n_slices=1, row_major=True,
+                block_rows=32)
+            src, dst = (torch.empty(N * K * 9 // 8, dtype=torch.float64,
+                                    device=dev) for _ in range(2))
+            fns["copy_"] = lambda: dst.copy_(src)
+        ms = time_turns(f"slice_rows {layout}, {N:,} x {K}, 10 slices", fns,
+                        {"plain": 3, "kernel": 20, "kernel, 1 slice": 20,
+                         "copy_": 20}, tag="slice_rows")
         sr_ms[row_major] = ms
         del buf, got
+    del buf1, src, dst, fns
     nbytes = N * K * (8 + 10) + 2 * K * 4
     sr_bound = bound(nbytes, 12 * 10 * N * K)
     chunk_times["slice_rows"] = (sr_ms[True]["kernel"], sr_ms[True]["plain"],
@@ -1967,18 +2040,136 @@ def main() -> int:
         f"{2.0 ** -58:.3e}); kernel {sr_ms[True]['kernel']:.4f} / "
         f"{sr_ms[False]['kernel']:.4f} ms (row- / slice-major) against the "
         f"bound {sr_bound[0]:.4f} ms ({sr_bound[1]}: {nbytes / 1e9:.3f} GB at "
-        f"3.35 TB/s)  [{card}]")
+        f"3.35 TB/s), a copy of the same bytes {sr_ms[True]['copy_']:.4f} "
+        f"ms (the ceiling); row-major at one slice "
+        f"{sr_ms[True]['kernel, 1 slice']:.4f} ms, so an extra slice costs "
+        f"{(sr_ms[True]['kernel'] - sr_ms[True]['kernel, 1 slice']) / 9:.4f} "
+        f"ms  [{card}]")
     del xh, xl, scaled
 
-    # ---- 18. result ---------------------------------------------------------
+    # ---- 18. the wide-K path at full width -----------------------------
+    nw, kw, mw, pw = WIDEK
+    rng = np.random.default_rng(SEED)  # as bench.py builds its data
+    Xw = rng.random((nw, kw), dtype=np.float64)
+    Yw = rng.random((nw, mw), dtype=np.float64)
+    ww = rng.random(nw)
+    Xwd, Ywd, wwd = (torch.from_numpy(a).to(dev) for a in (Xw, Yw, ww))
+    _, idx_w, mask_w = Partitioner(np.arange(nw) % pw).padded_batches()
+    bs_w, n_chunks_w = chunking(pw, kw, kw + mw)
+    n_lw = idx_w.shape[1]
+    log(f"[widek] weighted TTTT f64 N={nw:,} K={kw:,} M={mw} P={pw} "
+        f"(L={n_lw}), {n_chunks_w} chunks of {bs_w}  [{card}]")
+
+    def cv_w():
+        return float(materialize_cv(cfg, Xwd, Ywd, wwd, idx_w, mask_w))
+
+    t_warm, _ = wall(cv_w)
+    total_calls = []  # [XTX | XTY] builds in the timed sweep
+    orig_total = TB._total
+
+    def counted_total(*a, **k):
+        total_calls.append(1)
+        return orig_total(*a, **k)
+
+    TB._total = counted_total
+    reset_launch_counts(FD, TL, SR)
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t_total, probe = wall(cv_w)
+    counts = launch_counts(FD, TL, SR)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    TB._total = orig_total
+    if (counts["fold_epilogue"] != n_chunks_w
+            or any(v for n, v in counts.items() if n != "fold_epilogue")):
+        raise AssertionError(f"wide K: launches {counts}; expected "
+                             f"{n_chunks_w} of fold_epilogue and no other")
+    if len(total_calls) != 1:
+        raise AssertionError(f"wide K: [XTX | XTY] built "
+                             f"{len(total_calls)} times in one sweep")
+    if not np.isfinite(probe):
+        raise AssertionError(f"wide K: probe is not finite: {probe}")
+    widek_launches = counts["fold_epilogue"]
+    t_fit, st_w = wall(lambda: fit(cfg, Xwd, Ywd, wwd, copy=False))
+    if TB.route_kernel(cfg, st_w, n_lw, True, True, False) != "epilogue":
+        raise AssertionError("wide K: the folds do not take the epilogue")
+    t_sweeps = [wall(lambda: float(materialize_sweep(cfg, st_w, idx_w)))[0]
+                for _ in range(2)]
+    log(f"[widek] materialize_cv: warm-up {t_warm:.4f} s, timed total "
+        f"{t_total:.4f} s -> {pw / t_total:.3f} folds/s; fold_epilogue "
+        f"launches {widek_launches}, no other kernel; [XTX | XTY] built "
+        f"{len(total_calls)} time(s) in the sweep; peak device memory "
+        f"{peak_gb:.2f} GB ({peak_gb - held_gb:.2f} GB above the "
+        f"{held_gb:.2f} GB held before the run); fit alone {t_fit:.4f} s; "
+        f"sweep alone {t_sweeps} s; probe {probe!r}")
+
+    # The first chunk: its product, then its epilogue against the twin.
+    rows_w, _ = TB._rows_mask(cfg, st_w, idx_w[:bs_w], None)
+    blocks, stats5 = TB._gather_and_stats(cfg, st_w, rows_w, None, True,
+                                          True)
+    kvec, cvec = TB._reference_vectors(cfg, st_w, stats5,
+                                       st_w.X.new_empty((bs_w, 0)), True,
+                                       True)
+    m2 = torch.cat([blocks.Xv_u, blocks.Yv_u], dim=2)
+    prod = torch.empty((bs_w, kw, kw + mw), dtype=torch.float64, device=dev)
+    with highest_precision():
+        bmm_ms = cuda_ms(lambda: torch.bmm(blocks.Xv_w.mT, m2, out=prod), 3)
+        torch.bmm(blocks.Xv_w.mT, m2, out=prod)
+    total_w = TB._total(st_w, True, True)
+    label = f"wide K chunk of {bs_w} fold x L={n_lw}, K={kw:,}, C={kw + mw:,}"
+    fold_err["fold_epilogue_widek"] = fold_rel["fold_epilogue_widek"] = 0.0
+    hold(label, "fold_epilogue_widek",
+         FD.fold_epilogue(total_w, prod.clone(), kvec, cvec, impl="cuda"),
+         FD.fold_epilogue(total_w, prod.clone(), kvec, cvec, impl="torch"))
+    flops_w = 2 * bs_w * n_lw * kw * (kw + mw)
+    log(f"[widek] {label}: product torch.bmm {bmm_ms:.4f} ms "
+        f"({flops_w / bmm_ms / 1e9:.1f} TFLOP/s)  [{card}]")
+    chunk_times["fold_epilogue_widek"] = epilogue_chunk(
+        label + ", epilogue over the product", total_w, prod, kvec, cvec)
+    ep_ms = chunk_times["fold_epilogue_widek"][0]
+    log(f"[widek] epilogue share of the sweep: {n_chunks_w} x {ep_ms:.4f} "
+        f"ms = {n_chunks_w * ep_ms / 1e3 / min(t_sweeps):.1%} of "
+        f"{min(t_sweeps):.4f} s; products {n_chunks_w} x {bmm_ms:.4f} ms "
+        f"= {n_chunks_w * bmm_ms / 1e3 / min(t_sweeps):.1%}")
+    del prod, blocks, stats5, m2, total_w
+
+    # The probe fold against the oracle on a column subset: centring and
+    # scaling act column by column, so the full-width run's entries of
+    # these columns are the oracle's on X[:, cols].
+    cols = np.r_[0:128, kw - 128:kw]
+    f_w = (n_chunks_w - 1) * bs_w
+    rows_f = idx_w[f_w]
+    (xtx_o, xty_o), _ = NaiveOracle(True, True, True, True, ddof=1).fit(
+        Xw[:, cols], Yw, ww).training_XTX_XTY(np.delete(np.arange(nw),
+                                                        rows_f))
+    expect = float(xtx_o[0, 0] + xty_o[0, 0])
+    if not abs(probe - expect) <= ORACLE_RTOL * abs(expect):
+        raise AssertionError(f"wide K: probe {probe!r} vs oracle "
+                             f"{expect!r} (fold {f_w})")
+    (xtx_g, xty_g), _ = TB.training_matrices_batched(cfg, st_w,
+                                                     idx_w[f_w:f_w + 1])
+    cols_d = torch.from_numpy(cols).to(dev)
+    got = torch.cat([xtx_g[0][cols_d][:, cols_d], xty_g[0][cols_d]],
+                    dim=1).cpu().numpy()
+    ref = np.concatenate([xtx_o, xty_o], axis=1)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=ORACLE_RTOL,
+                               atol=ORACLE_RTOL * scale)
+    log(f"[widek] oracle on the first and last 128 columns of X and Y, fold "
+        f"{f_w} ({rows_f.size} rows): probe relative "
+        f"{abs(probe - expect) / abs(expect):.3e}; max|port - oracle| "
+        f"{np.abs(got - ref).max():.3e} (max|oracle| {scale:.3e})")
+    del xtx_g, xty_g, st_w, Xwd, Ywd, wwd, Xw
+
+    # ---- 19. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,
-                       "slice_rows": slice_launches}
+                       "slice_rows": slice_launches,
+                       "fold_epilogue_widek": widek_launches}
     fold_err["fused_loocv"] = worst_abs
     names = ("fused_loocv", *ROUTE_WRAPPER.values(),
              *ROUTE_WRAPPER_F32.values(), *new_kernels, "fold_smallfold",
-             "slice_rows")
+             "slice_rows", "fold_epilogue_widek")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

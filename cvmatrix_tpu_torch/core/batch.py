@@ -945,8 +945,8 @@ def _reference_vectors(config, state, stats5, like, return_XTX,
                             q_vec=q_vec)
 
 
-def _large_fold_path(config, state, rows, mask, *, return_XTX, return_XTY,
-                     impl="auto", out=None):
+def _large_fold_path(config, state, rows, mask, *, total, return_XTX,
+                     return_XTY, impl="auto", out=None):
     """``(out, stats)`` of large folds in the reference form.
 
     ``(total - D - sw m1 (x) m2) (.) (r1 (x) r2)`` with ``D = Xv_w^T
@@ -957,8 +957,9 @@ def _large_fold_path(config, state, rows, mask, *, return_XTX, return_XTY,
     gathered blocks into ``out`` and the epilogue kernel rewrites it in
     place. The JAX path's opt-in SYRK product and its column-blocked
     product for very wide K (a TPU memory workaround) are not ported.
+    ``total`` is :func:`_total`'s [XTX | XTY] (or the one requested),
+    which a sweep builds once for all its chunks.
     """
-    total = _total(state, return_XTX, return_XTY)
     fused = _use_fused(config, state, return_XTX, return_XTY, rows.shape[1])
     if fused:
         stats5 = _summed_stats(config, state, rows, mask,
@@ -982,8 +983,8 @@ def _large_fold_path(config, state, rows, mask, *, return_XTX, return_XTY,
     return _fd.fold_epilogue(total, prod, kvec, cvec, impl=impl), stats5[:4]
 
 
-def _f32_kernel_path(config, state, rows, mask, *, return_XTX, return_XTY,
-                     impl="auto", out=None):
+def _f32_kernel_path(config, state, rows, mask, *, total, return_XTX,
+                     return_XTY, impl="auto", out=None):
     """``(out, stats)`` of float32 folds of at least ``LARGE_FOLD_ROWS``
     rows: the JAX f32 engine's ``_f32_kernel_path`` (JAX batch.py:1211).
 
@@ -992,6 +993,7 @@ def _f32_kernel_path(config, state, rows, mask, *, return_XTX, return_XTY,
     port of ``fused_downdate``: ``((total - xv^T m2) - a1 (x) mb) (.)
     (inv1 (x) inv2)`` with ``a1 = sw mX``, ``mb`` the means and ``inv`` the
     reciprocal stds (:func:`_reference_vectors`' ``kvec``/``cvec``).
+    ``total`` as in :func:`_large_fold_path`.
     """
     blocks, stats5 = _gather_and_stats(config, state, rows, mask,
                                        return_XTX, return_XTY)
@@ -1000,9 +1002,8 @@ def _f32_kernel_path(config, state, rows, mask, *, return_XTX, return_XTY,
                                     return_XTX, return_XTY)
     m2 = _xy_concat(blocks.Xv_u if return_XTX else None,
                     blocks.Yv_u if return_XTY else None)
-    out = _fd.fold_downdate_f32(_total(state, return_XTX, return_XTY),
-                                blocks.Xv_w, m2, kvec, cvec, impl=impl,
-                                out=out)
+    out = _fd.fold_downdate_f32(total, blocks.Xv_w, m2, kvec, cvec,
+                                impl=impl, out=out)
     return out, stats5[:4]
 
 
@@ -1026,6 +1027,7 @@ def training_matrices_batched(
     return_XTX: bool = True,
     return_XTY: bool = True,
     impl: str = "auto",
+    total=None,
 ):
     """Training matrices for an (F, L) batch of folds (indices in [-N, N),
     the negative ones wrapped) and an optional (F, L) 0/1 mask, on the host
@@ -1043,7 +1045,9 @@ def training_matrices_batched(
     CUDA, the twin on the CPU), ``"cuda"`` or ``"torch"`` (the twin). The
     JAX package's ``pair_output`` and ``trim_output`` return double-float
     pairs and padded tiles, which the port does not have, so they are not
-    ported.
+    ported. ``total``: the state's [XTX | XTY] (or the one requested) for
+    the large-fold routes, which otherwise build it on every call; a sweep
+    over many batches builds it once and passes it.
     """
     if impl not in _loocv.IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
@@ -1090,6 +1094,9 @@ def training_matrices_batched(
         rows, mask = _rows_mask(config, state, idx, mask_np)
         large = (_f32_kernel_path if route == "downdate_f32"
                  else _large_fold_path)
-        out, stats = large(config, state, rows, mask, return_XTX=return_XTX,
-                           return_XTY=return_XTY, impl=impl)
+        out, stats = large(config, state, rows, mask,
+                           total=(_total(state, return_XTX, return_XTY)
+                                  if total is None else total),
+                           return_XTX=return_XTX, return_XTY=return_XTY,
+                           impl=impl)
     return _split(out, state.K, return_XTX, return_XTY), stats

@@ -15,10 +15,11 @@ package's gates and routing policy: the hand-written kernel on CUDA, its
 plain twin on the CPU or with ``impl="torch"``. The LOOCV, packed (both
 dtypes) and v3 routes build their operands once for all folds and slice
 them per chunk; the large-fold routes (Ozaki-df64, ``bmm`` plus epilogue,
-and the float32 engine's ``fused_downdate``) gather and reduce chunk by
-chunk (hoisting L-row blocks for every fold would hold the whole dataset
-twice). A float32 sweep computes and writes float32; the chunk rule budgets
-8 bytes per element in either dtype, as the JAX package's does.
+and the float32 engine's ``fused_downdate``) build ``[XTX | XTY]`` once
+and gather and reduce chunk by chunk (hoisting L-row blocks for every fold
+would hold the whole dataset twice). A float32 sweep computes and writes
+float32; the chunk rule budgets 8 bytes per element in either dtype, as
+the JAX package's does.
 
 ``cross_validate`` yields each chunk's per-fold engine results;
 ``cross_validate_reduce`` maps a user reduction over every fold's matrices
@@ -178,12 +179,14 @@ def materialize_sweep(
         rows, mask_d = _rows_mask(config, state, idx, mask)
         large = (_f32_kernel_path if route == "downdate_f32"
                  else _large_fold_path)
+        # [XTX | XTY] once for every chunk (3.2 GB at K = 20,000)
+        total = _batch._total(state, return_XTX, return_XTY)
         for c in range(n_chunks):
             sl = slice(c * bs, (c + 1) * bs)
             large(config, state, rows[sl],
                   None if mask_d is None else mask_d[sl],
                   return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
-                  out=buf)
+                  out=buf, total=total)
     if return_XTX and return_XTY:
         return buf[0, 0, 0] + buf[0, 0, k]
     return buf[0, 0, 0]
@@ -408,13 +411,16 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
             <= _batch._HOIST_BUDGET_BYTES):
         return _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn,
                                return_XTY, impl)
-    # Generic body: every chunk through training_matrices_batched.
+    # Generic body: every chunk through training_matrices_batched, with
+    # [XTX | XTY] built once for every chunk (3.2 GB at K = 20,000).
+    total = _batch._total(state, return_XTX, return_XTY)
     out = []
     for c0 in range(0, n_total, bs):
         mats, stats = _batch.training_matrices_batched(
             config, state, idx[c0:c0 + bs],
             None if mask is None else mask[c0:c0 + bs],
-            return_XTX=return_XTX, return_XTY=return_XTY, impl=impl)
+            return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
+            total=total)
         out.append(_vmap_reduce(reduce_fn, mats, stats))
     return out
 

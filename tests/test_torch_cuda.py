@@ -848,3 +848,105 @@ def test_rowstream_tile_smallfold(dev, dtype, n_l):
         torch.cuda.synchronize()
         assert torch.equal(got, again), (k, m, f, masked, view)
         _row_check(got, ref, dtype)
+
+
+# ---- the epilogue's column-stationary stream and the vector slicer ------- #
+
+# (K, C) of the epilogue's edges: C = K (M = 0, or XTX alone), K + 1 (odd,
+# M = 1), K + 10 and M alone (XTY alone), at K = 37 (not a multiple of any
+# row band) and K = 500; C = 1,031 takes three column strips, odd.
+EPILOGUE_KC = ((37, 37), (37, 38), (37, 47), (37, 1), (37, 10), (500, 500),
+               (500, 501), (500, 510), (130, 1031))
+
+
+@pytest.mark.parametrize("f", ROW_F)
+@pytest.mark.parametrize("k,c", EPILOGUE_KC)
+def test_epilogue_kernel_edges(dev, k, c, f):
+    """fold_epilogue against its twin within 1e-12 of the twin's largest
+    entry, in place, with prod a fold-offset view of a larger buffer (its
+    rows then start 8 bytes off a 16-byte boundary where C is odd) and
+    not; one launch a call, a second call on a copy of the same product
+    bit-equal to the first, and the fold before the view untouched."""
+    rng = np.random.default_rng(60 + k + c + f)
+    for view in (False, True):
+        g = f + view
+
+        def t(*shape):
+            return torch.from_numpy(rng.random(shape)).to(dev)
+
+        total, prod, kvec, cvec = t(k, c), t(g, k, c), t(g, 2, k), t(g, 2, c)
+        vecs = (kvec[view:], cvec[view:])
+        a, b = prod.clone(), prod.clone()
+        got = _one_launch("fold_epilogue", lambda: TFD.fold_epilogue(
+            total, a[view:], *vecs))
+        assert got.data_ptr() == a[view:].data_ptr()
+        TFD.fold_epilogue(total, b[view:], *vecs)
+        ref = TFD.epilogue_reference(total, prod[view:], *vecs)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), (k, c, f, view)
+        assert torch.equal(a[:view], prod[:view])
+        assert (got - ref).abs().max().item() <= (
+            1e-12 * ref.abs().max().item()), (k, c, f, view)
+
+
+def test_epilogue_route_at_wide_k(dev):
+    """K = 1,100, M = 1 (C odd, padded width over 512) through
+    training_matrices_batched: the bmm + epilogue route, one epilogue
+    launch, within 1e-12 of the twin route's largest entry."""
+    rng = np.random.default_rng(61)
+    n, k = 600, 1100
+    X, Y, w = rng.random((n, k)), rng.random((n, 1)), rng.random(n)
+    cfg = T.CVConfig(True, True, True, True, ddof=1)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx = np.arange(n).reshape(3, 200)
+    assert TB.route_kernel(cfg, st, 200, True, True, False) == "epilogue"
+    (gx, gy), _ = _one_launch("fold_epilogue", lambda: (
+        TB.training_matrices_batched(cfg, st, idx)))
+    (rx, ry), _ = TB.training_matrices_batched(cfg, st, idx, impl="torch")
+    torch.cuda.synchronize()
+    for a, b in ((gx, rx), (gy, ry)):
+        assert (a - b).abs().max().item() <= 1e-12 * b.abs().max().item()
+
+
+def _offset_plane(a, dev):
+    """``a`` as a contiguous float32 view 4 bytes into a larger buffer, so
+    that no row starts 16-byte aligned."""
+    buf = torch.empty(a.size + 1, dtype=torch.float32, device=dev)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+@pytest.mark.parametrize("row_major", [True, False])
+@pytest.mark.parametrize("k", [1, 3, 500, 501])
+def test_slice_rows_kernel_edges(dev, k, row_major):
+    """The slicer bit for bit its twin at K = 1, 3, 500 (the vector path)
+    and 501 (ragged), N = 1 and 40, the planes contiguous and as offset
+    views (the scalar path); one launch a call and a second call
+    bit-equal to the first."""
+    from cvmatrix_tpu_torch.ops import slice_rows as TSR
+
+    rng = np.random.default_rng(70 + k)
+    for n, view in itertools.product((1, 40), (False, True)):
+        x = rng.normal(size=(n, k)) * 10.0 ** rng.integers(-6, 6, (1, k))
+        e = np.frexp(np.abs(x).max(axis=0).astype(np.float32))[1]
+        h1 = np.clip(-e, -127, 127)
+        pows = torch.from_numpy(np.stack([
+            np.ldexp(np.float32(1), h1), np.ldexp(np.float32(1), -e - h1),
+        ]).astype(np.float32)).to(dev)
+        xh = x.astype(np.float32)
+        xl = (x - xh.astype(np.float64)).astype(np.float32)
+        if view:
+            xh, xl = _offset_plane(xh, dev), _offset_plane(xl, dev)
+        else:
+            xh, xl = (torch.from_numpy(a).to(dev) for a in (xh, xl))
+        kw = dict(n_slices=10, row_major=row_major, block_rows=n)
+        before = TSR.slice_rows.launches
+        got = TSR.slice_rows(xh, xl, pows, **kw)
+        assert TSR.slice_rows.launches == before + 1
+        again = TSR.slice_rows(xh, xl, pows, **kw)
+        ref = TSR.slice_rows(xh, xl, pows, impl="torch", **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8
+        assert torch.equal(got, ref), (k, n, view, row_major)
+        assert torch.equal(got, again)

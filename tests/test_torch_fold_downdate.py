@@ -92,8 +92,10 @@ def run_route(route, cfg, st, idx, mask, xtx, xty, impl="auto"):
         cfg = dataclasses.replace(cfg, matmul_mode="native")
     assert TB._use_fused(cfg, st, xtx, xty, idx.shape[1]) == (
         route == "ozaki_df64")
-    return TB._large_fold_path(cfg, st, rows, mk, return_XTX=xtx,
-                               return_XTY=xty, impl=impl)[0]
+    return TB._large_fold_path(cfg, st, rows, mk,
+                               total=TB._total(st, xtx, xty),
+                               return_XTX=xtx, return_XTY=xty,
+                               impl=impl)[0]
 
 
 def as_np(mats, xtx, xty):
@@ -218,6 +220,59 @@ def test_epilogue_twin_matches_jax_kernel(interpret_pallas):
     (gx, gy), _ = TB.training_matrices_batched(cfg, st, idx, mask)
     assert_allclose(gx.numpy(), np.asarray(ref[0]), atol=1e-10, rtol=0)
     assert_allclose(gy.numpy(), np.asarray(ref[1]), atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("xty", [True, False])
+def test_epilogue_twin_matches_jax_kernel_odd_c_and_xtx_alone(
+        interpret_pallas, monkeypatch, xty):
+    """Against fused_epilogue_df64 in interpret mode at the wide-K
+    configuration's widths: C = K + 1 (M = 1, odd) and C = K (XTX alone).
+    In "native" mode neither package takes v3 or fuses, so both reach the
+    epilogue kernel, which the JAX path is seen to call."""
+    calls = []
+    orig = JK.fused_epilogue_df64
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(JK, "fused_epilogue_df64", counted)
+    jcfg, js, cfg, st = fit_both((True,) * 4, True, True, mode="native",
+                                 y=Y_ALL[:, :1])
+    _, idx, mask = J.Partitioner(FOLDS).padded_batches()
+    assert TB.route_kernel(cfg, st, idx.shape[1], True, xty,
+                           True) == "epilogue"
+    ref, _ = JB.training_matrices_batched(jcfg, js, idx, mask,
+                                          return_XTY=xty, impl="pallas")
+    assert calls
+    got, _ = TB.training_matrices_batched(cfg, st, idx, mask, return_XTY=xty)
+    got = as_np(got, True, xty)
+    assert got.shape[2] == K + (1 if xty else 0)
+    assert_allclose(got, as_np(ref, True, xty), atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_k_epilogue_route_matches_jax_engine(masked):
+    """K = 520 (padded 640 > 512) with M = 1, as the wide-K configuration
+    (K = 20,000, M = 1) routes: no v3, no fusion, so a ``bmm`` and the
+    epilogue; against the JAX XLA engine at 1e-10, [XTX | XTY] and XTX
+    alone."""
+    rng = np.random.default_rng(9)
+    n, k = 600, 520
+    x, y, w = rng.random((n, k)), rng.random((n, 1)), rng.random(n)
+    jcfg = J.CVConfig(True, True, True, True, ddof=1)
+    js = J.fit(jcfg, x, y, w)
+    cfg, st = T.CVConfig(True, True, True, True, ddof=1), port_state(js)
+    idx = np.arange(n).reshape(5, 120)
+    mask = _mask(idx, 7) if masked else None
+    for xty in (True, False):
+        assert TB.route_kernel(cfg, st, 120, True, xty, masked) == "epilogue"
+        ref, _ = JB.training_matrices_batched(jcfg, js, idx, mask,
+                                              return_XTY=xty, impl="xla")
+        got, _ = TB.training_matrices_batched(cfg, st, idx, mask,
+                                              return_XTY=xty)
+        assert_allclose(as_np(got, True, xty), as_np(ref, True, xty),
+                        atol=1e-10, rtol=0)
 
 
 @pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,

@@ -164,6 +164,55 @@ def test_f32_probe_matches_jax_and_fold_engine(case):
     assert_allclose(float(got), float(expect), rtol=1e-4)
 
 
+@pytest.mark.parametrize("sweep", ["materialize", "reduce"])
+@pytest.mark.parametrize("route", ["epilogue", "downdate_f32"])
+def test_large_fold_sweep_builds_total_once(monkeypatch, route, sweep):
+    """The large-fold sweeps (the ``bmm`` + epilogue route and
+    ``fused_downdate``; materialize_sweep's branch and the generic body of
+    cross_validate_reduce) build [XTX | XTY] once for their three chunks,
+    not once a chunk; the result still matches the JAX package's sweep:
+    the probe at 1e-8 absolute in float64 and 1e-4 relative in float32,
+    every fold's matrices at 1e-10 of the largest entry in float64 and at
+    5e-4 in float32 (on this data the port's float32 matrices are 2.5e-4
+    of the largest entry off its float64 ones, the JAX package's 3.4e-4)."""
+    f32 = route == "downdate_f32"
+    data = (X32, Y32, W32) if f32 else (X_K, Y_K, zero_fraction(W_K))
+    kw = dict(dtype=np.float32) if f32 else dict(matmul_mode="native")
+    cfg = T.CVConfig(True, True, True, True, **kw)
+    jcfg = J.CVConfig(True, True, True, True, **kw)
+    idx = np.arange(200).reshape(5, 40)
+    st = T.fit(cfg, *data, device="cpu")
+    assert TB.route_kernel(cfg, st, 40, True, True, False) == route
+    assert TS.chunking(5, 5, 7, 2) == (2, 3)
+    calls = []
+    orig = TB._total
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(TB, "_total", counted)
+    if sweep == "materialize":
+        got = float(TS.materialize_sweep(cfg, st, idx, batch_size=2))
+        ref = float(JS.materialize_cv(jcfg, *data, idx, batch_size=2,
+                                      impl="xla"))
+    else:  # every fold's matrices, the reduction the identity
+        got = torch.cat(TS.cross_validate_reduce(
+            cfg, st, idx, batch_size=2, reduce_fn=lambda mats, stats: mats),
+            dim=2).numpy()
+        ref = np.concatenate(JS.cross_validate_reduce(
+            jcfg, J.fit(jcfg, *data), idx, batch_size=2,
+            reduce_fn=lambda mats, stats: mats), axis=2)
+        assert got.shape == ref.shape == (5, 5, 7)
+    assert len(calls) == 1
+    if sweep == "materialize":
+        assert_allclose(got, ref, rtol=1e-4) if f32 else assert_allclose(
+            got, ref, atol=1e-8, rtol=0)
+    else:
+        assert_allclose(got, ref, rtol=0,
+                        atol=(5e-4 if f32 else 1e-10) * np.abs(ref).max())
+
+
 def test_chunking_rule():
     """The JAX package's rule: 4 GB / (16 B K C), at most 2000, equalised."""
     assert TS.chunking(100_000, 500, 510) == (971, 103)
