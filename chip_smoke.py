@@ -147,11 +147,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
     against the twin at 1e-12 and timed as in phase 6; the probe and the
     probe fold's entries on the first and last 128 columns of X and on Y
     against ``tests/oracle.py`` fitted on those columns, at 1e-10.
-19. Prints the kernels' JSON line (fourteen kernels, each with its bound and
+19. The mesh layer (``cvmatrix_tpu_torch.parallel``). (a) World size 1 on
+    NCCL (an in-process store, no port): ``fit_sharded`` and, at full
+    width (phase 4's data), ``sharded_cross_validate_reduce`` with
+    ``diag_fn`` at LOOCV (the natural-order path), P=25,000 (small-fold
+    hoisted), P=1,000 (v3 hoisted), P=100 (generic, Ozaki-df64) and P=10
+    (generic, ``torch.bmm`` and the epilogue), in float32 at LOOCV,
+    P=25,000 and P=1,000 (``fused_downdate``), and
+    ``sharded_training_matrices`` at P=1,000; then on the first 20,000
+    rows the cases of the two-rank check and the policy rows (df64x2,
+    sym_loocv and f32x2 LOOCV, sym_loocv at P=200). Every run with the
+    launch counts at 0 just before it: its one kernel launched and no
+    other; its result against the single-device port at 1e-10 of the
+    largest entry (float32 1e-4) and one fold against ``tests/oracle.py``.
+    Times, host clock after a warm-up: the sharded reduce beside
+    ``cross_validate_reduce`` at LOOCV and P=25,000, ``fit_sharded``
+    beside ``fit``, and the collectives at world size 1. (b) Two ranks on
+    the one card over gloo (this script with ``--mesh-rank``, two
+    processes, the collectives through host copies) on the first 20,000
+    rows, held against (a)'s one-rank results. Every kernel the mesh path
+    reaches must have launched.
+20. Prints the kernels' JSON line (fourteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
-    function, and the epilogue again as ``fold_epilogue_widek`` on the
-    wide-K path), the card's name and power limit, and as the last line
-    ``{"ok": true, "device": {...}}``.
+    function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
+    path, and each one's ``mesh_launches`` in phase 19 (a)), the card's
+    name and power limit, and as the last line ``{"ok": true, "device":
+    {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -162,8 +183,11 @@ import importlib.util
 import itertools
 import json
 import shutil
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -336,6 +360,125 @@ def reset_launch_counts(*mods) -> None:
         mod.reset_launch_counts()
 
 
+# The mesh layer (phase 19): the rows of the two-rank check and of the
+# policy rows, and (label, dtype, P, the kernel its folds must launch) of
+# the sharded runs; "matrices" runs sharded_training_matrices, every other
+# run sharded_cross_validate_reduce with diag_fn.
+MESH_N = 20_000
+# the kernels the mesh path must launch (all but the small-fold kernel and
+# the slicer, which no gate reaches), and its bound against the single-
+# device port in float64, of the largest entry
+MESH_KERNELS = ("fused_loocv", "fold_packed", "fold_epilogue",
+                "fold_packed_f32", "fold_downdate_f32", "fused_loocv_x2",
+                "fused_loocv_sym", "fold_ozaki_df64", "fused_loocv_f32",
+                "fused_loocv_f32x2", "fold_v3", "fold_v3_sym")
+MESH_RTOL = 1e-10
+MESH_FULL = (("LOOCV", np.float64, N, "fused_loocv"),
+             ("P=25,000", np.float64, 25_000, "fold_packed"),
+             ("P=1,000", np.float64, 1_000, "fold_v3"),
+             ("P=100", np.float64, 100, "fold_ozaki_df64"),
+             ("P=10", np.float64, 10, "fold_epilogue"),
+             ("float32 LOOCV", np.float32, N, "fused_loocv_f32"),
+             ("float32 P=25,000", np.float32, 25_000, "fold_packed_f32"),
+             ("float32 P=1,000", np.float32, 1_000, "fold_downdate_f32"),
+             ("matrices P=1,000", np.float64, 1_000, "fold_v3"))
+MESH_SMALL = (("LOOCV", np.float64, MESH_N, "fused_loocv"),
+              ("P=5,000", np.float64, 5_000, "fold_packed"),
+              ("P=200", np.float64, 200, "fold_v3"),
+              ("P=20", np.float64, 20, "fold_ozaki_df64"),
+              ("float32 LOOCV", np.float32, MESH_N, "fused_loocv_f32"),
+              ("matrices P=200", np.float64, 200, "fold_v3"))
+# The policy rows on MESH_N rows: (label, set_routing knobs, dtype, P, the
+# kernel, batch_size: even where the two-folds-per-block kernel must run).
+MESH_POLICY = (("df64x2 LOOCV", dict(df64x2=True), np.float64, MESH_N,
+                "fused_loocv_x2", 1_000),
+               ("sym_loocv LOOCV", dict(sym_loocv=True), np.float64, MESH_N,
+                "fused_loocv_sym", None),
+               ("f32x2 float32 LOOCV", dict(f32x2=True), np.float32, MESH_N,
+                "fused_loocv_f32x2", 1_000),
+               ("sym_loocv P=200", dict(sym_loocv=True), np.float64, 200,
+                "fold_v3_sym", None))
+
+
+def diag_fn(mats, stats):
+    """A fold's reduction on the mesh phase: the diagonal of XTX and the
+    first row of XTY (K + M values, which the oracle can check)."""
+    return torch.cat([mats[0].diagonal(), mats[1][0]])
+
+
+def main_data():
+    """Phase 4's data: X, Y and the weights from seed 42."""
+    rng = np.random.default_rng(SEED)
+    X = rng.random((N, K), dtype=np.float64)
+    Y = rng.random((N, M), dtype=np.float64)
+    return X, Y, rng.random(N)
+
+
+def run_mesh(mesh, X, Y, w, cases, knobs=None, batch_size=None):
+    """Each case through the mesh layer on ``mesh``: ``fit_sharded`` once a
+    dtype, then the case, with every launch count at 0 just before it.
+    Returns ``{label: (seconds, result on the host, launch counts)}``; the
+    result is the reduction (P, K + M) or, for "matrices", the first and
+    last folds' [XTX | XTY]."""
+    from cvmatrix_tpu_torch import CVConfig, Partitioner, set_routing
+    from cvmatrix_tpu_torch.ops import fold_downdate as FD
+    from cvmatrix_tpu_torch.ops import loocv as TL
+    from cvmatrix_tpu_torch.ops import slice_rows as SR
+    from cvmatrix_tpu_torch.parallel import distributed as PD
+
+    states, out = {}, {}
+    for label, dt, p, _ in cases:
+        cfg = CVConfig(True, True, True, True, ddof=1, dtype=dt)
+        if dt not in states:
+            states[dt] = PD.fit_sharded(cfg, mesh, *(
+                a.astype(dt, copy=False) for a in (X, Y, w)))
+        _, idx, mask = Partitioner(np.arange(X.shape[0]) % p).padded_batches()
+
+        def run(st=states[dt], cfg=cfg, idx=idx, mask=mask, label=label):
+            if label.startswith("matrices"):
+                (xtx, xty), _ = PD.sharded_training_matrices(
+                    cfg, st, idx, mask, mesh=mesh)
+                return torch.cat([xtx[[0, -1]], xty[[0, -1]]], dim=2)
+            return PD.sharded_cross_validate_reduce(
+                cfg, st, idx, mask, mesh=mesh, reduce_fn=diag_fn,
+                batch_size=batch_size)
+
+        if knobs is not None:
+            set_routing(**knobs[label])
+        for mod in (FD, TL, SR):
+            mod.reset_launch_counts()
+        t, res = wall(run)
+        counts = {n: c for mod in (FD, TL, SR)
+                  for n, c in mod.launch_counts().items()}
+        out[label] = (t, res.cpu().numpy(), counts)
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, out_path: str) -> int:
+    """One rank of phase 19's two-rank check: gloo over localhost, the card
+    shared; rank 0 writes the results to ``out_path``."""
+    import torch.distributed as dist
+
+    from cvmatrix_tpu_torch.parallel import distributed as PD
+    from cvmatrix_tpu_torch.parallel import multihost as MH
+
+    MH.initialize(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo",
+                  device_type="cuda")
+    try:
+        X, Y, w = (a[:MESH_N] for a in main_data())
+        res = run_mesh(PD.make_mesh("cuda"), X, Y, w, MESH_SMALL)
+    finally:
+        dist.destroy_process_group()
+    for label, (t, _, counts) in res.items():
+        log(f"[mesh-rank {rank}] {label}: {t:.4f} s, launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+    if rank == 0:
+        np.savez(out_path, **{k: v for label, (t, r, counts) in res.items()
+                              for k, v in ((label, r), (label + "/t", t), (
+                                  label + "/counts", json.dumps(counts)))})
+    return 0
+
+
 def main() -> int:
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -440,10 +583,7 @@ def main() -> int:
     log(f"[twin] {cases} small cases (N={n_small}, 64 folds): worst "
         f"max|diff| {worst_abs:.3e}, worst relative {worst_rel:.3e}")
 
-    rng = np.random.default_rng(SEED)
-    X = rng.random((N, K), dtype=np.float64)
-    Y = rng.random((N, M), dtype=np.float64)
-    weights = rng.random(N)
+    X, Y, weights = main_data()
     cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
     Xd, Yd, wd = (torch.from_numpy(a).to(dev) for a in (X, Y, weights))
     st = fit(cfg, Xd, Yd, wd, copy=False)
@@ -2160,7 +2300,205 @@ def main() -> int:
         f"{np.abs(got - ref).max():.3e} (max|oracle| {scale:.3e})")
     del xtx_g, xty_g, st_w, Xwd, Ywd, wwd, Xw
 
-    # ---- 19. result ---------------------------------------------------------
+    # ---- 19. the mesh layer ------------------------------------------------
+    import torch.distributed as dist
+
+    from cvmatrix_tpu_torch.parallel import distributed as PD
+    from cvmatrix_tpu_torch.parallel import multihost as MH
+
+    t_phase = time.perf_counter()
+    mesh_launches = dict.fromkeys(MESH_KERNELS, 0)
+    oracles = {(np.float64, N): naive, (np.float32, N): naive32}
+    data_n = {N: (X, Y, weights)}
+    data_n[MESH_N] = tuple(a[:MESH_N] for a in data_n[N])
+    dev_n = {(np.float64, N): (Xd, Yd, wd), (np.float32, N): (Xd32, Yd32, wd32)}
+    for dt in (np.float64, np.float32):
+        dev_n[dt, MESH_N] = tuple(a[:MESH_N] for a in dev_n[dt, N])
+        oracles[dt, MESH_N] = NaiveOracle(True, True, True, True, ddof=1).fit(
+            *(a.astype(dt).astype(np.float64) for a in data_n[MESH_N]))
+    single_states = {}
+
+    def single(dt, n):
+        """The single-device port's fit of the same rows, on the card."""
+        if (dt, n) not in single_states:
+            single_states[dt, n] = fit(
+                CVConfig(True, True, True, True, ddof=1, dtype=dt),
+                *dev_n[dt, n], copy=False)
+        return single_states[dt, n]
+
+    def mesh_ref(label, dt, p, n, batch_size=None):
+        """The single-device port's result of a mesh case."""
+        cfg_r = CVConfig(True, True, True, True, ddof=1, dtype=dt)
+        _, idx, mask = Partitioner(np.arange(n) % p).padded_batches()
+        if label.startswith("matrices"):
+            (xtx, xty), _ = TB.training_matrices_batched(
+                cfg_r, single(dt, n), idx, mask)
+            return torch.cat([xtx[[0, -1]], xty[[0, -1]]], dim=2).cpu().numpy()
+        return cross_validate_reduce(
+            cfg_r, single(dt, n), idx, mask, reduce_fn=diag_fn,
+            **({} if batch_size is None else dict(batch_size=batch_size))
+        ).cpu().numpy()
+
+    def mesh_check(where, res, cases, n, refs=None, batch_size=None,
+                   tally=True):
+        """Each case: its kernel and no other launched, the result against
+        the single-device port's (or ``refs``) at 1e-10 of its largest entry
+        (1e-4 in float32), one fold against the oracle (1e-10, or 1e-3 of the
+        oracle's largest entry in float32). ``tally`` adds the launches to
+        the mesh path's counts."""
+        for label, dt, p, expect in cases:
+            t, got, counts = res[label]
+            if not counts[expect] or any(
+                    c for name, c in counts.items() if name != expect):
+                raise AssertionError(f"mesh {where} {label}: launches "
+                                     f"{counts}; expected {expect} only")
+            ref = (mesh_ref(label, dt, p, n, batch_size) if refs is None
+                   else refs[label])
+            f64 = dt == np.float64
+            rtol = MESH_RTOL if f64 else F32_TWIN_RTOL
+            err = np.abs(got - ref).max()
+            scale = np.abs(ref).max()
+            if got.shape != ref.shape or not err <= rtol * scale:
+                raise AssertionError(
+                    f"mesh {where} {label}: {got.shape} vs {ref.shape}, "
+                    f"max|diff| {err:.3e} > {rtol:g} * {scale:.3e}")
+            f = 0 if label.startswith("matrices") else p // 2
+            _, idx, _ = Partitioner(np.arange(n) % p).padded_batches()
+            (xtx, xty), _ = oracles[dt, n].training_XTX_XTY(
+                np.delete(np.arange(n), idx[f]))
+            full = np.concatenate([xtx, xty], axis=1)
+            want, mine = ((full, got[0]) if label.startswith("matrices")
+                          else (np.concatenate([np.diag(xtx), xty[0]]),
+                                got[f]))
+            o_err = np.abs(mine - want).max()
+            o_scale = np.abs(full).max()
+            o_tol = ORACLE_RTOL if f64 else F32_ORACLE_RTOL
+            if not o_err <= o_tol * o_scale:
+                raise AssertionError(
+                    f"mesh {where} {label}: fold {f} against the oracle "
+                    f"{o_err:.3e} > {o_tol:g} * {o_scale:.3e}")
+            if tally:
+                mesh_launches[expect] += counts[expect]
+            log(f"[mesh] {where} {label} (N={n:,}): {t:.4f} s, {expect} "
+                f"launches {counts[expect]}, no other kernel; against "
+                f"{'the single-device port' if refs is None else 'one rank'}"
+                f" {err / scale:.3e} relative; fold {f} against the oracle "
+                f"{o_err / o_scale:.3e}")
+
+    # (a) world size 1 on NCCL, at full width and on MESH_N rows
+    MH.initialize(world_size=1, rank=0)
+    try:
+        mesh1 = PD.make_mesh("cuda")
+        log(f"[mesh] world size 1, backend "
+            f"{dist.get_backend(PD._group(mesh1))}, mesh {mesh1}  [{card}]")
+        full = run_mesh(mesh1, X, Y, weights, MESH_FULL)
+        mesh_check("w=1", full, MESH_FULL, N)
+        small = run_mesh(mesh1, *data_n[MESH_N], MESH_SMALL)
+        mesh_check("w=1", small, MESH_SMALL, MESH_N)
+        for label, knobs, dt, p, expect, bs_p in MESH_POLICY:
+            try:
+                res = run_mesh(mesh1, *data_n[MESH_N], [(label, dt, p, expect)],
+                               knobs={label: knobs}, batch_size=bs_p)
+                set_routing(**knobs)
+                mesh_check("w=1", res, [(label, dt, p, expect)], MESH_N,
+                           batch_size=bs_p)
+            finally:
+                set_routing(**vars(default_policy))
+
+        # times: the sharded sweeps beside the single-device ones, warm
+        st_m = PD.fit_sharded(cfg, mesh1, X, Y, weights)
+        t_fit_m = min(wall(lambda: PD.fit_sharded(cfg, mesh1, X, Y,
+                                                  weights))[0]
+                      for _ in range(2))
+        t_fit_1 = min(wall(lambda: fit(cfg, X, Y, weights, device=dev))[0]
+                      for _ in range(2))
+        log(f"[mesh] fit_sharded from host arrays {t_fit_m:.4f} s, fit from "
+            f"the same host arrays {t_fit_1:.4f} s (best of two)  [{card}]")
+        for label, p in (("LOOCV", N), ("P=25,000", 25_000)):
+            _, idx, mask = Partitioner(np.arange(N) % p).padded_batches()
+            bs_m = PD._default_batch(st_m, idx.shape[1], 1, True, True, 4e9)
+            runs = {
+                "sharded": lambda: PD.sharded_cross_validate_reduce(
+                    cfg, st_m, idx, mask, mesh=mesh1, reduce_fn=diag_fn),
+                f"single, batch {bs_m}": lambda: cross_validate_reduce(
+                    cfg, single(np.float64, N), idx, mask, reduce_fn=diag_fn,
+                    batch_size=bs_m),
+                "single, batch 512": lambda: cross_validate_reduce(
+                    cfg, single(np.float64, N), idx, mask, reduce_fn=diag_fn),
+            }
+            times = {name: [] for name in runs}
+            for name in runs:
+                wall(runs[name])  # warm-up
+            for name in [*runs, *reversed(runs)] * 3 + [*runs]:  # in turns
+                times[name].append(wall(runs[name])[0])
+            red = runs["sharded"]()
+            t_gather = min(wall(lambda: PD._all_gather(mesh1, red))[0]
+                           for _ in range(3))
+            med = {name: float(np.median(v)) for name, v in times.items()}
+            log(f"[mesh] reduce sweep {label}, weighted TTTT f64 N={N:,}, "
+                "seven runs each in turns: "
+                + "; ".join(f"{name} {v}" for name, v in times.items())
+                + f" s; medians: sharded / single at batch {bs_m} "
+                f"{med['sharded'] / med[f'single, batch {bs_m}']:.3f}, / "
+                f"single at 512 {med['sharded'] / med['single, batch 512']:.3f}; "
+                f"the reductions' all_gather ({red.numel() * 8 / 1e9:.3f} GB) "
+                f"{t_gather * 1e3:.3f} ms  [{card}]")
+            del red
+            if p == N:
+                for name in runs:
+                    device_busy(f"mesh {label}: {name}", runs[name])
+        flat = torch.zeros(K * (K + M) + 2 * (K + M) + 1, dtype=torch.float64,
+                           device=dev)
+        t_red = min(wall(lambda: PD._all_reduce(mesh1, flat))[0]
+                    for _ in range(5))
+        log(f"[mesh] world-size-1 NCCL all_reduce of the fit's "
+            f"{flat.numel() * 8 / 1e6:.2f} MB {t_red * 1e3:.3f} ms  [{card}]")
+        del st_m, full, flat
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card over gloo, held against (a)'s results
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        out_path = os.path.join(tmp, "rank0.npz")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), "2", str(port), out_path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=600)[0])
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+        t_two = time.perf_counter() - t0
+        for r, (proc, text) in enumerate(zip(procs, logs)):
+            for line in text.splitlines()[-12:]:
+                log(f"[mesh] two ranks, rank {r}: {line}")
+            if proc.returncode:
+                raise AssertionError(f"two-rank mesh run: rank {r} exited "
+                                     f"{proc.returncode}")
+        with np.load(out_path) as two:
+            res2 = {label: (float(two[label + "/t"]), two[label],
+                            json.loads(str(two[label + "/counts"])))
+                    for label, *_ in MESH_SMALL}
+    mesh_check("w=2 gloo", res2, MESH_SMALL, MESH_N,
+               refs={label: small[label][1] for label, *_ in MESH_SMALL},
+               tally=False)
+    if not all(mesh_launches.values()):
+        raise AssertionError(f"mesh phase: kernels never launched: "
+                             f"{[n for n, c in mesh_launches.items() if not c]}")
+    log(f"[mesh] launches on the mesh path (world size 1): {mesh_launches}; "
+        f"two ranks over gloo in {t_two:.1f} s, processes and start included; "
+        f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 20. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,
@@ -2182,6 +2520,7 @@ def main() -> int:
         "bound_ms": chunk_times[name][2],
         "bound_by": chunk_times[name][3],
         "library_ms": chunk_times[name][4],
+        "mesh_launches": mesh_launches.get(name, 0),
     } for name in names]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2191,4 +2530,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*map(int, sys.argv[2:5]), sys.argv[5]))
     sys.exit(main())

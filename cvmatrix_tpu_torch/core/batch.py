@@ -6,7 +6,11 @@ them, :func:`smallfold_from_sources`, to which no gate routes, as in the
 JAX package), the packed factor-form operands
 (:func:`prepare_fold_operands`), the v3 sources
 (:func:`prepare_ozaki_sources`), the large-fold paths (float64 and the
-float32 engine's) and :func:`training_matrices_batched`. The JAX package
+float32 engine's) and :func:`training_matrices_batched`, and the mesh
+layer's entries on gathered blocks (:func:`batched_matrices_from_blocks`
+with :func:`stats_from_blocks`, :func:`loocv_sources_from_blocks`,
+:func:`ozaki_sources_from_blocks` and the ``blocks_stats=`` forms of the
+operand builders), which route as the JAX package's do. The JAX package
 packs these operands as padded f32 (hi, lo) pairs and int8 mantissa slices
 for its TPU kernels; the port keeps them as unpadded tensors in the config
 dtype, which the H100 kernels read directly: a float32 config runs every
@@ -46,7 +50,12 @@ from ..ops import fold_downdate as _fd
 from ..ops import loocv as _loocv
 from ..ops.precision import highest_precision
 from ..policy import policy as _policy
-from .fold import FoldBlocks, _compute_training_stats, gather_val_blocks
+from .fold import (
+    FoldBlocks,
+    _compute_training_stats,
+    gather_val_blocks,
+    training_matrices_from_blocks,
+)
 from .state import FitState
 
 __all__ = [
@@ -56,13 +65,16 @@ __all__ = [
     "FoldOperands",
     "LoocvSources",
     "OzakiSources",
+    "batched_matrices_from_blocks",
     "downdate_from_operands",
     "host_folds",
     "host_mask",
     "large_fold_threshold",
     "loocv_from_sources",
     "loocv_single_tile_ok",
+    "loocv_sources_from_blocks",
     "loocv_sym_tile",
+    "ozaki_sources_from_blocks",
     "ozaki_trim_groups",
     "ozaki_v3_from_sources",
     "ozaki_v3_ok",
@@ -73,6 +85,7 @@ __all__ = [
     "run_loocv_route",
     "slice_operands",
     "smallfold_from_sources",
+    "stats_from_blocks",
     "training_matrices_batched",
 ]
 
@@ -125,14 +138,26 @@ def loocv_single_tile_ok(config: CVConfig, state: FitState, return_XTX: bool,
     return kp == cp and cp <= 1024
 
 
+def _scalars(config: CVConfig, sw_t: torch.Tensor,
+             nnz_t: torch.Tensor) -> torch.Tensor:
+    """(F, 3) ``[sw_train, 1/sw_train, 1/divisor]`` from the training
+    weight sums and nonzero counts; the divisor stays in floating point."""
+    divisor = (nnz_t - config.ddof) * sw_t / nnz_t
+    return torch.stack([sw_t, 1.0 / sw_t, 1.0 / divisor], dim=1)
+
+
 def _fold_scalar_stream(config: CVConfig, state: FitState,
                         rows: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        mask: Optional[torch.Tensor] = None,
+                        n_rows_total: Optional[int] = None) -> torch.Tensor:
     """(F, 3) per-fold ``[sw_train, 1/sw_train, 1/divisor]`` for fold rows
     (F,) or (F, L) and an optional (F, L) mask: the scalars of
     ``fold._train_weight_scalars`` and ``fold._std_divisor`` with
-    reciprocals taken outside the kernels. The divisor stays in floating
-    point (``count_nonzero`` is int64)."""
+    reciprocals taken outside the kernels.
+
+    ``n_rows_total`` replaces ``state.N`` in the unweighted, unmasked count
+    downdate: on a row shard (``parallel.distributed``) the state holds
+    this rank's rows only, and the count must be the global one."""
     dt = config.torch_dtype
     rows = rows.reshape(rows.shape[0], -1)
     f_folds, n_l = rows.shape
@@ -146,11 +171,73 @@ def _fold_scalar_stream(config: CVConfig, state: FitState,
         sw_t = state.sum_w - mask.sum(dim=1)
         nnz_t = sw_t
     else:
-        sw_t = torch.full((f_folds,), state.N - n_l, dtype=dt,
+        n_total = state.N if n_rows_total is None else n_rows_total
+        sw_t = torch.full((f_folds,), n_total - n_l, dtype=dt,
                           device=state.device)
         nnz_t = sw_t
-    divisor = (nnz_t - config.ddof) * sw_t / nnz_t
-    return torch.stack([sw_t, 1.0 / sw_t, 1.0 / divisor], dim=1)
+    return _scalars(config, sw_t, nnz_t)
+
+
+def _fold_scalar_stream_from_blocks(config: CVConfig, state: FitState,
+                                    blocks: FoldBlocks) -> torch.Tensor:
+    """:func:`_fold_scalar_stream` of gathered blocks (JAX
+    ``core/batch.py:1681``): the weights come from ``blocks.w_val``
+    (masked already) and not from a dataset gather, and an unweighted,
+    unmasked fold removes its L rows from ``state.sum_w``, the global
+    count, so the globals-only state of the mesh path serves."""
+    dt = config.torch_dtype
+    f_folds, n_l = blocks.Xv_w.shape[:2]
+    if blocks.w_val is not None:
+        wv = blocks.w_val[..., 0]
+        sw_t = state.sum_w - wv.sum(dim=1)
+        nnz_t = (state.num_nonzero_w - torch.count_nonzero(wv, dim=1)).to(dt)
+    elif blocks.mask is not None:
+        sw_t = state.sum_w - blocks.mask.sum(dim=1)
+        nnz_t = sw_t
+    else:
+        sw_t = (state.sum_w - n_l).to(dt).expand(f_folds)
+        nnz_t = sw_t
+    return _scalars(config, sw_t, nnz_t)
+
+
+def _stat_rows(like: torch.Tensor, sum_vec, sq_vec, width: int):
+    """(2, width) ``[sum, sum_sq]`` of one side, zeros where unused."""
+    g = like.new_zeros((2, width))
+    if sum_vec is not None:
+        g[0] = sum_vec[0]
+    if sq_vec is not None:
+        g[1] = sq_vec[0]
+    return g
+
+
+def _loocv_sources(config: CVConfig, state: FitState, xw, xu, yu, yw,
+                   weighted: bool, return_XTY: bool, scal_fn, mask,
+                   rows) -> LoocvSources:
+    """Assemble :class:`LoocvSources` from row streams: ``xw``/``xu`` the
+    weighted and unweighted X rows, ``yu``/``yw`` the Y rows and their
+    weighted form; the global sums, the total and (through ``scal_fn``)
+    the per-fold scalars where the flags need them."""
+    center = config.center_X or (return_XTY and config.center_Y)
+    need_x_mean = center or config.scale_X
+    need_y_stats = return_XTY and (
+        config.center_X or config.center_Y or config.scale_Y
+    )
+    xw = xw.contiguous()
+    xu = xu.contiguous() if weighted else xw
+    gx = _stat_rows(xw, state.sum_X if need_x_mean else None,
+                    state.sum_sq_X if config.scale_X else None, state.K)
+    if return_XTY:
+        yu = yu.contiguous()
+        yw = yw.contiguous() if (weighted and need_y_stats) else yu
+        gy = _stat_rows(xw, state.sum_Y if need_y_stats else None,
+                        state.sum_sq_Y if config.scale_Y else None, state.M)
+        total = torch.cat([state.XTX, state.XTY], dim=1)
+    else:
+        yu = yw = gy = None
+        total = state.XTX.contiguous()
+    scal = (scal_fn() if (need_x_mean or need_y_stats)
+            else xw.new_zeros((rows.shape[0], 3)))
+    return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal, mask, rows)
 
 
 def prepare_loocv_sources(
@@ -161,6 +248,7 @@ def prepare_loocv_sources(
     *,
     return_XTX: bool = True,
     return_XTY: bool = True,
+    n_rows_total: Optional[int] = None,
 ) -> LoocvSources:
     """Build the operands of the LOOCV kernels for the folds ``idx_batch``
     ((F,) or (F, L) row indices, checked against ``[0, N)``) and an
@@ -168,7 +256,9 @@ def prepare_loocv_sources(
 
     One-row unmasked folds run through :func:`loocv_from_sources`; folds
     of more rows, or with a mask, through :func:`smallfold_from_sources`
-    (the port of ``fused_smallfold_df64``).
+    (the port of ``fused_smallfold_df64``). ``n_rows_total`` is the global
+    row count where ``state`` holds one rank's row shard (see
+    :func:`_fold_scalar_stream`).
     """
     idx = idx_batch if isinstance(idx_batch, torch.Tensor) else np.asarray(
         idx_batch)
@@ -184,46 +274,44 @@ def prepare_loocv_sources(
     # a copy, so that no later write to the caller's tensor reaches rows
     # that count as checked
     rows = _loocv.check_rows(idx, state.N).to(state.device, copy=True)
+    rows = rows.reshape(f_folds, n_l)
     weighted = state.weights is not None
-    dt = config.torch_dtype
-    k = state.K
     mask = None if mask_batch is None else torch.as_tensor(
-        mask_batch, dtype=dt, device=state.device
+        mask_batch, dtype=config.torch_dtype, device=state.device
     ).reshape(f_folds, n_l).contiguous()
+    return _loocv_sources(
+        config, state, state.WX if weighted else state.X, state.X, state.Y,
+        state.WY, weighted, return_XTY,
+        lambda: _fold_scalar_stream(config, state, rows, mask, n_rows_total),
+        mask, rows)
 
-    def stat_rows(sum_vec, sq_vec, width):
-        g = torch.zeros((2, width), dtype=dt, device=state.device)
-        if sum_vec is not None:
-            g[0] = sum_vec[0]
-        if sq_vec is not None:
-            g[1] = sq_vec[0]
-        return g
 
-    center = config.center_X or (return_XTY and config.center_Y)
-    need_x_mean = center or config.scale_X
-    need_y_stats = return_XTY and (
-        config.center_X or config.center_Y or config.scale_Y
-    )
-    xw = (state.WX if weighted else state.X).contiguous()
-    xu = state.X.contiguous() if weighted else xw
-    gx = stat_rows(state.sum_X if need_x_mean else None,
-                   state.sum_sq_X if config.scale_X else None, k)
+def loocv_sources_from_blocks(config: CVConfig, state: FitState,
+                              blocks: FoldBlocks, *,
+                              return_XTY: bool) -> LoocvSources:
+    """:class:`LoocvSources` of gathered one-row blocks (JAX
+    ``core/batch.py:1875``).
+
+    The mesh LOOCV route: the LOOCV kernels gather rows by index from
+    dataset-wide streams, and a batch of one-row blocks is such a stream,
+    so they run unchanged with ``rows = arange(F)``. The globals come from
+    the state, the rows from the blocks, and weightedness from the blocks
+    (``w_val``): the mesh path's globals-only state has no weights. Masked
+    blocks raise (a masked one-row fold takes another route).
+    """
+    if blocks.mask is not None:
+        raise ValueError("masked blocks cannot take the LOOCV kernels")
+    f_folds = blocks.Xv_w.shape[0]
+    weighted = blocks.w_val is not None
+    yu = yw = None
     if return_XTY:
-        yu = state.Y.contiguous()
-        yw = state.WY.contiguous() if (weighted and need_y_stats) else yu
-        gy = stat_rows(state.sum_Y if need_y_stats else None,
-                       state.sum_sq_Y if config.scale_Y else None, state.M)
-        total = torch.cat([state.XTX, state.XTY], dim=1)
-    else:
-        yu = yw = gy = None
-        total = state.XTX.contiguous()
-    scal = (
-        _fold_scalar_stream(config, state, rows.reshape(f_folds, n_l), mask)
-        if (need_x_mean or need_y_stats)
-        else torch.zeros((f_folds, 3), dtype=dt, device=state.device)
-    )
-    return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal, mask,
-                        rows.reshape(f_folds, n_l))
+        yu, yw = blocks.Yv_u[:, 0], blocks.Yv_w[:, 0]
+    rows = torch.arange(f_folds, device=blocks.Xv_w.device)[:, None]
+    return _loocv_sources(
+        config, state, blocks.Xv_w[:, 0], blocks.Xv_u[:, 0], yu, yw,
+        weighted, return_XTY,
+        lambda: _fold_scalar_stream_from_blocks(config, state, blocks),
+        None, rows)
 
 
 def _loocv_flags(config: CVConfig, return_XTY: bool) -> dict:
@@ -512,14 +600,21 @@ def _stat_flags(config: CVConfig, return_XTX: bool, return_XTY: bool):
     )
 
 
-def _gather_and_stats(config, state, rows, mask, return_XTX, return_XTY):
-    """Batched blocks and ``(X_mean, X_std, Y_mean, Y_std, sum_w_train)``
-    of (F, L) device rows already checked on the host; no validity raise."""
-    blocks = gather_val_blocks(config, state, rows, mask, return_XTY)
-    stats5 = _compute_training_stats(
+def stats_from_blocks(config: CVConfig, state: FitState, blocks: FoldBlocks,
+                      return_XTX: bool = True, return_XTY: bool = True):
+    """``(X_mean, X_std, Y_mean, Y_std, sum_w_train)`` of batched gathered
+    blocks, without the validity raise (JAX ``core/batch.py:805``)."""
+    return _compute_training_stats(
         config, state, blocks, check=False,
         **_stat_flags(config, return_XTX, return_XTY))
-    return blocks, stats5
+
+
+def _gather_and_stats(config, state, rows, mask, return_XTX, return_XTY):
+    """Batched blocks and :func:`stats_from_blocks` of (F, L) device rows
+    already checked on the host."""
+    blocks = gather_val_blocks(config, state, rows, mask, return_XTY)
+    return blocks, stats_from_blocks(config, state, blocks, return_XTX,
+                                     return_XTY)
 
 
 @highest_precision()
@@ -669,10 +764,14 @@ def prepare_fold_operands(
     *,
     return_XTX: bool = True,
     return_XTY: bool = True,
+    blocks_stats=None,
 ):
     """``(FoldOperands, stats)`` for a batch of folds: (F, L) rows in
     [0, N), on the host or the device (checked either way, device rows with
-    one sync), and an optional (F, L) mask.
+    one sync), and an optional (F, L) mask. ``blocks_stats=(blocks,
+    stats5)`` builds them from gathered :class:`FoldBlocks` and their
+    :func:`stats_from_blocks` instead (the mesh path; ``idx_batch`` is then
+    ignored).
 
     Gathers, downdated statistics, reciprocal stds and factor scaling run
     here, once: sweeps build the operands for every fold and slice the
@@ -682,9 +781,11 @@ def prepare_fold_operands(
         out = total (.) (r1 (x) r2) - sum_l (xv_l r1) (x) (m2_l r2)
             - (sw mean1 r1) (x) (mean2 r2)
     """
-    rows, mask = _rows_mask(config, state, idx_batch, mask_batch)
-    blocks, (X_mean, X_std, Y_mean, Y_std, sw) = _gather_and_stats(
-        config, state, rows, mask, return_XTX, return_XTY)
+    if blocks_stats is None:
+        rows, mask = _rows_mask(config, state, idx_batch, mask_batch)
+        blocks_stats = _gather_and_stats(config, state, rows, mask,
+                                         return_XTX, return_XTY)
+    blocks, (X_mean, X_std, Y_mean, Y_std, sw) = blocks_stats
     k = state.K
     m = (state.M or 0) if return_XTY else 0
     c = (k if return_XTX else 0) + m
@@ -805,55 +906,91 @@ def prepare_ozaki_sources(
     if return_XTY and state.Y is None:
         raise ValueError("Response variables `Y` are not provided.")
     rows, mask = _rows_mask(config, state, idx_batch, mask_batch)
-    f_folds = rows.shape[0]
-    k = state.K
-    m = state.M if return_XTY else 0
-    c = k + m
-    weighted = state.weights is not None
-    with_y = return_XTY
-    xw = state.WX if weighted else state.X
-    center = config.center_X or (with_y and config.center_Y)
-    need_x_mean = center or config.scale_X
-    need_y_stats = with_y and (
-        config.center_X or config.center_Y or config.scale_Y
-    )
-
-    sxv = xw.new_zeros((f_folds, k))
-    gx = xw.new_zeros((2, k))
-    if need_x_mean:
+    xw = state.X if state.weights is None else state.WX
+    return _ozaki_sources(
+        config, state, xw, state.X, state.Y, rows, mask, return_XTY,
         # Per-fold row sums without an (F, L, K) gather. Fits v3's folds
         # of at most a few hundred rows: per 910 folds of 10 rows 0.031 ms
         # against 0.044 ms for gather and sum, but 16 ms against 0.7 ms for
         # 3 folds of 33,334 rows (K=500, NVIDIA H100 80GB HBM3, 700 W).
-        sxv = torch.nn.functional.embedding_bag(
-            rows, xw, per_sample_weights=mask, mode="sum")
-        gx[0] = state.sum_X[0]
-    if config.scale_X:
-        gx[1] = state.sum_sq_X[0]
-
-    yvec = xw.new_zeros((f_folds, 2, c))
-    if need_y_stats:
-        _, _, Y_mean, Y_std, _ = _summed_stats(
+        lambda: torch.nn.functional.embedding_bag(
+            rows, xw, per_sample_weights=mask, mode="sum"),
+        lambda: _summed_stats(
             config, state, rows, mask, return_X_mean=False,
             return_X_std=False, return_Y_mean=True,
-            return_Y_std=config.scale_Y)
+            return_Y_std=config.scale_Y)[2:4],
+        lambda: _fold_scalar_stream(config, state, rows, mask))
+
+
+def _ozaki_sources(config, state, xw, xu, yu, rows, mask, return_XTY,
+                   sums_fn, y_stats_fn, scal_fn) -> OzakiSources:
+    """Assemble :class:`OzakiSources` from the row streams and the folds'
+    (F, L) ``rows`` and ``mask``: ``sums_fn()`` gives the (F, K) column
+    sums of the weighted, masked rows, ``y_stats_fn()`` the folds'
+    ``(Y_mean, Y_std)``, ``scal_fn()`` the scalars, each called only where
+    the flags need it."""
+    f_folds, k = rows.shape[0], state.K
+    m = state.M if return_XTY else 0
+    center = config.center_X or (return_XTY and config.center_Y)
+    need_x_mean = center or config.scale_X
+    need_y_stats = return_XTY and (
+        config.center_X or config.center_Y or config.scale_Y
+    )
+    sxv = sums_fn() if need_x_mean else xw.new_zeros((f_folds, k))
+    gx = _stat_rows(xw, state.sum_X if need_x_mean else None,
+                    state.sum_sq_X if config.scale_X else None, k)
+    yvec = xw.new_zeros((f_folds, 2, k + m))
+    if need_y_stats:
+        Y_mean, Y_std = y_stats_fn()
         if config.center_X or config.center_Y:
             yvec[:, 0, k:] = Y_mean[:, 0]
         yvec[:, 1, k:] = 1.0 / Y_std[:, 0] if config.scale_Y else 1.0
-    elif with_y and config.scale_X:
+    elif return_XTY and config.scale_X:
         yvec[:, 1, k:] = 1.0  # i2's Y part is 1 when only X is scaled
-
-    scal = (
-        _fold_scalar_stream(config, state, rows, mask)
-        if (need_x_mean or need_y_stats)
-        else xw.new_zeros((f_folds, 3))
-    )
+    scal = (scal_fn() if (need_x_mean or need_y_stats)
+            else xw.new_zeros((f_folds, 3)))
     return OzakiSources(
-        _total(state, True, return_XTY), xw.contiguous(),
-        state.X.contiguous(),
-        state.Y.contiguous() if return_XTY else None, gx, rows, mask, sxv,
-        yvec, scal,
+        _total(state, True, return_XTY), xw.contiguous(), xu.contiguous(),
+        yu.contiguous() if return_XTY else None, gx, rows, mask, sxv, yvec,
+        scal,
     )
+
+
+def _block_stream(blocks: FoldBlocks, return_XTY: bool):
+    """``(xw, xu, yu, rows)``: gathered (F, L, .) blocks as (F * L, .) row
+    streams and the (F, L) rows ``arange(F * L)`` that read them back, for
+    the kernels that gather rows by index; ``xw`` is weighted and masked
+    already, so the kernels take no mask."""
+    f_folds, n_l, _ = blocks.Xv_w.shape
+
+    def flat(t):
+        return t.reshape(f_folds * n_l, t.shape[-1]).contiguous()
+
+    rows = torch.arange(f_folds * n_l, device=blocks.Xv_w.device)
+    return (flat(blocks.Xv_w), flat(blocks.Xv_u),
+            flat(blocks.Yv_u) if return_XTY else None,
+            rows.reshape(f_folds, n_l))
+
+
+def ozaki_sources_from_blocks(config: CVConfig, state: FitState,
+                              blocks: FoldBlocks, stats5, *,
+                              return_XTY: bool) -> OzakiSources:
+    """:class:`OzakiSources` of gathered blocks and their
+    :func:`stats_from_blocks` (the port of ``ozaki_operands_from_blocks``,
+    JAX ``core/batch.py:1781``).
+
+    The JAX function slices the blocks into int8 operands for its TPU
+    kernel; here the v3 kernel gathers the blocks' rows as it gathers the
+    dataset's (:func:`_block_stream`: rows ``arange(F * L)``, checked
+    against the stream's F * L rows where they are on the host). The
+    column sums, the Y-side vectors and the scalars come from the blocks
+    and their statistics, as in the JAX function.
+    """
+    xw, xu, yu, rows = _block_stream(blocks, return_XTY)
+    return _ozaki_sources(
+        config, state, xw, xu, yu, rows, None, return_XTY,
+        lambda: blocks.Xv_w.sum(dim=1), lambda: stats5[2:4],
+        lambda: _fold_scalar_stream_from_blocks(config, state, blocks))
 
 
 def ozaki_v3_from_sources(config: CVConfig, src: OzakiSources, *,
@@ -888,6 +1025,18 @@ def _hoisted_operand_bytes(state, n_folds, n_l, return_XTX,
     (JAX ``core/batch.py:1006``)."""
     _, _, kp, cp = _padded_dims(state, return_XTX, return_XTY)
     return 8 * n_folds * (n_l + 2) * (kp + cp)
+
+
+def _v3_blocks_hoist_bytes(state, n_folds, n_l) -> int:
+    """The JAX estimate of a blocks-built hoisted v3 sweep's resident bytes
+    per device (JAX ``core/batch.py:1029``), the mesh path's gate."""
+    kp = _round_up(max(state.K, 8), 128)
+    n_sp = ozaki_trim_groups(n_l)
+    int8_streams = 2 * n_sp * n_folds * _round_up(n_l, 32) * kp
+    blocks = 2 * n_folds * n_l * state.K * 8
+    streams = n_folds * (2 * kp + 4 * kp + 128) * 4
+    stats = n_folds * state.K * 8 * 2
+    return int8_streams + blocks + streams + stats
 
 
 def _v3_hoist_bytes(state, n_folds, n_l) -> int:
@@ -946,7 +1095,7 @@ def _reference_vectors(config, state, stats5, like, return_XTX,
 
 
 def _large_fold_path(config, state, rows, mask, *, total, return_XTX,
-                     return_XTY, impl="auto", out=None):
+                     return_XTY, impl="auto", out=None, blocks_stats=None):
     """``(out, stats)`` of large folds in the reference form.
 
     ``(total - D - sw m1 (x) m2) (.) (r1 (x) r2)`` with ``D = Xv_w^T
@@ -958,23 +1107,34 @@ def _large_fold_path(config, state, rows, mask, *, total, return_XTX,
     place. The JAX path's opt-in SYRK product and its column-blocked
     product for very wide K (a TPU memory workaround) are not ported.
     ``total`` is :func:`_total`'s [XTX | XTY] (or the one requested),
-    which a sweep builds once for all its chunks.
+    which a sweep builds once for all its chunks. ``blocks_stats=(blocks,
+    stats5)`` takes gathered blocks instead of ``rows``/``mask`` (the mesh
+    path): the Ozaki-df64 kernel then gathers the blocks' rows
+    (:func:`_block_stream`).
     """
-    fused = _use_fused(config, state, return_XTX, return_XTY, rows.shape[1])
-    if fused:
+    f_folds, n_l = (rows.shape if blocks_stats is None
+                    else blocks_stats[0].Xv_w.shape[:2])
+    fused = _use_fused(config, state, return_XTX, return_XTY, n_l)
+    if blocks_stats is not None:
+        blocks, stats5 = blocks_stats
+    elif fused:
         stats5 = _summed_stats(config, state, rows, mask,
                                **_stat_flags(config, return_XTX, return_XTY))
     else:
         blocks, stats5 = _gather_and_stats(config, state, rows, mask,
                                            return_XTX, return_XTY)
     kvec, cvec = _reference_vectors(config, state, stats5,
-                                    state.X.new_empty((rows.shape[0], 0)),
+                                    total.new_empty((f_folds, 0)),
                                     return_XTX, return_XTY)
     if fused:
-        xw = state.X if state.weights is None else state.WX
-        out = _fd.fold_ozaki_df64(
-            total, xw, state.X, state.Y if return_XTY else None, rows, mask,
-            kvec, cvec, with_x=return_XTX, impl=impl, out=out)
+        if blocks_stats is not None:
+            xw, xu, yu, rows = _block_stream(blocks, return_XTY)
+            mask = None
+        else:
+            xw = state.X if state.weights is None else state.WX
+            xu, yu = state.X, state.Y if return_XTY else None
+        out = _fd.fold_ozaki_df64(total, xw, xu, yu, rows, mask, kvec, cvec,
+                                  with_x=return_XTX, impl=impl, out=out)
         return out, stats5[:4]
     m2 = _xy_concat(blocks.Xv_u if return_XTX else None,
                     blocks.Yv_u if return_XTY else None)
@@ -984,7 +1144,7 @@ def _large_fold_path(config, state, rows, mask, *, total, return_XTX,
 
 
 def _f32_kernel_path(config, state, rows, mask, *, total, return_XTX,
-                     return_XTY, impl="auto", out=None):
+                     return_XTY, impl="auto", out=None, blocks_stats=None):
     """``(out, stats)`` of float32 folds of at least ``LARGE_FOLD_ROWS``
     rows: the JAX f32 engine's ``_f32_kernel_path`` (JAX batch.py:1211).
 
@@ -993,17 +1153,18 @@ def _f32_kernel_path(config, state, rows, mask, *, total, return_XTX,
     port of ``fused_downdate``: ``((total - xv^T m2) - a1 (x) mb) (.)
     (inv1 (x) inv2)`` with ``a1 = sw mX``, ``mb`` the means and ``inv`` the
     reciprocal stds (:func:`_reference_vectors`' ``kvec``/``cvec``).
-    ``total`` as in :func:`_large_fold_path`.
+    ``total`` and ``blocks_stats`` as in :func:`_large_fold_path`.
     """
-    blocks, stats5 = _gather_and_stats(config, state, rows, mask,
-                                       return_XTX, return_XTY)
+    blocks, stats5 = blocks_stats or _gather_and_stats(
+        config, state, rows, mask, return_XTX, return_XTY)
     kvec, cvec = _reference_vectors(config, state, stats5,
-                                    state.X.new_empty((rows.shape[0], 0)),
+                                    total.new_empty((blocks.Xv_w.shape[0], 0)),
                                     return_XTX, return_XTY)
     m2 = _xy_concat(blocks.Xv_u if return_XTX else None,
                     blocks.Yv_u if return_XTY else None)
-    out = _fd.fold_downdate_f32(total, blocks.Xv_w, m2, kvec, cvec,
-                                impl=impl, out=out)
+    out = _fd.fold_downdate_f32(total, blocks.Xv_w.contiguous(),
+                                m2.contiguous(), kvec, cvec, impl=impl,
+                                out=out)
     return out, stats5[:4]
 
 
@@ -1100,3 +1261,68 @@ def training_matrices_batched(
                            return_XTX=return_XTX, return_XTY=return_XTY,
                            impl=impl)
     return _split(out, state.K, return_XTX, return_XTY), stats
+
+
+def batched_matrices_from_blocks(
+    config: CVConfig,
+    state: FitState,
+    blocks: FoldBlocks,
+    stats5=None,
+    *,
+    return_XTX: bool = True,
+    return_XTY: bool = True,
+    impl: str = "auto",
+):
+    """Training matrices of batched gathered :class:`FoldBlocks` (JAX
+    ``core/batch.py:817``): the mesh path's fold math, with no collective.
+
+    ``state`` supplies the global products and statistics only (the mesh
+    path passes a globals-only state; weightedness is read from the
+    blocks). Returns ``(mats, (X_mean, X_std, Y_mean, Y_std))`` as
+    :func:`training_matrices_batched` does. ``impl="torch"`` runs the
+    per-fold engine on the blocks (the JAX ``"xla"``); ``"auto"`` and
+    ``"cuda"`` take :func:`route_kernel`'s route, the JAX function's
+    gates: the LOOCV kernels with ``rows = arange(F)``
+    (:func:`loocv_sources_from_blocks`), the packed kernels on operands
+    built from the blocks, the v3 and Ozaki-df64 kernels gathering the
+    blocks' rows, the float32 engine's ``fused_downdate`` or a ``bmm`` and
+    the epilogue; on CUDA tensors the kernels, on the CPU their twins
+    (``"cuda"`` raises there). ``stats5`` is the blocks'
+    :func:`stats_from_blocks` where the caller has it.
+    """
+    if impl not in _loocv.IMPLS:
+        raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
+    if impl == "torch":
+        return training_matrices_from_blocks(
+            config, state, blocks, return_XTX=return_XTX,
+            return_XTY=return_XTY)
+    if stats5 is None:
+        stats5 = stats_from_blocks(config, state, blocks, return_XTX,
+                                   return_XTY)
+    f_folds, n_l = blocks.Xv_w.shape[:2]
+    route = route_kernel(config, state, n_l, return_XTX, return_XTY,
+                         blocks.mask is not None, n_folds=f_folds)
+    if route.startswith("loocv"):
+        src = loocv_sources_from_blocks(config, state, blocks,
+                                        return_XTY=return_XTY)
+        # host rows: checked on the host, no device sync
+        out = run_loocv_route(config, src, torch.arange(f_folds), route,
+                              return_XTY=return_XTY, impl=impl)
+    elif route in ("packed", "packed_f32"):
+        ops, _ = prepare_fold_operands(
+            config, state, None, return_XTX=return_XTX,
+            return_XTY=return_XTY, blocks_stats=(blocks, stats5))
+        out = downdate_from_operands(ops, impl=impl)
+    elif route in ("v3", "v3_sym"):
+        src = ozaki_sources_from_blocks(config, state, blocks, stats5,
+                                        return_XTY=return_XTY)
+        out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
+                                    impl=impl)
+    else:
+        large = (_f32_kernel_path if route == "downdate_f32"
+                 else _large_fold_path)
+        out, _ = large(config, state, None, None,
+                       total=_total(state, return_XTX, return_XTY),
+                       return_XTX=return_XTX, return_XTY=return_XTY,
+                       impl=impl, blocks_stats=(blocks, stats5))
+    return _split(out, state.K, return_XTX, return_XTY), stats5[:4]

@@ -370,10 +370,17 @@ def cross_validate_reduce(
     idx, mask = _pad_folds(idx, mask, bs)
     chunks = _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn,
                                 return_XTX, return_XTY, impl)
+    return pytree.tree_map(lambda a: a[:n_folds], _stack_chunks(chunks))
+
+
+def _stack_chunks(chunks):
+    """The per-chunk reductions (a list of pytrees) concatenated along the
+    fold axis."""
     leaves0, spec = pytree.tree_flatten(chunks[0])
-    stacked = [torch.cat(parts)[:n_folds] for parts in zip(
-        leaves0, *(pytree.tree_flatten(c)[0] for c in chunks[1:]))]
-    return pytree.tree_unflatten(stacked, spec)
+    return pytree.tree_unflatten(
+        [torch.cat(parts) for parts in zip(
+            leaves0, *(pytree.tree_flatten(c)[0] for c in chunks[1:]))],
+        spec)
 
 
 def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
@@ -426,17 +433,19 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
 
 
 def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
-                       impl):
+                       impl, n_rows_total=None):
     """Hoisted-source LOOCV reduce sweep (JAX ``sweep.py:314``): one
     :func:`prepare_loocv_sources` for every fold, then per chunk the LOOCV
     kernel (symmetric under ``sym_loocv``, two folds per block under the
     x2 knob when the chunk is even: no bump here), the statistics of the
-    chunk's rows, and the reduction."""
+    chunk's rows, and the reduction. ``n_rows_total``: the global row
+    count where ``state`` is one rank's row shard (the mesh path)."""
     rows = check_rows(idx[:, 0], state.N)
     if state.device.type == "cuda":
         rows = rows.pin_memory()  # asynchronous per-chunk copies
     src = prepare_loocv_sources(config, state, rows, return_XTX=True,
-                                return_XTY=return_XTY)
+                                return_XTY=return_XTY,
+                                n_rows_total=n_rows_total)
     route = route_kernel(config, state, 1, True, return_XTY, False,
                          n_folds=bs)
     flags = _batch._stat_flags(config, True, return_XTY)
@@ -454,16 +463,18 @@ def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
 
 
 def _smallfold_reduce_loop(config, state, idx, mask, bs, reduce_fn,
-                           return_XTX, return_XTY, impl):
+                           return_XTX, return_XTY, impl, blocks_stats=None):
     """Hoisted-prep small-fold reduce sweep (JAX ``sweep.py:453``):
-    :func:`prepare_fold_operands` once for every fold, then per chunk the
+    :func:`prepare_fold_operands` once for every fold (of ``idx``/``mask``,
+    or of gathered ``blocks_stats``: the mesh path), then per chunk the
     packed kernel on sliced operands and the reduction over sliced
     statistics."""
     ops, stats = prepare_fold_operands(config, state, idx, mask,
                                        return_XTX=return_XTX,
-                                       return_XTY=return_XTY)
+                                       return_XTY=return_XTY,
+                                       blocks_stats=blocks_stats)
     out = []
-    for c0 in range(0, idx.shape[0], bs):
+    for c0 in range(0, ops.u.shape[0], bs):
         mats = downdate_from_operands(slice_operands(ops, c0, bs), impl=impl)
         out.append(_vmap_reduce(
             reduce_fn, _split_mats(mats, state.K, return_XTX, return_XTY),
@@ -472,18 +483,25 @@ def _smallfold_reduce_loop(config, state, idx, mask, bs, reduce_fn,
 
 
 def _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn, return_XTY,
-                    impl):
+                    impl, blocks_stats=None):
     """Hoisted-source mid-band reduce sweep (JAX ``sweep.py:390``):
-    :func:`prepare_ozaki_sources` and the statistics once for every fold,
-    then per chunk the v3 kernel (symmetric under ``sym_loocv``) on
-    sliced sources and the reduction."""
-    src = prepare_ozaki_sources(config, state, idx, mask, return_XTX=True,
-                                return_XTY=return_XTY)
-    stats = _batch._summed_stats(
-        config, state, src.rows, src.mask,
-        **_batch._stat_flags(config, True, return_XTY))[:4]
+    :func:`prepare_ozaki_sources` and the statistics once for every fold
+    (or :func:`~cvmatrix_tpu_torch.core.batch.ozaki_sources_from_blocks`
+    of gathered ``blocks_stats``: the mesh path), then per chunk the v3
+    kernel (symmetric under ``sym_loocv``) on sliced sources and the
+    reduction."""
+    if blocks_stats is None:
+        src = prepare_ozaki_sources(config, state, idx, mask,
+                                    return_XTX=True, return_XTY=return_XTY)
+        stats = _batch._summed_stats(
+            config, state, src.rows, src.mask,
+            **_batch._stat_flags(config, True, return_XTY))[:4]
+    else:
+        src = _batch.ozaki_sources_from_blocks(
+            config, state, *blocks_stats, return_XTY=return_XTY)
+        stats = blocks_stats[1][:4]
     out = []
-    for c0 in range(0, idx.shape[0], bs):
+    for c0 in range(0, src.rows.shape[0], bs):
         mats = ozaki_v3_from_sources(config, slice_operands(src, c0, bs),
                                      return_XTY=return_XTY, impl=impl)
         out.append(_vmap_reduce(

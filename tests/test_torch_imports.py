@@ -23,6 +23,9 @@ def test_import_leaves_jax_out():
         "import cvmatrix_tpu_torch.policy, cvmatrix_tpu_torch.ops.slice_rows\n"
         "from cvmatrix_tpu_torch.models.sweep import cross_validate_reduce\n"
         "from cvmatrix_tpu_torch.ops import _build\n"
+        "import cvmatrix_tpu_torch.parallel\n"
+        "from cvmatrix_tpu_torch.parallel import distributed, multihost, "
+        "dryrun\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cvmatrix_tpu',\n"
         "                                    'triton'))\n"
@@ -41,6 +44,20 @@ def test_import_leaves_jax_out():
 ))
 def test_sources_never_import_jax(path):
     assert not IMPORT_RE.search((ROOT / path).read_text()), path
+
+
+def test_parallel_modules_are_checked():
+    """The mesh layer's three modules are among the sources the rule above
+    reads, and the package exports what the JAX package's does."""
+    import cvmatrix_tpu_torch.parallel as TP
+
+    checked = {str(p.relative_to(ROOT / "cvmatrix_tpu_torch"))
+               for p in (ROOT / "cvmatrix_tpu_torch").rglob("*.py")}
+    assert {"parallel/__init__.py", "parallel/distributed.py",
+            "parallel/multihost.py", "parallel/dryrun.py"} <= checked
+    assert set(TP.__all__) == {"fit_sharded", "make_mesh",
+                               "sharded_cross_validate_reduce",
+                               "sharded_training_matrices"}
 
 
 def test_policy_and_reduce_sweeps_are_checked():
