@@ -167,12 +167,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
     processes, the collectives through host copies) on the first 20,000
     rows, held against (a)'s one-rank results. Every kernel the mesh path
     reaches must have launched.
-20. Prints the kernels' JSON line (fourteen kernels, each with its bound and
+20. The reference grid at full width (``cvmatrix_tpu_torch.benchmarks.
+    grid.run_row``, the counterpart of ``benchmarks/benchmark.py``) on
+    phase 4's data: the three plot flag sets, weighted and unweighted, at
+    P = 3, 5, 10, 100, 1,000, 10,000 and 100,000 in float64 (42 rows), all
+    four flags at the same Ps in float32 (14 rows), ``nojit`` and
+    ``coldjit`` for weighted TTTT at P = 1,000 and 100, and one ``aotcold``
+    row (the libraries exported and loaded through ``utils.aot``). Each
+    row's launch counts, read around its timed total: the route's kernel
+    once a chunk and no other (none in ``nojit``); its probe against the
+    per-fold engine in plain torch on the same folds (float64 1e-10
+    relative, float32 1e-3 of the largest entry); at P = 100,000 and 3 the
+    probe fold's full matrices against ``tests/oracle.py`` (1e-10; float32
+    1e-3 of the oracle's largest entry). The rows go to
+    ``chiprun_out/grid_h100.csv`` in the JAX grid's schema.
+21. The scripts and examples on the card, each in its own process:
+    ``benchmarks/widek_genomics`` at full size (BASELINE.json config 4
+    through ``cross_validate_reduce``: total, folds/s, peak memory, its
+    spot check and ten epilogue launches), ``benchmarks/mesh_one_chip`` at
+    P = 100,000 and 1,000, and the six examples, the mesh one under
+    ``torch.distributed.run``; each must exit 0.
+22. Prints the kernels' JSON line (fourteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
-    path, and each one's ``mesh_launches`` in phase 19 (a)), the card's
-    name and power limit, and as the last line ``{"ok": true, "device":
-    {...}}``.
+    path, each one's ``mesh_launches`` in phase 19 (a) and
+    ``grid_launches`` in phase 20), the card's name and power limit, and
+    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -182,8 +202,9 @@ from __future__ import annotations
 import importlib.util
 import itertools
 import json
-import shutil
+import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -309,15 +330,6 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
-
-
 def dtype_name(itemsize: int) -> str:
     return "float64" if itemsize == 8 else "float32"
 
@@ -358,6 +370,30 @@ def launch_counts(*mods) -> dict:
 def reset_launch_counts(*mods) -> None:
     for mod in mods:
         mod.reset_launch_counts()
+
+
+# The reference grid (phase 20, ``cvmatrix_tpu_torch.benchmarks.grid``):
+# (dtype, flags, weighted, P, mode) of each row: the float64 plot configs
+# weighted and unweighted, the float32 TTTT rows, then nojit, coldjit and
+# aotcold rows; and the kernels its rows must launch.
+GRID_PS = (3, 5, 10, 100, 1_000, 10_000, N)
+GRID_ROWS = (
+    [(np.float64, flags, use_w, p, "warmjit") for use_w in (True, False)
+     for flags in ((False,) * 4, (True, True, False, False), (True,) * 4)
+     for p in GRID_PS]
+    + [(np.float32, (True,) * 4, use_w, p, "warmjit")
+       for use_w in (True, False) for p in GRID_PS]
+    + [(np.float64, (True,) * 4, True, p, mode)
+       for mode in ("nojit", "coldjit") for p in (1_000, 100)]
+    + [(np.float64, (True,) * 4, True, 1_000, "aotcold")])
+GRID_KERNELS = ("fused_loocv", "fold_epilogue", "fold_packed_f32",
+                "fold_downdate_f32", "fold_ozaki_df64", "fused_loocv_f32",
+                "fold_v3")
+# The examples phase 21 runs, each in its own process (the mesh example
+# under torch.distributed.run).
+EXAMPLES = ("training_matrices", "training_matrices_batched",
+            "cross_validation_reduce", "total_cv_fused", "kernel_routing_ab")
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 # The mesh layer (phase 19): the rows of the two-rank check and of the
@@ -493,6 +529,7 @@ def main() -> int:
         set_routing,
         training_matrices,
     )
+    from cvmatrix_tpu_torch.benchmarks import grid as G
     from cvmatrix_tpu_torch.core import batch as TB
     from cvmatrix_tpu_torch.core.batch import (
         loocv_from_sources,
@@ -504,6 +541,7 @@ def main() -> int:
         materialize_cv,
         materialize_sweep,
         sweep_chunking,
+        sweep_last_chunk,
     )
     from cvmatrix_tpu_torch.ops import _build
     from cvmatrix_tpu_torch.ops import fold_downdate as FD
@@ -514,7 +552,7 @@ def main() -> int:
     from tests.oracle import NaiveOracle
 
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = G.card_line(dev)
     kind = torch.cuda.get_device_name(0)
     nvcc = _build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
@@ -1860,31 +1898,37 @@ def main() -> int:
             f"per-fold engine: worst relative {worst:.3e}")
         del out
 
-    def device_busy(label, fn):
-        """Run ``fn`` once under ``torch.profiler`` (device activity only:
-        with host activity on, host events carry device time of their own)
-        and log the device time summed over every kernel and copy against
-        the host clock around the call (the profiler's cost included).
-        Only the profiler is guarded: an error of ``fn`` fails the phase."""
+    def profiled(fn):
+        """(seconds, ``key_averages()``) of one run of ``fn`` under
+        ``torch.profiler`` (device activity only: with host activity on,
+        host events carry device time of their own), the host clock around
+        the call with the profiler's cost included. Where the profiler
+        fails, its exception in place of the events. Only the profiler is
+        guarded: an error of ``fn`` fails the phase."""
         try:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.start()
         except Exception as e:  # a measurement, not a check
-            prof = None
-            log(f"[profile] {label}: not measured (profiler: "
-                f"{type(e).__name__}: {e})")
+            prof, err = None, e
         t, _ = wall(fn)
         if prof is None:
-            return
+            return t, err
         try:
             prof.stop()
-            busy = sum(e.self_device_time_total
-                       for e in prof.key_averages()) / 1e3
+            return t, prof.key_averages()
         except Exception as e:  # a measurement, not a check
+            return t, e
+
+    def device_busy(label, fn):
+        """Log the device time of one run of ``fn``, summed over every
+        kernel and copy, against the host clock around the call."""
+        t, events = profiled(fn)
+        if isinstance(events, Exception):
             log(f"[profile] {label}: not measured (profiler: "
-                f"{type(e).__name__}: {e})")
+                f"{type(events).__name__}: {events})")
             return
+        busy = sum(e.self_device_time_total for e in events) / 1e3
         t *= 1e3
         log(f"[profile] {label}: kernels {busy:.2f} ms of {t:.2f} ms under "
             f"torch.profiler, device idle {1 - busy / t:.1%}  [{card}]")
@@ -2498,7 +2542,247 @@ def main() -> int:
         f"two ranks over gloo in {t_two:.1f} s, processes and start included; "
         f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 20. result ---------------------------------------------------------
+    # ---- 20. the reference grid at full width -------------------------------
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    grid_csv = os.path.join(out_dir, "grid_h100.csv")
+    store_bw = G.measure_write_bw(dev)
+    log(f"[grid] pure store, fill_ of 1 GB: {store_bw:.1f} GB/s  [{card}]")
+    grid_kernel = {np.float64: {"loocv": "fused_loocv", **ROUTE_WRAPPER},
+                   np.float32: ROUTE_WRAPPER_F32}
+    grid_data = {np.float64: ((Xd, Yd, wd), (X, Y, weights)),
+                 np.float32: ((Xd32, Yd32, wd32), (X32, Y32, w32))}
+    grid_launches: dict = {}
+    oracle_rows = chunk_folds = 0
+    for dt, flags, use_w, p, mode in GRID_ROWS:
+        (Xg, Yg, wg), (Xh, Yh, wh) = grid_data[dt]
+        wg, wh = (wg, wh) if use_w else (None, None)
+        f64 = dt == np.float64
+        cfg_g = CVConfig(*flags, ddof=1, dtype=dt)
+        resident = torch.cuda.memory_allocated(dev)
+        row = G.run_row(flags, p, Xg, Yg, wg, None, mode, dev)
+        line = G.record_row(grid_csv, row, mode=mode, flags=flags, P=p,
+                            use_w=use_w, N=N, K=K, M=M,
+                            itemsize=np.dtype(dt).itemsize,
+                            device_type="cuda", card=card,
+                            store_roof=store_bw)
+        # the route's kernel once a chunk and no other (none in nojit)
+        st_g = fit(cfg_g, Xg, Yg, wg, copy=False)
+        stacks = G.fold_buckets(N, p)
+        routes = []  # (kernel, chunks) of each bucket
+        for stack in stacks:
+            bs_g, n_ch = sweep_chunking(cfg_g, stack.shape[0], K, K + M)
+            routes.append((grid_kernel[dt][TB.route_kernel(
+                cfg_g, st_g, stack.shape[1], True, True, False,
+                n_folds=bs_g)], n_ch))
+        want: dict = {}
+        for name, n_ch in routes if mode != "nojit" else ():
+            want[name] = want.get(name, 0) + n_ch
+        if row.launches != want:
+            raise AssertionError(f"grid {line}: launches {row.launches}, "
+                                 f"expected {want}")
+        for name, c in want.items():
+            grid_launches[name] = grid_launches.get(name, 0) + c
+        # the probe against the per-fold engine (plain torch) on its folds
+        ref = scale = 0.0
+        for f in G.probe_folds(cfg_g, stacks, K, M, None, mode):
+            (xtx, xty), _ = training_matrices(cfg_g, st_g,
+                                              torch.from_numpy(f).to(dev))
+            ref += float(xtx[0, 0] + xty[0, 0])
+            scale = max(scale, float(torch.cat([xtx, xty], 1).abs().max()))
+        tol = ORACLE_RTOL * abs(ref) if f64 else F32_ORACLE_RTOL * scale
+        err = abs(row.probe - ref)
+        if not (math.isfinite(row.probe) and err <= tol):
+            raise AssertionError(f"grid {line}: probe {row.probe!r} against "
+                                 f"the per-fold engine {ref!r}")
+        msg = ""
+        if mode == "warmjit":
+            # Each bucket's last chunk as the sweep runs it (padded, one
+            # launch of the route's kernel), all of [XTX | XTY] against the
+            # per-fold engine; its first fold is the probe's, held against
+            # the oracle too at P = N and 3.
+            orc = None if p not in (N, 3) else NaiveOracle(
+                *flags, ddof=1).fit(*(None if a is None else
+                                      a.astype(np.float64)
+                                      for a in (Xh, Yh, wh)))
+            chunk_probe = worst = 0.0
+            sizes = []
+            for stack, (name, _) in zip(stacks, routes):
+                chunk = sweep_last_chunk(cfg_g, stack, K, K + M)
+                sizes.append(len(chunk))
+                reset_launch_counts(FD, TL, SR)
+                (xtx, xty), _ = TB.training_matrices_batched(cfg_g, st_g,
+                                                             chunk)
+                got = torch.cat([xtx, xty], 2)
+                del xtx, xty
+                counts = {n: c for n, c in
+                          launch_counts(FD, TL, SR).items() if c}
+                if counts != {name: 1}:
+                    raise AssertionError(f"grid {line}: chunk of {len(chunk)}"
+                                         f" folds launched {counts}")
+                chunk_probe += float(got[0, 0, 0] + got[0, 0, K])
+                for off in range(0, len(chunk), 256):
+                    (exx, exy), _ = training_matrices(
+                        cfg_g, st_g,
+                        torch.from_numpy(chunk[off:off + 256]).to(dev))
+                    ref_m = torch.cat([exx, exy], 2)
+                    del exx, exy
+                    diff = (got[off:off + 256] - ref_m).abs()
+                    sc = float(ref_m.abs().max())
+                    d = float(diff.max())
+                    ok = (bool((diff <= ORACLE_RTOL * (ref_m.abs() + sc)).all())
+                          if f64 else d <= F32_ORACLE_RTOL * sc)
+                    if not ok:
+                        raise AssertionError(
+                            f"grid {line}: chunk of {len(chunk)} folds, folds "
+                            f"{off}+ {d:.3e} off the per-fold engine "
+                            f"(largest entry {sc:.3e})")
+                    worst = max(worst, d / sc)
+                    del ref_m, diff
+                if orc is not None:
+                    f = chunk[0]
+                    (xo, yo), _ = orc.training_XTX_XTY(
+                        np.delete(np.arange(N), f))
+                    want_o = np.concatenate([xo, yo], axis=1)
+                    g0 = got[0].double().cpu().numpy()
+                    sc = np.abs(want_o).max()
+                    d = np.abs(g0 - want_o).max()
+                    if f64:
+                        np.testing.assert_allclose(g0, want_o,
+                                                   rtol=ORACLE_RTOL,
+                                                   atol=ORACLE_RTOL * sc)
+                    elif not d <= F32_ORACLE_RTOL * sc:
+                        raise AssertionError(f"grid {line}: fold of {f.size}"
+                                             f" rows {d:.3e} off the oracle")
+                    oracle_rows += 1
+                    msg += (f"; fold of {f.size} rows against the oracle "
+                            f"{d:.3e} (max|oracle| {sc:.3e})")
+                del got
+            if not abs(chunk_probe - row.probe) <= tol:
+                raise AssertionError(f"grid {line}: the checked chunks' probe "
+                                     f"{chunk_probe!r}, the sweep's "
+                                     f"{row.probe!r}")
+            chunk_folds += sum(sizes)
+            msg = (f"; last chunks of {sizes} folds against the per-fold "
+                   f"engine {worst:.3e} of the largest entry{msg}")
+        peak = "" if row.peak_bytes is None else (
+            f"; {(row.peak_bytes - resident) / 1e9:.2f} GB above the "
+            f"{resident / 1e9:.2f} GB resident")
+        log(f"[grid] {dtype_name(np.dtype(dt).itemsize)} {line}; probe "
+            f"against the per-fold engine {err:.3e}{msg}{peak}")
+        del st_g
+    # P=3 as the grid runs it (two fold sizes, one sweep each, unmasked)
+    # beside phase 7's one masked batch: host clock, best of three, and the
+    # device time by kernel under torch.profiler
+    st_3 = fit(cfg, Xd, Yd, wd, copy=False)
+    _, idx3, mask3 = Partitioner(np.arange(N) % 3).padded_batches()
+    runs3 = {"two fold sizes, unmasked":
+             lambda: [materialize_sweep(cfg, st_3, s)
+                      for s in G.fold_buckets(N, 3)],
+             "one masked batch": lambda: materialize_sweep(cfg, st_3, idx3,
+                                                           mask3)}
+    for label, fn in runs3.items():
+        wall(fn)
+        t3 = min(wall(fn)[0] for _ in range(3))
+        _, events = profiled(fn)
+        if isinstance(events, Exception):
+            by_kernel = (f"not measured (profiler: {type(events).__name__}: "
+                         f"{events})")
+        else:
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+            by_kernel = "; ".join(
+                f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f}"
+                f" ms" for e in top)
+        log(f"[grid-profile] P=3 weighted TTTT float64 sweep, {label}: "
+            f"{t3 * 1e3:.2f} ms (best of 3); device time by kernel: "
+            f"{by_kernel}  [{card}]")
+    del st_3
+    missing = [n for n in GRID_KERNELS if not grid_launches.get(n)]
+    if missing:
+        raise AssertionError(f"grid phase: kernels never launched: {missing}")
+    log(f"[grid] {len(GRID_ROWS)} rows -> {grid_csv}; {chunk_folds} folds "
+        f"of the rows' last chunks against the per-fold engine; "
+        f"{oracle_rows} probe folds against the oracle; launches {grid_launches}; phase 20 in "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+    # ---- 21. the wide-K and mesh-of-one scripts, the six examples ----------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def script(args, env=None, timeout=600):
+        """Run ``python args`` from the checkout; its log's tail, its exit
+        code 0 required."""
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *args], cwd=ROOT, text=True,
+                             capture_output=True, timeout=timeout,
+                             env={**os.environ, **(env or {})})
+        for line in (res.stdout + res.stderr).splitlines()[-16:]:
+            log(f"[scripts] {args[1]}: {line}")
+        if res.returncode:
+            raise AssertionError(f"{' '.join(args)} exited {res.returncode}")
+        return time.perf_counter() - t0
+
+    widek_json = os.path.join(out_dir, "widek_genomics.json")
+    t_s = script(["-m", "cvmatrix_tpu_torch.benchmarks.widek_genomics",
+                  "--out", widek_json])
+    with open(widek_json) as fh:
+        wk = json.load(fh)
+    if not (wk["sweep_vs_engine_diag_abs_d"] < 1e-6
+            and wk["launches"] == {"fold_epilogue": WIDEK[3]}
+            and all(map(math.isfinite, wk["diag_mean"]))):
+        raise AssertionError(f"widek_genomics: {wk}")
+    log(f"[scripts] widek_genomics (N={wk['N']:,}, K={wk['K']:,}, "
+        f"cross_validate_reduce): fit {wk['warm_fit_s']:.4f} s, sweep "
+        f"{wk['warm_folds_s']:.4f} s, total {wk['total_s']:.4f} s, "
+        f"{wk['folds_per_sec']:.2f} folds/s, peak {wk['peak_fit_gb']:.2f} GB "
+        f"over the fits and {wk['peak_sweep_gb']:.2f} GB over the timed "
+        f"sweep, "
+        f"|d| {wk['sweep_vs_engine_diag_abs_d']:.3e}, launches "
+        f"{wk['launches']}; {t_s:.1f} s with the process  [{wk['card']}]")
+    mesh_json = os.path.join(out_dir, "mesh_one_chip.json")
+    t_s = script(["-m", "cvmatrix_tpu_torch.benchmarks.mesh_one_chip",
+                  "--out", mesh_json], env={"BENCH_PS": "100000,1000"})
+    with open(mesh_json) as fh:
+        for r in json.load(fh):
+            if not r["mesh1_vs_reduce_max_abs"] <= MESH_RTOL * abs(
+                    r["reduce_fold0"]):
+                raise AssertionError(f"mesh_one_chip: {r}")
+            log(f"[scripts] mesh_one_chip P={r['P']:,}: materialize "
+                f"{r['single_chip_s']:.4f} s, reduce "
+                f"{r['single_reduce_s']:.4f} s, mesh(1) {r['mesh1_s']:.4f} s;"
+                f" mesh1/reduce {r['mesh1_over_single_reduce']:.3f}, "
+                f"mesh1/materialize {r['mesh1_over_single']:.3f}  "
+                f"[{r['card']}]")
+    log(f"[scripts] mesh_one_chip in {t_s:.1f} s with the process")
+    examples = {name: ["-m", f"cvmatrix_tpu_torch.examples.{name}"]
+                for name in EXAMPLES}
+    examples["training_matrices_mesh"] = [
+        "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+        "-m", "cvmatrix_tpu_torch.examples.training_matrices_mesh"]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *args], cwd=ROOT,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, args in examples.items()}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=300)[0]
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    for name, proc in procs.items():
+        for line in outs[name].splitlines()[-8:]:
+            log(f"[examples] {name}: {line}")
+        if proc.returncode:
+            raise AssertionError(f"example {name} exited {proc.returncode}")
+    log(f"[examples] six examples exited 0, together in "
+        f"{time.perf_counter() - t0:.1f} s; phase 21 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 22. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,
@@ -2521,8 +2805,9 @@ def main() -> int:
         "bound_by": chunk_times[name][3],
         "library_ms": chunk_times[name][4],
         "mesh_launches": mesh_launches.get(name, 0),
+        "grid_launches": grid_launches.get(name, 0),
     } for name in names]}), flush=True)
-    print(card_line(), flush=True)
+    print(G.card_line(dev), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -63,7 +63,7 @@ from .partitioner import Partitioner
 
 __all__ = ["chunking", "cross_validate", "cross_validate_dict",
            "cross_validate_reduce", "materialize_cv", "materialize_sweep",
-           "sweep_chunking"]
+           "sweep_chunking", "sweep_last_chunk"]
 
 
 def chunking(n_folds: int, k: int, c: int, batch_size: Optional[int] = None,
@@ -103,6 +103,20 @@ def _pad_folds(idx, mask, bs):
     return idx, mask
 
 
+def sweep_last_chunk(config: CVConfig, idx_batch, k: int, c: int,
+                     batch_size: Optional[int] = None,
+                     hbm_budget_bytes: float = 4e9) -> np.ndarray:
+    """The last chunk of folds that :func:`materialize_sweep` runs over the
+    (F, L) ``idx_batch`` at (K, C) = (k, c), padded as the sweep pads it
+    to (bs, L). Its first fold is the one whose matrices give the sweep's
+    probe."""
+    idx = np.asarray(idx_batch)
+    bs, n_chunks = sweep_chunking(config, idx.shape[0], k, c, batch_size,
+                                  hbm_budget_bytes)
+    idx, _ = _pad_folds(idx, None, bs)
+    return idx[(n_chunks - 1) * bs:]
+
+
 def materialize_sweep(
     config: CVConfig,
     state: FitState,
@@ -122,7 +136,8 @@ def materialize_sweep(
     optional (F, L) 0/1 mask; either may be a tensor on any device.
     Returns a 0-d tensor on the device: element [0, 0] of XTX plus element
     [0, 0] of XTY of the last chunk's first fold (what the JAX package's
-    sweep returns). Reading it waits for the whole sweep.
+    sweep returns; :func:`sweep_last_chunk` names that chunk). Reading it
+    waits for the whole sweep.
     """
     if impl not in IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
@@ -290,14 +305,22 @@ def cross_validate_dict(
 
 def _vmap_reduce(reduce_fn, mats, stats):
     """``reduce_fn`` over the fold axis of one chunk (``torch.func.vmap``;
-    ``None`` statistics pass through unbatched)."""
+    ``None`` statistics pass through unbatched). A reduction that is a view
+    of the chunk's matrices (``xty[:, 0]``) is copied, so that it does not
+    hold the chunk's (F, K, C) output alive until the sweep ends: the JAX
+    sweep keeps only the reductions."""
     def dims(tree):
         return pytree.tree_map(
             lambda a: 0 if isinstance(a, torch.Tensor) else None, tree,
             is_leaf=lambda a: a is None)
 
-    return torch.func.vmap(reduce_fn, in_dims=(dims(mats), dims(stats)))(
+    res = torch.func.vmap(reduce_fn, in_dims=(dims(mats), dims(stats)))(
         mats, stats)
+    held = {a.untyped_storage().data_ptr() for a in pytree.tree_leaves(mats)
+            if isinstance(a, torch.Tensor)}
+    return pytree.tree_map(
+        lambda a: a.clone() if isinstance(a, torch.Tensor)
+        and a.untyped_storage().data_ptr() in held else a, res)
 
 
 def _split_mats(out, k: int, return_XTX: bool, return_XTY: bool):

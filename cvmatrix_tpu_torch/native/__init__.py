@@ -1,3 +1,3 @@
-from .loader import partition_int64
+from .loader import native_available, partition_int64
 
-__all__ = ["partition_int64"]
+__all__ = ["partition_int64", "native_available"]

@@ -21,7 +21,7 @@ import numpy as np
 
 from ..ops._build import build_dir
 
-__all__ = ["partition_int64"]
+__all__ = ["native_available", "partition_int64"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -83,6 +83,12 @@ def _get_lib() -> Optional[ctypes.CDLL]:
             _LIB = _build()
             _TRIED = True
     return _LIB
+
+
+def native_available() -> bool:
+    """True where the native partition library built and loaded (JAX
+    ``loader.py:112``)."""
+    return _get_lib() is not None
 
 
 def partition_int64(labels: np.ndarray) -> Optional[Tuple[np.ndarray, list]]:

@@ -84,23 +84,26 @@ def dryrun_rank(mesh) -> None:
 
 
 def _rank_main(rank: int, world: int, init_method: str, backend: str,
-               device_type: str) -> None:
+               device_type: str, rank_fn, args) -> None:
     from .distributed import make_mesh
     from .multihost import initialize
 
     initialize(init_method, world, rank, backend=backend,
                device_type=device_type)
     try:
-        dryrun_rank(make_mesh(device_type))
+        rank_fn(make_mesh(device_type), *args)
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n_ranks: int, device_type: str = "cuda") -> None:
+def dryrun_multichip(n_ranks: int, device_type: str = "cuda", *,
+                     rank_fn=dryrun_rank, args=()) -> None:
     """Spawn ``n_ranks`` processes that form a process group over
-    ``localhost`` and run :func:`dryrun_rank`; raises if any rank fails.
-    On CUDA it needs a card (NCCL when every rank has its own, else gloo
-    with the ranks sharing the cards)."""
+    ``localhost`` and run ``rank_fn(mesh, *args)`` in each (by default
+    :func:`dryrun_rank`; another function must be importable by name, as
+    spawned processes import it); raises if any rank fails. On CUDA it
+    needs a card (NCCL when every rank has its own, else gloo with the
+    ranks sharing the cards)."""
     if device_type == "cuda":
         if not torch.cuda.is_available():
             raise ValueError("no CUDA card: torch.cuda.is_available() is "
@@ -114,5 +117,5 @@ def dryrun_multichip(n_ranks: int, device_type: str = "cuda") -> None:
         port = s.getsockname()[1]
     torch.multiprocessing.spawn(
         _rank_main, args=(n_ranks, f"tcp://127.0.0.1:{port}", backend,
-                          device_type),
+                          device_type, rank_fn, tuple(args)),
         nprocs=n_ranks, join=True)

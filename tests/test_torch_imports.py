@@ -26,9 +26,17 @@ def test_import_leaves_jax_out():
         "import cvmatrix_tpu_torch.parallel\n"
         "from cvmatrix_tpu_torch.parallel import distributed, multihost, "
         "dryrun\n"
+        "import cvmatrix_tpu_torch.utils, cvmatrix_tpu_torch.native\n"
+        "from cvmatrix_tpu_torch.utils import aot, cache, profiling\n"
+        "from cvmatrix_tpu_torch.benchmarks import grid, widek_genomics, "
+        "mesh_one_chip, mesh_scaling\n"
+        "from cvmatrix_tpu_torch.examples import training_matrices, "
+        "training_matrices_batched, cross_validation_reduce, "
+        "total_cv_fused, kernel_routing_ab, training_matrices_mesh\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cvmatrix_tpu',\n"
-        "                                    'triton'))\n"
+        "                                    'triton', 'pandas',\n"
+        "                                    'matplotlib'))\n"
         "print(bad, sorted(_build._LIBS))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -58,6 +66,42 @@ def test_parallel_modules_are_checked():
     assert set(TP.__all__) == {"fit_sharded", "make_mesh",
                                "sharded_cross_validate_reduce",
                                "sharded_training_matrices"}
+
+
+def test_utils_benchmarks_and_examples_are_checked():
+    """The helpers, the benchmark scripts and the examples are among the
+    sources the rule above reads, and ``utils`` exports what the port has
+    of the JAX package's."""
+    import cvmatrix_tpu_torch.utils as TU
+
+    checked = {str(p.relative_to(ROOT / "cvmatrix_tpu_torch"))
+               for p in (ROOT / "cvmatrix_tpu_torch").rglob("*.py")}
+    assert {f"utils/{m}.py" for m in ("__init__", "aot", "cache",
+                                      "profiling")} <= checked
+    assert {f"benchmarks/{m}.py" for m in (
+        "__init__", "grid", "plot", "widek_genomics", "mesh_one_chip",
+        "mesh_scaling")} <= checked
+    assert {f"examples/{p.name}" for p in (ROOT / "examples").glob("*.py")
+            } <= checked
+    assert set(TU.__all__) == {"Stopwatch", "device_fence",
+                               "enable_persistent_cache", "export_kernels",
+                               "load_kernels", "trace"}
+
+
+MODULE_LEVEL_PLOTTING = re.compile(r"^(import|from)\s+(pandas|matplotlib)\b",
+                                   re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "cvmatrix_tpu_torch").rglob("*.py"),
+              ROOT / "chip_smoke.py"]
+    if p.name != "plot.py" or p.parent.name != "benchmarks"
+))
+def test_sources_leave_plotting_out(path):
+    """The card's machine has no pandas or matplotlib: only
+    ``benchmarks/plot.py`` imports them at module level."""
+    assert not MODULE_LEVEL_PLOTTING.search((ROOT / path).read_text()), path
 
 
 def test_policy_and_reduce_sweeps_are_checked():

@@ -220,6 +220,30 @@ def test_chunking_rule():
     assert TS.chunking(41, 5, 7) == (41, 1)
 
 
+@pytest.mark.parametrize("n_folds,batch_size", [(41, 10), (40, 10),
+                                                 (41, None), (7, 3)])
+def test_sweep_last_chunk_holds_the_probe_fold(n_folds, batch_size):
+    """The last chunk the sweep runs, padded as it pads, and its first
+    fold's XTX[0, 0] + XTY[0, 0] is the sweep's probe (the JAX sweep's)."""
+    cfg = T.CVConfig(*(True,) * 4)
+    idx = np.arange(n_folds)[:, None]
+    chunk = TS.sweep_last_chunk(cfg, idx, 5, 7, batch_size)
+    bs, n_chunks = TS.sweep_chunking(cfg, n_folds, 5, 7, batch_size)
+    assert chunk.shape == (bs, 1)
+    want = np.arange((n_chunks - 1) * bs, n_chunks * bs).clip(max=n_folds - 1)
+    np.testing.assert_array_equal(chunk[:, 0], want)
+    w = zero_fraction(WEIGHTS)
+    st = T.fit(cfg, X_ALL, Y_ALL, w, device="cpu")
+    (xtx, xty), _ = T.training_matrices(cfg, st, chunk[0])
+    ref = float(JS.materialize_sweep(
+        J.CVConfig(*(True,) * 4), J.fit(J.CVConfig(*(True,) * 4), X_ALL,
+                                        Y_ALL, w), idx,
+        batch_size=batch_size))
+    got = float(TS.materialize_sweep(cfg, st, idx, batch_size=batch_size))
+    assert_allclose(float(xtx[0, 0] + xty[0, 0]), ref, rtol=1e-10)
+    assert_allclose(got, ref, rtol=1e-10)
+
+
 def test_whole_slice_against_oracle():
     """CVMatrix.fit, Partitioner(np.arange(N)), then prepare_loocv_sources
     and loocv_from_sources chunk by chunk over every fold."""
