@@ -187,12 +187,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
     spot check and ten epilogue launches), ``benchmarks/mesh_one_chip`` at
     P = 100,000 and 1,000, and the six examples, the mesh one under
     ``torch.distributed.run``; each must exit 0.
-22. Prints the kernels' JSON line (fourteen kernels, each with its bound and
+22. The bench entry, ``bench_torch.py``, each run in its own process on
+    the card at full width: the default (P=N, float64), float32 LOOCV,
+    P=25,000, 10,000, 1,000, 100, 10 and 3, wide K (N=5,000, K=20,000,
+    M=1, P=10) and LOOCV under ``CVMATRIX_TPU_SYM_LOOCV=1``; the default
+    and P=1,000 three times each, in turns, for their spread (min, median,
+    max). Each run: exit code 0, one stdout line under ``bench.py``'s
+    metric name with the package and the card, the launches of its timed
+    total exactly its route's kernel once a chunk, its probe within 1e-12
+    relative (float32 1e-5) of the probe of the earlier phase that ran the
+    same configuration on the same data (phases 4, 7, 10, 14, 18 and 20),
+    whose total it logs beside its own.
+23. Prints the kernels' JSON line (fourteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
-    path, each one's ``mesh_launches`` in phase 19 (a) and
-    ``grid_launches`` in phase 20), the card's name and power limit, and
-    as the last line ``{"ok": true, "device": {...}}``.
+    path, each one's ``mesh_launches`` in phase 19 (a),
+    ``grid_launches`` in phase 20 and ``bench_launches`` in phase 22), the
+    card's name and power limit, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -394,6 +406,25 @@ GRID_KERNELS = ("fused_loocv", "fold_epilogue", "fold_packed_f32",
 EXAMPLES = ("training_matrices", "training_matrices_batched",
             "cross_validation_reduce", "total_cv_fused", "kernel_routing_ab")
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The bench entry (phase 22): (label, dtype, (N, K, M, P), set_routing
+# knobs, the kernel its timed total must launch and no other). The first
+# two run three times each, in turns, for their spread.
+BENCH_RUNS = (
+    ("default", np.float64, (N, K, M, N), {}, "fused_loocv"),
+    ("P=1,000", np.float64, (N, K, M, 1_000), {}, "fold_v3"),
+    ("float32", np.float32, (N, K, M, N), {}, "fused_loocv_f32"),
+    ("P=25,000", np.float64, (N, K, M, 25_000), {}, "fold_packed"),
+    ("P=10,000", np.float64, (N, K, M, 10_000), {}, "fold_v3"),
+    ("P=100", np.float64, (N, K, M, 100), {}, "fold_ozaki_df64"),
+    ("P=10", np.float64, (N, K, M, 10), {}, "fold_epilogue"),
+    ("P=3", np.float64, (N, K, M, 3), {}, "fold_epilogue"),
+    ("wide K", np.float64, WIDEK, {}, "fold_epilogue"),
+    ("sym_loocv", np.float64, (N, K, M, N), dict(sym_loocv=True),
+     "fused_loocv_sym"),
+)
+BENCH_SPREAD = 3
+# the entry's probe against the same sweep's in an earlier phase, relative
+BENCH_RTOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
 # The mesh layer (phase 19): the rows of the two-rank check and of the
@@ -669,6 +700,10 @@ def main() -> int:
     launches = fused_loocv.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     mat_totals = {(np.float64, N): t_total}  # materialize_cv totals, s
+    # bench_torch.py's configurations (phase 22) as an earlier phase ran
+    # them: (dtype, (N, K, M, P), sym_loocv) -> (probe, total s, phase)
+    bench_ref = {(np.float64, (N, K, M, N), False): (probe, t_total,
+                                                      "phase 4")}
     if launches != n_chunks:
         raise AssertionError(
             f"main path launched the LOOCV kernel {launches} times, expected "
@@ -1193,6 +1228,9 @@ def main() -> int:
             raise AssertionError(f"P={p}: probe is not finite: {probe}")
         kfold_launches[expect] += counts[expect]
         mat_totals[(np.float64, p)] = t_total
+        if mask is None:  # one fold size: the bench's one materialize_cv
+            bench_ref[np.float64, (N, K, M, p), False] = (probe, t_total,
+                                                          "phase 7")
         sweeps = {"torch": [], "cuda": []}
         for impl in ("torch", "cuda"):
             sweeps[impl].append(wall(lambda impl=impl: float(
@@ -1403,6 +1441,8 @@ def main() -> int:
         raise AssertionError(f"f32 main-path probe is not finite: {probe32}")
     kfold_launches["fused_loocv_f32"] = counts["fused_loocv_f32"]
     mat_totals[(np.float32, N)] = t_total
+    bench_ref[np.float32, (N, K, M, N), False] = (probe32, t_total,
+                                                  "phase 10")
     t_fit, st32 = wall(lambda: fit(cfg32, Xd32, Yd32, wd32, copy=False))
     sweeps = {"torch": [], "cuda": []}
     for impl in ("torch", "cuda", "cuda", "torch"):
@@ -1801,6 +1841,9 @@ def main() -> int:
             raise AssertionError(f"{label}: launches {counts}; expected "
                                  f"{n_chunks_p} of {expect}")
         policy_launches[expect] += counts[expect]
+        if knobs == dict(sym_loocv=True) and p == N:
+            bench_ref[np.float64, (N, K, M, N), True] = (probe, t_total,
+                                                         "phase 14")
         f = min((n_chunks_p - 1) * bs_p, p - 1)
         rows_f = idx[f]
         if f64:
@@ -2273,6 +2316,8 @@ def main() -> int:
     if not np.isfinite(probe):
         raise AssertionError(f"wide K: probe is not finite: {probe}")
     widek_launches = counts["fold_epilogue"]
+    if mask_w is None:  # one fold size: the bench's one materialize_cv
+        bench_ref[np.float64, WIDEK, False] = (probe, t_total, "phase 18")
     t_fit, st_w = wall(lambda: fit(cfg, Xwd, Ywd, wwd, copy=False))
     if TB.route_kernel(cfg, st_w, n_lw, True, True, False) != "epilogue":
         raise AssertionError("wide K: the folds do not take the epilogue")
@@ -2596,6 +2641,9 @@ def main() -> int:
         if not (math.isfinite(row.probe) and err <= tol):
             raise AssertionError(f"grid {line}: probe {row.probe!r} against "
                                  f"the per-fold engine {ref!r}")
+        if flags == (True,) * 4 and use_w and mode == "warmjit":
+            bench_ref.setdefault((dt, (N, K, M, p), False),
+                                 (row.probe, row.total, "phase 20"))
         msg = ""
         if mode == "warmjit":
             # Each bucket's last chunk as the sweep runs it (padded, one
@@ -2782,7 +2830,91 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; phase 21 in "
         f"{time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 22. result ---------------------------------------------------------
+    # ---- 22. the bench entry on the card ------------------------------------
+    t_phase = time.perf_counter()
+
+    def bench_run(label):
+        """``bench_torch.py`` at ``label``'s configuration in its own
+        process, every check held against the earlier phase that ran the
+        same configuration on the same data; its stdout line and its result
+        record."""
+        _, dt, shape, knobs, kernel = next(r for r in BENCH_RUNS
+                                           if r[0] == label)
+        n_b, k_b, m_b, p_b = shape
+        ref, earlier, phase = bench_ref[dt, shape, bool(knobs)]
+        cfg_b = CVConfig(True, True, True, True, ddof=1, dtype=dt)
+        want = {kernel: sum(sweep_chunking(cfg_b, s_b.shape[0], k_b,
+                                           k_b + m_b)[1]
+                            for s_b in G.fold_buckets(n_b, p_b))}
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_")}
+        env.update(BENCH_N=str(n_b), BENCH_K=str(k_b), BENCH_M=str(m_b),
+                   BENCH_P=str(p_b), BENCH_DTYPE=np.dtype(dt).name)
+        if knobs.get("sym_loocv"):
+            env["CVMATRIX_TPU_SYM_LOOCV"] = "1"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                             text=True, capture_output=True, timeout=300,
+                             env=env)
+        t_proc = time.perf_counter() - t0
+        if res.returncode:
+            for line in (res.stdout + res.stderr).splitlines()[-16:]:
+                log(f"[bench] {label}: {line}")
+            raise AssertionError(f"bench {label}: bench_torch.py exited "
+                                 f"{res.returncode}")
+        out = res.stdout.splitlines()
+        if len(out) != 1:
+            raise AssertionError(f"bench {label}: stdout {out}")
+        line = json.loads(out[0])
+        rec = json.loads(next(s_[len("result: "):]
+                              for s_ in res.stderr.splitlines()
+                              if s_.startswith("result: ")))
+        name = (f"weighted_TTTT_P{p_b}_total_cv_folds_per_sec_n{n_b}_k{k_b}"
+                f"_{np.dtype(dt).name}")  # bench.py's formula
+        rel = abs(rec["probe"] - ref) / abs(ref)
+        if not (line["metric"] == name and line["unit"] == "folds/s"
+                and line["package"] == "cvmatrix_tpu_torch"
+                and line["card"] == card and line["value"] > 0
+                and abs(line["value"] - p_b / rec["total"]) <= 0.1
+                and "vs_baseline" in line):
+            raise AssertionError(f"bench {label}: line {line}, record {rec}")
+        if rec["launches"] != want:
+            raise AssertionError(f"bench {label}: launches {rec['launches']}"
+                                 f" over the timed total, expected {want}")
+        if not rel <= BENCH_RTOL[dt]:
+            raise AssertionError(f"bench {label}: probe {rec['probe']!r}, "
+                                 f"{phase} {ref!r}")
+        for k_, v_ in rec["launches"].items():
+            bench_launches[k_] = bench_launches.get(k_, 0) + v_
+        log(f"[bench] {label}: {line['value']:,.1f} folds/s, vs_baseline "
+            f"{line['vs_baseline']}; total {rec['total']:.4f} s (first call "
+            f"{rec['t_first']:.4f} s, warm-up {rec['t_warmup']:.4f} s; fit "
+            f"{rec['t_fit']:.4f} s, folds {rec['t_folds']:.4f} s); launches "
+            f"{rec['launches']}; probe {rec['probe']!r} vs {phase} {ref!r} "
+            f"({rel:.2e} relative); total in {phase} {earlier:.4f} s; peak "
+            f"{rec['peak_bytes'] / 1e9:.2f} GB; {t_proc:.1f} s with the "
+            f"process  [{line['card']}]")
+        return rec
+
+    bench_launches: dict = {}
+    spread = {"default": [], "P=1,000": []}
+    for _ in range(BENCH_SPREAD):
+        for label in spread:
+            spread[label].append(bench_run(label)["total"])
+    for label, *_ in BENCH_RUNS:
+        if label not in spread:
+            bench_run(label)
+    for label, totals in spread.items():
+        p_b = next(r[2][3] for r in BENCH_RUNS if r[0] == label)
+        vals = sorted(p_b / t for t in totals)
+        log(f"[bench] {label} spread over {len(vals)} runs in turns: folds/s "
+            f"{[round(v, 1) for v in vals]}, min {vals[0]:,.1f}, median "
+            f"{vals[len(vals) // 2]:,.1f}, max {vals[-1]:,.1f}; totals "
+            f"{[round(t, 4) for t in totals]} s  [{card}]")
+    log(f"[bench] launches {bench_launches}; phase 22 in "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+
+    # ---- 23. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,
@@ -2806,6 +2938,7 @@ def main() -> int:
         "library_ms": chunk_times[name][4],
         "mesh_launches": mesh_launches.get(name, 0),
         "grid_launches": grid_launches.get(name, 0),
+        "bench_launches": bench_launches.get(name, 0),
     } for name in names]}), flush=True)
     print(G.card_line(dev), flush=True)
     print(json.dumps({"ok": True, "device": {

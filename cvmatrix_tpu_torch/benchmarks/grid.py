@@ -24,16 +24,16 @@ knobs:
              synthetic analogue; N and K come from the data)
   BENCH_PROBE_BW ("1")  time a pure store (``fill_`` of 1 GB) on the card
   BENCH_HBM_GBPS (3350, the H100's HBM3 rate)
-  BENCH_PERSISTENT_CACHE ("1")  ``enable_persistent_cache()`` first and
-             print the build directory; kept for the JAX grid's knob set,
-             it moves nothing unless ``CVMATRIX_TPU_TORCH_CACHE`` names a
-             directory (the kernel libraries persist in the checkout's
-             build cache either way)
+  CVMATRIX_TPU_TORCH_CACHE (unset)  the kernel build directory, through
+             ``enable_persistent_cache()``; the JAX grid's
+             ``BENCH_PERSISTENT_CACHE`` has no counterpart: the kernel
+             libraries persist in the checkout's build cache either way
 
-Modes. ``warmjit``: one warm-up, then the fit alone, the sweep alone, and
-the total: through ``materialize_cv`` where every fold has one size
-(barrier ``fused-single``), else the fit and one ``materialize_sweep`` per
-fold-size bucket with one synchronisation at the end (``single-chain``).
+Modes. ``warmjit``: one warm-up, then the fit alone, the sweep alone, the
+total's first call, and the timed total: through ``materialize_cv`` where
+every fold has one size (barrier ``fused-single``), else the fit and one
+``materialize_sweep`` per fold-size bucket with one synchronisation at the
+end (``single-chain``).
 ``coldjit``: the first fit and sweep of the row with no warm-up
 (``sum-of-phases``); torch compiles nothing per shape, so only the first
 row of a process pays the kernel libraries' load (and ``nvcc``, where they
@@ -85,18 +85,23 @@ PLOT_CONFIGS = ((False, False, False, False), (True, True, False, False),
 
 
 class Row(NamedTuple):
-    """One grid row: the seconds of the fit, of the sweep and of the total,
-    the total's barrier, the probe (the sum of the bucket probes), the
-    kernel launches of the timed total (non-zero counts only) and the peak
-    device memory of the row in bytes (``None`` on the CPU)."""
+    """One grid row: the seconds of the fit, of the sweep and of the total
+    (``warmjit`` without phases times no fit or sweep: ``None``), the
+    total's barrier, the probe (the sum of the bucket probes), the kernel
+    launches of the timed total (launched kernels only), the peak device
+    memory of the row in bytes (``None`` on the CPU), and in ``warmjit``
+    the seconds of the total's first call and of the warm-up (the kernels'
+    build or load) where phases ran."""
 
-    t_fit: float
-    t_folds: float
+    t_fit: Optional[float]
+    t_folds: Optional[float]
     total: float
     barrier: str
     probe: float
     launches: Dict[str, int]
     peak_bytes: Optional[int]
+    t_first: Optional[float] = None
+    t_warmup: Optional[float] = None
 
 
 def save_row(csv_path, **kw):
@@ -176,31 +181,25 @@ def probe_folds(config, stacks, k: int, m: int, batch, mode: str):
     return [sweep_last_chunk(config, s, k, k + m, batch)[0] for s in stacks]
 
 
-def _counts():
-    from ..ops import fold_downdate, loocv, slice_rows
-
-    return {name: n for mod in (fold_downdate, loocv, slice_rows)
-            for name, n in mod.launch_counts().items()}
-
-
-def _reset_counts():
-    from ..ops import fold_downdate, loocv, slice_rows
-
-    for mod in (fold_downdate, loocv, slice_rows):
-        mod.reset_launch_counts()
-
-
 def run_row(flags, P, X, Y, weights, batch, mode="warmjit",
-            device="cuda") -> Optional[Row]:
+            device="cuda", *, impl: str = "auto",
+            phases: bool = True) -> Optional[Row]:
     """One grid row on ``device``: ``X``, ``Y`` and ``weights`` (or
     ``None``) as arrays or tensors, moved there first (not timed); the
-    dtype is ``X``'s. Returns ``None`` where the mode does not apply
-    (aotcold on the CPU or over several fold sizes)."""
+    dtype is ``X``'s; ``impl`` is the sweeps' kernel route. Returns
+    ``None`` where the mode does not apply (aotcold on the CPU or over
+    several fold sizes).
+
+    ``warmjit`` in order: with ``phases``, a warm-up fit and sweep, then
+    the fit and the sweep timed apart; the total's first call; then the
+    timed total. Each timed step ends with the card's
+    synchronisation and, where it yields a probe, the host fetch of it.
+    """
     from .. import CVConfig
     from ..core.fit import fit
     from ..core.fold import training_XTX_XTY
     from ..models.sweep import materialize_cv, materialize_sweep
-    from ..ops import _build
+    from ..ops import _build, launch_counts, reset_launch_counts
     from ..utils.profiling import Stopwatch
 
     device = torch.device(device)
@@ -232,12 +231,19 @@ def run_row(flags, P, X, Y, weights, batch, mode="warmjit",
         # one sweep per size bucket; the probes summed on the device
         s = None
         for stack in stacks:
-            p = materialize_sweep(cfg, st, stack, batch_size=batch)
+            p = materialize_sweep(cfg, st, stack, batch_size=batch,
+                                  impl=impl)
             s = p if s is None else s + p
         return s
 
+    def total_cv():
+        if len(stacks) == 1:
+            return materialize_cv(cfg, Xd, Yd, wd, stacks[0],
+                                  batch_size=batch, impl=impl, validate=False)
+        return sweep_probe(fit_once())
+
     if mode == "nojit":
-        _reset_counts()
+        reset_launch_counts()
         with watch() as sw:
             st = fit_once()
         t_fit = sw.elapsed
@@ -250,7 +256,7 @@ def run_row(flags, P, X, Y, weights, batch, mode="warmjit",
                         cfg, st, torch.from_numpy(stack[off:off + b]).to(device))
                     s = s + (xtx[0, 0, 0] + xty[0, 0, 0]).to(torch.float64)
         return Row(t_fit, sw.elapsed, t_fit + sw.elapsed, "sum-of-phases",
-                   float(s), _nonzero(_counts()), peak())
+                   float(s), launch_counts(), peak())
 
     if mode == "aotcold":
         from ..utils.aot import export_kernels, load_kernels
@@ -260,16 +266,15 @@ def run_row(flags, P, X, Y, weights, batch, mode="warmjit",
         t0 = time.perf_counter()
         load_kernels(path)
         t_load = time.perf_counter() - t0
-        _reset_counts()
+        reset_launch_counts()
         with watch() as sw:
-            p = materialize_cv(cfg, Xd, Yd, wd, stacks[0], batch_size=batch,
-                               validate=False)
+            p = total_cv()
         return Row(t_load, sw.elapsed, t_load + sw.elapsed, "aot-first-call",
-                   float(p), _nonzero(_counts()), peak())
+                   float(p), launch_counts(), peak())
 
     if mode == "coldjit":
         loaded = set(_build._LIBS)
-        _reset_counts()
+        reset_launch_counts()
         with watch() as sw:
             st = fit_once()
         t_fit = sw.elapsed
@@ -278,35 +283,32 @@ def run_row(flags, P, X, Y, weights, batch, mode="warmjit",
         barrier = "sum-of-phases" + (
             "+library-load" if set(_build._LIBS) - loaded else "")
         return Row(t_fit, sw.elapsed, t_fit + sw.elapsed, barrier, float(s),
-                   _nonzero(_counts()), peak())
+                   launch_counts(), peak())
 
     if mode != "warmjit":
         raise ValueError(f"unknown mode {mode!r} "
                          "(warmjit|coldjit|nojit|aotcold)")
-    float(sweep_probe(fit_once()))  # warm-up
-    with watch() as sw:
-        st = fit_once()
-    t_fit = sw.elapsed
-    with watch() as sw:
-        sweep_probe(st)
-    t_folds = sw.elapsed
-    del st
-    _reset_counts()
-    if len(stacks) == 1:
+    t_warmup = t_fit = t_folds = None
+    if phases:
         with watch() as sw:
-            s = materialize_cv(cfg, Xd, Yd, wd, stacks[0], batch_size=batch,
-                               validate=False)
-        barrier = "fused-single"
-    else:
+            float(sweep_probe(fit_once()))  # pays the kernels' build or load
+        t_warmup = sw.elapsed
         with watch() as sw:
-            s = sweep_probe(fit_once())
-        barrier = "single-chain"
-    return Row(t_fit, t_folds, sw.elapsed, barrier, float(s),
-               _nonzero(_counts()), peak())
-
-
-def _nonzero(counts):
-    return {name: n for name, n in counts.items() if n}
+            st = fit_once()
+        t_fit = sw.elapsed
+        with watch() as sw:
+            float(sweep_probe(st))
+        t_folds = sw.elapsed
+        del st  # never two states at once
+    with watch() as sw:
+        float(total_cv())
+    t_first = sw.elapsed
+    reset_launch_counts()
+    with watch() as sw:
+        s = float(total_cv())
+    return Row(t_fit, t_folds, sw.elapsed,
+               "fused-single" if len(stacks) == 1 else "single-chain", s,
+               launch_counts(), peak(), t_first, t_warmup)
 
 
 def record_row(csv_path, row: Row, *, mode, flags, P, use_w, N, K, M,
@@ -407,7 +409,7 @@ def main():
     from ..utils import enable_persistent_cache
 
     device = bench_device(os.environ.get("BENCH_PLATFORM"))
-    if os.environ.get("BENCH_PERSISTENT_CACHE", "1") != "0":
+    if os.environ.get("CVMATRIX_TPU_TORCH_CACHE"):
         print("kernel build cache:", enable_persistent_cache(),
               file=sys.stderr, flush=True)
 

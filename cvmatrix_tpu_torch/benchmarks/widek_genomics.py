@@ -71,8 +71,9 @@ def run(n: int = N, k: int = K, m: int = M, p: int = P,
     from .. import CVConfig, Partitioner, fit
     from ..core.fold import training_XTX_XTY
     from ..models.sweep import cross_validate_reduce
+    from ..ops import launch_counts, reset_launch_counts
     from ..utils.profiling import Stopwatch
-    from .grid import _counts, _nonzero, _reset_counts, bench_device, card_line
+    from .grid import bench_device, card_line
 
     device = bench_device("cpu" if str(device) == "cpu" else None)
     cuda = device.type == "cuda"
@@ -119,14 +120,14 @@ def run(n: int = N, k: int = K, m: int = M, p: int = P,
 
     state = out = None
     state = fit_once()
-    _reset_counts()
+    reset_launch_counts()
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     with Stopwatch(device=device) as sw:
         out = sweep(state)
         float(out["diag_mean"][0])
     t_folds = sw.elapsed
-    launches = _nonzero(_counts())
+    launches = launch_counts()
     log(f"warm: fit={t_fit:.3f}s folds={t_folds:.3f}s "
         f"({p / (t_fit + t_folds):.2f} folds/s at K={k:,})")
     return {

@@ -33,6 +33,8 @@ def test_import_leaves_jax_out():
         "from cvmatrix_tpu_torch.examples import training_matrices, "
         "training_matrices_batched, cross_validation_reduce, "
         "total_cv_fused, kernel_routing_ab, training_matrices_mesh\n"
+        "import cvmatrix_tpu_torch.bench\n"
+        "import runpy; runpy.run_path('bench_torch.py')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cvmatrix_tpu',\n"
         "                                    'triton', 'pandas',\n"
@@ -48,7 +50,7 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "cvmatrix_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py"]
+              ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 ))
 def test_sources_never_import_jax(path):
     assert not IMPORT_RE.search((ROOT / path).read_text()), path
@@ -95,7 +97,7 @@ MODULE_LEVEL_PLOTTING = re.compile(r"^(import|from)\s+(pandas|matplotlib)\b",
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "cvmatrix_tpu_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py"]
+              ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     if p.name != "plot.py" or p.parent.name != "benchmarks"
 ))
 def test_sources_leave_plotting_out(path):
