@@ -50,6 +50,7 @@ from ..ops import fold_downdate as _fd
 from ..ops import loocv as _loocv
 from ..ops.precision import highest_precision
 from ..policy import policy as _policy
+from ..utils.profiling import ROUTE, SOURCES, STATS, span, spanned, to_device
 from .fold import (
     FoldBlocks,
     _compute_training_stats,
@@ -240,6 +241,7 @@ def _loocv_sources(config: CVConfig, state: FitState, xw, xu, yu, yw,
     return LoocvSources(total, xw, xu, yu, yw, gx, gy, scal, mask, rows)
 
 
+@spanned(SOURCES)
 def prepare_loocv_sources(
     config: CVConfig,
     state: FitState,
@@ -273,11 +275,12 @@ def prepare_loocv_sources(
         raise ValueError("Response variables `Y` are not provided.")
     # a copy, so that no later write to the caller's tensor reaches rows
     # that count as checked
-    rows = _loocv.check_rows(idx, state.N).to(state.device, copy=True)
+    rows = to_device(_loocv.check_rows(idx, state.N), state.device,
+                     copy=True)
     rows = rows.reshape(f_folds, n_l)
     weighted = state.weights is not None
-    mask = None if mask_batch is None else torch.as_tensor(
-        mask_batch, dtype=config.torch_dtype, device=state.device
+    mask = None if mask_batch is None else to_device(torch.as_tensor(
+        mask_batch, dtype=config.torch_dtype), state.device
     ).reshape(f_folds, n_l).contiguous()
     return _loocv_sources(
         config, state, state.WX if weighted else state.X, state.X, state.Y,
@@ -600,6 +603,7 @@ def _stat_flags(config: CVConfig, return_XTX: bool, return_XTY: bool):
     )
 
 
+@spanned(STATS)
 def stats_from_blocks(config: CVConfig, state: FitState, blocks: FoldBlocks,
                       return_XTX: bool = True, return_XTY: bool = True):
     """``(X_mean, X_std, Y_mean, Y_std, sum_w_train)`` of batched gathered
@@ -617,6 +621,7 @@ def _gather_and_stats(config, state, rows, mask, return_XTX, return_XTY):
                                      return_XTY)
 
 
+@spanned(STATS)
 @highest_precision()
 def _summed_stats(config, state, rows, mask, **flags):
     """``_compute_training_stats`` of (F, L) device rows, gathering each
@@ -698,8 +703,8 @@ def _rows_mask(config, state, idx_batch, mask_batch):
     if isinstance(idx_batch, torch.Tensor) and idx_batch.device.type != "cpu":
         _loocv.check_rows(idx_batch, state.N)
     rows = _fd.device_rows(idx_batch, state.N, state.device)
-    mask = None if mask_batch is None else torch.as_tensor(
-        mask_batch, dtype=config.torch_dtype, device=state.device
+    mask = None if mask_batch is None else to_device(torch.as_tensor(
+        mask_batch, dtype=config.torch_dtype), state.device
     ).reshape(rows.shape).contiguous()
     return rows, mask
 
@@ -756,6 +761,7 @@ class FoldOperands(NamedTuple):
 FoldOperands.PER_FOLD = ("u", "v", "kvec", "cvec")
 
 
+@spanned(SOURCES)
 def prepare_fold_operands(
     config: CVConfig,
     state: FitState,
@@ -883,6 +889,7 @@ class OzakiSources(NamedTuple):
 OzakiSources.PER_FOLD = ("rows", "mask", "sxv", "yvec", "scal")
 
 
+@spanned(SOURCES)
 def prepare_ozaki_sources(
     config: CVConfig,
     state: FitState,
@@ -1227,40 +1234,43 @@ def training_matrices_batched(
     route = route_kernel(config, state, idx.shape[1], return_XTX, return_XTY,
                          mask_np is not None, n_folds=idx.shape[0])
     flags = _stat_flags(config, return_XTX, return_XTY)
-    if route.startswith("loocv"):
-        # The LOOCV routes check their host rows themselves.
-        src = prepare_loocv_sources(config, state, idx[:, 0],
-                                    return_XTX=return_XTX,
-                                    return_XTY=return_XTY)
-        out = run_loocv_route(config, src, idx[:, 0], route,
-                              return_XTY=return_XTY, impl=impl)
-        rows = torch.from_numpy(idx.astype(np.int64)).to(device)
-        stats = _summed_stats(config, state, rows, None, **flags)[:4]
+    with span(ROUTE + route):
+        if route.startswith("loocv"):
+            # The LOOCV routes check their host rows themselves.
+            src = prepare_loocv_sources(config, state, idx[:, 0],
+                                        return_XTX=return_XTX,
+                                        return_XTY=return_XTY)
+            out = run_loocv_route(config, src, idx[:, 0], route,
+                                  return_XTY=return_XTY, impl=impl)
+            rows = to_device(torch.from_numpy(idx.astype(np.int64)), device)
+            stats = _summed_stats(config, state, rows, None, **flags)[:4]
+            return _split(out, state.K, return_XTX, return_XTY), stats
+        # Host folds go to the operand builders, which check them on the
+        # host.
+        if route in ("packed", "packed_f32"):
+            ops, stats = prepare_fold_operands(config, state, idx, mask_np,
+                                               return_XTX=return_XTX,
+                                               return_XTY=return_XTY)
+            out = downdate_from_operands(ops, impl=impl)
+        elif route in ("v3", "v3_sym"):
+            src = prepare_ozaki_sources(config, state, idx, mask_np,
+                                        return_XTX=return_XTX,
+                                        return_XTY=return_XTY)
+            out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
+                                        impl=impl)
+            stats = _summed_stats(config, state, src.rows, src.mask,
+                                  **flags)[:4]
+        else:
+            with span(SOURCES):
+                rows, mask = _rows_mask(config, state, idx, mask_np)
+                if total is None:
+                    total = _total(state, return_XTX, return_XTY)
+            large = (_f32_kernel_path if route == "downdate_f32"
+                     else _large_fold_path)
+            out, stats = large(config, state, rows, mask, total=total,
+                               return_XTX=return_XTX, return_XTY=return_XTY,
+                               impl=impl)
         return _split(out, state.K, return_XTX, return_XTY), stats
-    # Host folds go to the operand builders, which check them on the host.
-    if route in ("packed", "packed_f32"):
-        ops, stats = prepare_fold_operands(config, state, idx, mask_np,
-                                           return_XTX=return_XTX,
-                                           return_XTY=return_XTY)
-        out = downdate_from_operands(ops, impl=impl)
-    elif route in ("v3", "v3_sym"):
-        src = prepare_ozaki_sources(config, state, idx, mask_np,
-                                    return_XTX=return_XTX,
-                                    return_XTY=return_XTY)
-        out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
-                                    impl=impl)
-        stats = _summed_stats(config, state, src.rows, src.mask,
-                              **flags)[:4]
-    else:
-        rows, mask = _rows_mask(config, state, idx, mask_np)
-        large = (_f32_kernel_path if route == "downdate_f32"
-                 else _large_fold_path)
-        out, stats = large(config, state, rows, mask,
-                           total=(_total(state, return_XTX, return_XTY)
-                                  if total is None else total),
-                           return_XTX=return_XTX, return_XTY=return_XTY,
-                           impl=impl)
-    return _split(out, state.K, return_XTX, return_XTY), stats
 
 
 def batched_matrices_from_blocks(

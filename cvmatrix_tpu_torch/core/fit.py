@@ -18,6 +18,7 @@ import torch
 
 from ..config import CVConfig
 from ..ops.precision import highest_precision
+from ..utils.profiling import FIT, spanned
 from .state import FitState
 
 __all__ = ["fit", "default_device"]
@@ -63,6 +64,7 @@ def _init_mat(mat, dtype: torch.dtype, device, copy: bool) -> torch.Tensor:
     return t
 
 
+@spanned(FIT)
 def fit(
     config: CVConfig,
     X,

@@ -59,6 +59,14 @@ from ..core.fit import fit
 from ..core.fold import training_matrices
 from ..core.state import FitState
 from ..ops.loocv import IMPLS, check_rows
+from ..utils.profiling import (
+    REDUCE_FN,
+    SOURCES,
+    SWEEP,
+    span,
+    spanned,
+    to_device,
+)
 from .partitioner import Partitioner
 
 __all__ = ["chunking", "cross_validate", "cross_validate_dict",
@@ -117,6 +125,7 @@ def sweep_last_chunk(config: CVConfig, idx_batch, k: int, c: int,
     return idx[(n_chunks - 1) * bs:]
 
 
+@spanned(SWEEP + "materialize_sweep")
 def materialize_sweep(
     config: CVConfig,
     state: FitState,
@@ -191,11 +200,12 @@ def materialize_sweep(
             ozaki_v3_from_sources(config, slice_operands(src, c * bs, bs),
                                   return_XTY=return_XTY, impl=impl, out=buf)
     else:
-        rows, mask_d = _rows_mask(config, state, idx, mask)
         large = (_f32_kernel_path if route == "downdate_f32"
                  else _large_fold_path)
-        # [XTX | XTY] once for every chunk (3.2 GB at K = 20,000)
-        total = _batch._total(state, return_XTX, return_XTY)
+        with span(SOURCES):
+            rows, mask_d = _rows_mask(config, state, idx, mask)
+            # [XTX | XTY] once for every chunk (3.2 GB at K = 20,000)
+            total = _batch._total(state, return_XTX, return_XTY)
         for c in range(n_chunks):
             sl = slice(c * bs, (c + 1) * bs)
             large(config, state, rows[sl],
@@ -303,6 +313,7 @@ def cross_validate_dict(
     return out
 
 
+@spanned(REDUCE_FN)
 def _vmap_reduce(reduce_fn, mats, stats):
     """``reduce_fn`` over the fold axis of one chunk (``torch.func.vmap``;
     ``None`` statistics pass through unbatched). A reduction that is a view
@@ -333,6 +344,7 @@ def _slice_stats(stats, start: int, size: int):
     return tuple(None if s is None else s[start:start + size] for s in stats)
 
 
+@spanned(SWEEP + "cross_validate_reduce")
 def cross_validate_reduce(
     config: CVConfig,
     state: FitState,
@@ -443,7 +455,8 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
                                return_XTY, impl)
     # Generic body: every chunk through training_matrices_batched, with
     # [XTX | XTY] built once for every chunk (3.2 GB at K = 20,000).
-    total = _batch._total(state, return_XTX, return_XTY)
+    with span(SOURCES):
+        total = _batch._total(state, return_XTX, return_XTY)
     out = []
     for c0 in range(0, n_total, bs):
         mats, stats = _batch.training_matrices_batched(
@@ -477,7 +490,7 @@ def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
         ci = rows[c0:c0 + bs]
         mats = run_loocv_route(config, src, ci, route, src.scal[c0:c0 + bs],
                                return_XTY=return_XTY, impl=impl)
-        rows_d = ci.to(state.device, non_blocking=True)[:, None]
+        rows_d = to_device(ci, state.device, non_blocking=True)[:, None]
         stats = _batch._summed_stats(config, state, rows_d, None,
                                      **flags)[:4]
         out.append(_vmap_reduce(

@@ -65,6 +65,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import to_device
 from .loocv import (
     _FLAG_BITS,
     IMPLS,
@@ -291,7 +292,10 @@ def device_rows(rows, n: int, device) -> torch.Tensor:
     r = torch.as_tensor(rows)
     if r.ndim != 2:
         raise ValueError(f"fold rows must be (F, L), got {tuple(r.shape)}.")
-    return check_rows(r, n).reshape(r.shape).to(device)
+    checked = check_rows(r, n).reshape(r.shape)
+    if isinstance(rows, torch.Tensor) and rows.device == torch.device(device):
+        return checked  # on the CPU: the twins' own rows, nothing to move
+    return to_device(checked, device)
 
 
 def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int, tail=()):

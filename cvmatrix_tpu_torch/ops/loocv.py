@@ -33,6 +33,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import to_device
+
 __all__ = ["side_stats", "loocv_vectors", "loocv_reference",
            "loocv_sym_reference", "mirror_x_block", "fused_loocv",
            "check_rows", "launch_counts", "reset_launch_counts", "IMPLS"]
@@ -199,7 +201,7 @@ def _dispatch(name, src, rows, scal, impl, out, flags, dtypes):
             f"impl='cuda' needs CUDA tensors; the sources are on {device}."
         )
     if impl == "torch" or (impl == "auto" and device.type == "cpu"):
-        return rows.to(device), None, None
+        return to_device(rows, device), None, None
     if device.type != "cuda":
         raise ValueError(f"{name} has no kernel for device {device}.")
     dtype = src.xw.dtype
@@ -233,7 +235,7 @@ def _dispatch(name, src, rows, scal, impl, out, flags, dtypes):
         raise ValueError(f"out must be a contiguous {dtype} ({f_folds}, {k}, "
                          f"{c}) tensor on {device}.")
     bits = sum(b for n, b in _FLAG_BITS.items() if flags[n])
-    return rows.to(device, non_blocking=True), out, bits
+    return to_device(rows, device, non_blocking=True), out, bits
 
 
 def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,

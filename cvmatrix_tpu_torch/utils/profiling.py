@@ -1,12 +1,44 @@
 """Profiling helpers of the PyTorch port: a profiler trace, a completion
-fence and a timer with a byte counter.
+fence, a timer with a byte counter, and the program's spans.
 
-Counterpart of :mod:`cvmatrix_tpu.utils.profiling`.
+Counterpart of :mod:`cvmatrix_tpu.utils.profiling`; the spans are the
+port's own.
+
+The port opens its spans through :func:`span` (and :func:`spanned`,
+:func:`to_device`, built on it) at its layer boundaries. Each is a
+``torch.profiler.record_function`` range, so it lands in the profiler's
+Chrome trace beside the card's kernels and copies, on the profiler's clock:
+:func:`trace` records them. With no profiler recording, a span costs one
+check and enters nothing (0.4-0.8 us a span on a CPU build of torch 2.13,
+against 9-13 us for a ``record_function`` entered regardless). The spans, by
+name:
+
+- ``cvmatrix_tpu_torch.core.fit``: each ``core.fit.fit`` call;
+- ``cvmatrix_tpu_torch.core.batch.route.<route>``: each
+  ``core.batch.training_matrices_batched`` call, from the moment
+  ``route_kernel`` has chosen ``<route>`` (a key of ``TPU_KERNELS``): one a
+  chunk, so their counts by name are the chunks by route;
+- ``cvmatrix_tpu_torch.core.batch.sources``: ``prepare_loocv_sources``,
+  ``prepare_ozaki_sources``, ``prepare_fold_operands``, and on the
+  large-fold routes the rows, mask and ``[XTX | XTY]`` built for a call or
+  a sweep;
+- ``cvmatrix_tpu_torch.core.batch.stats``: the folds' training statistics,
+  ``_summed_stats`` and ``stats_from_blocks``;
+- ``cvmatrix_tpu_torch.h2d``: each copy of fold rows or a fold mask from
+  the host to the state's device (:func:`to_device`), the wait for the
+  stream that a blocking copy pays included;
+- ``cvmatrix_tpu_torch.models.sweep.<entry>``: each
+  ``cross_validate_reduce`` and ``materialize_sweep`` call;
+- ``cvmatrix_tpu_torch.models.sweep.reduce_fn``: the user's reduction over
+  one chunk (``torch.func.vmap``), with the copies of views it returns.
+
+No span nests inside another of its name, and none changes a result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Iterator, Optional
@@ -14,7 +46,48 @@ from typing import Iterator, Optional
 import torch
 import torch.utils._pytree as pytree
 
-__all__ = ["trace", "device_fence", "Stopwatch"]
+__all__ = ["trace", "device_fence", "Stopwatch", "span", "spanned",
+           "to_device"]
+
+PREFIX = "cvmatrix_tpu_torch."
+FIT = PREFIX + "core.fit"
+ROUTE = PREFIX + "core.batch.route."
+SOURCES = PREFIX + "core.batch.sources"
+STATS = PREFIX + "core.batch.stats"
+H2D = PREFIX + "h2d"
+SWEEP = PREFIX + "models.sweep."
+REDUCE_FN = SWEEP + "reduce_fn"
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records, else a shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs in :func:`span` ``(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def to_device(t: torch.Tensor, device, **kwargs) -> torch.Tensor:
+    """``t.to(device, **kwargs)``, in an ``h2d`` span where ``t`` is on the
+    host: the port moves fold rows and masks to the state's device through
+    it."""
+    if t.is_cpu and torch.autograd._profiler_enabled():
+        with span(H2D):
+            return t.to(device, **kwargs)
+    return t.to(device, **kwargs)
 
 
 @contextlib.contextmanager

@@ -950,3 +950,46 @@ def test_slice_rows_kernel_edges(dev, k, row_major):
         assert got.dtype == torch.int8
         assert torch.equal(got, ref), (k, n, view, row_major)
         assert torch.equal(got, again)
+
+
+def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
+    """One profiled LOOCV chunk at K=500 (980 folds): the LOOCV kernel
+    starts on the card inside the chunk's route span, and the blocking copy
+    of the statistics' rows that follows its launch waits for it: that
+    ``h2d`` span starts before the kernel ends and ends after it."""
+    import json
+
+    from cvmatrix_tpu_torch.utils import profiling as P
+
+    rng = np.random.default_rng(3)
+    n, k, m = 20_000, 500, 10
+    X, Y, w = (torch.from_numpy(rng.random(s)).to(dev)
+               for s in ((n, k), (n, m), (n, 1)))
+    cfg = T.CVConfig(True, True, True, True, ddof=1)
+    st = T.fit(cfg, X, Y, w)
+    idx = rng.permutation(n)[:980, None]
+    TB.training_matrices_batched(cfg, st, idx)  # loads the kernel
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        TB.training_matrices_batched(cfg, st, idx)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+
+    def spans(cat, pick):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                      for e in events
+                      if e.get("cat") == cat and pick(e.get("name", "")))
+
+    route = spans("user_annotation", lambda s: s == P.ROUTE + "loocv")
+    h2d = spans("user_annotation", lambda s: s == P.H2D)
+    kernel = spans("kernel", lambda s: "loocv_tile_kernel" in s)
+    assert len(route) == 1 and len(kernel) == 1 and len(h2d) == 3
+    (r0, r1), (k0, k1), (c0, c1) = route[0], kernel[0], h2d[-1]
+    assert r0 <= k0 <= r1
+    assert c0 < k1 <= c1
