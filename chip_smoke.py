@@ -109,8 +109,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
     LOOCV with a trace (default policy and ``sym_loocv``), P=25,000 (the
     packed loop) with a trace, P=1,000 (the v3 loop) with a ridge solve,
     and P=1,000 under ``hoist_reduce=False``, timed beside the
-    ``materialize_cv`` total of the same P, the launch counts checked, and
-    three folds' reductions against the per-fold engine.
+    ``materialize_cv`` total of the same P, the launch counts checked
+    (the LOOCV kernel storing the statistics once a chunk), and three
+    folds' reductions against the per-fold engine.
 16. Small-fold LOOCV sources: the port of ``fused_smallfold_df64`` against
     its twin at N=2,000, K=500, M=10 for 16 flag sets x weighted and
     unweighted x [XTX | XTY] and XTX alone, 16 folds of L=4 unmasked and
@@ -373,10 +374,16 @@ def wall(fn):
     return time.perf_counter() - t0, res
 
 
+# The LOOCV kernels' launches that stored the training statistics: a
+# count of launches already counted under their kernel's name.
+STATS_COUNTER = "fused_loocv_stats"
+
+
 def launch_counts(*mods) -> dict:
     """Every kernel's launch count in the wrapper modules ``mods``, by the
-    kernels line's names."""
-    return {name: n for mod in mods for name, n in mod.launch_counts().items()}
+    kernels line's names (not ``STATS_COUNTER``, which is no kernel)."""
+    return {name: n for mod in mods for name, n in mod.launch_counts().items()
+            if name != STATS_COUNTER}
 
 
 def reset_launch_counts(*mods) -> None:
@@ -515,9 +522,7 @@ def run_mesh(mesh, X, Y, w, cases, knobs=None, batch_size=None):
         for mod in (FD, TL, SR):
             mod.reset_launch_counts()
         t, res = wall(run)
-        counts = {n: c for mod in (FD, TL, SR)
-                  for n, c in mod.launch_counts().items()}
-        out[label] = (t, res.cpu().numpy(), counts)
+        out[label] = (t, res.cpu().numpy(), launch_counts(FD, TL, SR))
     return out
 
 
@@ -1909,12 +1914,18 @@ def main() -> int:
             reset_launch_counts(FD, TL, SR)
             t_total, out = wall(run)
             counts = launch_counts(FD, TL, SR)
+            n_stats = TL.fused_loocv.launches_stats
         finally:
             set_routing(**vars(default_policy))
         if counts[expect] != n_chunks_r or any(
                 v for n, v in counts.items() if n != expect):
             raise AssertionError(f"{label}: launches {counts}; expected "
                                  f"{n_chunks_r} of {expect}")
+        # the LOOCV loop's kernel stores each chunk's statistics
+        want_stats = n_chunks_r if expect.startswith("fused_loocv") else 0
+        if n_stats != want_stats:
+            raise AssertionError(f"{label}: {n_stats} launches stored the "
+                                 f"statistics, expected {want_stats}")
         if out.shape[0] != p or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{label}: {tuple(out.shape)} result, or "
                                  "not finite")
@@ -2666,9 +2677,12 @@ def main() -> int:
                 del xtx, xty
                 counts = {n: c for n, c in
                           launch_counts(FD, TL, SR).items() if c}
-                if counts != {name: 1}:
+                n_stats = TL.fused_loocv.launches_stats
+                if counts != {name: 1} or n_stats != int(
+                        name.startswith("fused_loocv")):
                     raise AssertionError(f"grid {line}: chunk of {len(chunk)}"
-                                         f" folds launched {counts}")
+                                         f" folds launched {counts}, "
+                                         f"{n_stats} storing statistics")
                 chunk_probe += float(got[0, 0, 0] + got[0, 0, K])
                 for off in range(0, len(chunk), 256):
                     (exx, exy), _ = training_matrices(

@@ -327,10 +327,14 @@ def _loocv_flags(config: CVConfig, return_XTY: bool) -> dict:
 def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
                        scal_slice=None, *, return_XTY: bool,
                        two_per_step: bool = False, sym: bool = False,
-                       impl: str = "auto", out=None) -> torch.Tensor:
+                       impl: str = "auto", out=None,
+                       return_stats: bool = False):
     """Run the LOOCV downdate on (a slice of) prepared sources.
 
-    Returns (F, K, C) with ``XTX = out[..., :K]`` and ``XTY = out[..., K:]``.
+    Returns (F, K, C) with ``XTX = out[..., :K]`` and ``XTY = out[..., K:]``;
+    with ``return_stats``, ``(out, stats)``: the folds' training statistics
+    as :func:`_loocv_stats` returns them, stored by the kernel's vector
+    phase (``ops.loocv.fused_loocv``).
     ``two_per_step`` launches two folds per block (the ports of
     ``fused_loocv_df64x2`` and ``fused_loocv_f32x2``): the same arithmetic.
     ``sym`` (float64) runs the port of ``fused_loocv_df64_sym``: the X
@@ -349,9 +353,28 @@ def loocv_from_sources(config: CVConfig, src: LoocvSources, rows,
             "kernels read one unmasked row a fold; run folds of more rows, "
             "or masked ones, through smallfold_from_sources."
         )
-    return _loocv.fused_loocv(
+    res = _loocv.fused_loocv(
         src, rows, scal, sym=sym, folds_per_block=2 if two_per_step else 1,
-        impl=impl, out=out, **_loocv_flags(config, return_XTY))
+        impl=impl, out=out, return_stats=return_stats,
+        **_loocv_flags(config, return_XTY))
+    if not return_stats:
+        return res
+    out, stats = res
+    return out, _loocv_stats(config, stats, src.xw.shape[1], return_XTY)
+
+
+def _loocv_stats(config: CVConfig, stats: torch.Tensor, k: int,
+                 return_XTY: bool):
+    """``(X_mean, X_std, Y_mean, Y_std)`` of the LOOCV kernels' (F, 2, C)
+    statistics: (F, 1, K) and (F, 1, M) views of it, ``None`` where
+    :func:`_stat_flags` asks for no such statistic, as the per-fold
+    engine's batched result has them."""
+    flags = _stat_flags(config, True, return_XTY)
+    x, y = stats[:, :, :k], stats[:, :, k:]
+    return (x[:, 0:1] if flags["return_X_mean"] else None,
+            x[:, 1:2] if flags["return_X_std"] else None,
+            y[:, 0:1] if flags["return_Y_mean"] else None,
+            y[:, 1:2] if flags["return_Y_std"] else None)
 
 
 def _views(rows: torch.Tensor, checked: Optional[torch.Tensor]) -> bool:
@@ -402,13 +425,15 @@ def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
 
 def run_loocv_route(config: CVConfig, src: LoocvSources, rows, route: str,
                     scal_slice=None, *, return_XTY: bool, impl: str = "auto",
-                    out=None) -> torch.Tensor:
+                    out=None, return_stats: bool = False):
     """One of :func:`route_kernel`'s three LOOCV routes on prepared
-    sources: ``"loocv_sym"``, ``"loocv_x2"`` or ``"loocv"``."""
+    sources: ``"loocv_sym"``, ``"loocv_x2"`` or ``"loocv"``;
+    ``return_stats`` as in :func:`loocv_from_sources`."""
     return loocv_from_sources(config, src, rows, scal_slice,
                               return_XTY=return_XTY,
                               two_per_step=route == "loocv_x2",
-                              sym=route == "loocv_sym", impl=impl, out=out)
+                              sym=route == "loocv_sym", impl=impl, out=out,
+                              return_stats=return_stats)
 
 
 # --------------------------------------------------------------------------- #
@@ -1236,14 +1261,14 @@ def training_matrices_batched(
     flags = _stat_flags(config, return_XTX, return_XTY)
     with span(ROUTE + route):
         if route.startswith("loocv"):
-            # The LOOCV routes check their host rows themselves.
+            # The LOOCV routes check their host rows themselves; the
+            # kernel stores the statistics.
             src = prepare_loocv_sources(config, state, idx[:, 0],
                                         return_XTX=return_XTX,
                                         return_XTY=return_XTY)
-            out = run_loocv_route(config, src, idx[:, 0], route,
-                                  return_XTY=return_XTY, impl=impl)
-            rows = to_device(torch.from_numpy(idx.astype(np.int64)), device)
-            stats = _summed_stats(config, state, rows, None, **flags)[:4]
+            out, stats = run_loocv_route(config, src, idx[:, 0], route,
+                                         return_XTY=return_XTY, impl=impl,
+                                         return_stats=True)
             return _split(out, state.K, return_XTX, return_XTY), stats
         # Host folds go to the operand builders, which check them on the
         # host.

@@ -25,6 +25,13 @@
 //   q     = [mX r1 (0 unless centre XTX) | mY r2 (0 unless centre XTY)]
 //   out[f] = total (.) (r1 (x) rc) - u (x) v - p (x) q        (K, C)
 //
+// With a non-null stats (F, 2, C), the vector phase also stores each fold's
+// training statistics: row 0 the mean, row 1 the std clamped as
+// core/fold._train_std clamps it (1 where it is <= resolution; 1 on a side
+// that is not scaled, and a mean of 0 where none is needed), columns [0, K)
+// of X and [K, C) of Y. The matrices are the same, bit for bit, with or
+// without it.
+//
 // What bounds it: every fold writes K*C*sizeof(T) bytes (2.0 MB in float64,
 // 1.0 MB in float32 at K=500, M=10) and reads only one data row, so the
 // sweep is bound by device-memory writes. The design follows: a vector
@@ -82,12 +89,13 @@ constexpr int kWithY = 16;
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 
-// Downdated mean and clamped reciprocal std of one column.
+// Downdated mean, clamped std and its reciprocal of one column.
 template <typename T>
 __device__ __forceinline__ void column_stats(
     T g_sum, T g_sq, T w, T u, T sw, T rsw, T rdv, bool need_mean,
-    bool need_std, T resolution, T* mean, T* recip) {
+    bool need_std, T resolution, T* mean, T* std, T* recip) {
   T m = T(0);
+  T sc = T(1);
   T r = T(1);
   if (need_mean || need_std) {
     const T st = g_sum - w;
@@ -97,23 +105,27 @@ __device__ __forceinline__ void column_stats(
       const T var = (T(-2) * m * st + sw * (m * m) + ss) * rdv;
       // NaN propagates, as in torch.clamp and the JAX kernel.
       const T sd = sqrt_t(var < T(0) ? T(0) : var);
-      r = sd <= resolution ? T(1) : T(1) / sd;
+      const bool flat = sd <= resolution;
+      sc = flat ? T(1) : sd;
+      r = flat ? T(1) : T(1) / sd;
     }
   }
   *mean = m;
+  *std = sc;
   *recip = r;
 }
 
 // Vector phase: block b writes rc, u, v, p, q (rows 0..4 of vec[f], each
-// C long; u and p use the first K entries) of folds f = b*FPB .. +FPB.
+// C long; u and p use the first K entries) of folds f = b*FPB .. +FPB, and
+// where stats is not null the mean and std (rows 0 and 1 of stats[f]).
 template <typename T, int FPB>
 __global__ void loocv_vectors_kernel(
     const int64_t* __restrict__ rows, const T* __restrict__ xw,
     const T* __restrict__ xu, const T* __restrict__ yu,
     const T* __restrict__ yw, const T* __restrict__ gx,
     const T* __restrict__ gy, const T* __restrict__ scal,
-    T* __restrict__ vec, int64_t F, int64_t K, int64_t M, int flags,
-    T resolution) {
+    T* __restrict__ vec, T* __restrict__ stats, int64_t F, int64_t K,
+    int64_t M, int flags, T resolution) {
   const int64_t C = K + M;
   const bool center_xtx = flags & kCenterXTX;
   const bool with_y = flags & kWithY;
@@ -137,13 +149,14 @@ __global__ void loocv_vectors_kernel(
     T* v = rc + 2 * C;
     T* p = rc + 3 * C;
     T* q = rc + 4 * C;
+    T* st = stats == nullptr ? nullptr : stats + 2 * C * f;
     for (int64_t j = threadIdx.x; j < C; j += blockDim.x) {
-      T m, ri;
+      T m, sd, ri;
       if (j < K) {
         const T a = xw[r * K + j];
         const T b = xu[r * K + j];
         column_stats(gx[j], gx[K + j], a, b, sw, rsw, rdv, need_x_mean,
-                     scale_x, resolution, &m, &ri);
+                     scale_x, resolution, &m, &sd, &ri);
         const T mr = m * ri;
         rc[j] = ri;
         u[j] = a * ri;
@@ -155,10 +168,14 @@ __global__ void loocv_vectors_kernel(
         const T a = yw[r * M + jj];
         const T b = yu[r * M + jj];
         column_stats(gy[jj], gy[M + jj], a, b, sw, rsw, rdv, need_y_mean,
-                     scale_y, resolution, &m, &ri);
+                     scale_y, resolution, &m, &sd, &ri);
         rc[j] = ri;
         v[j] = b * ri;
         q[j] = center_xty ? m * ri : T(0);
+      }
+      if (st != nullptr) {
+        st[j] = m;
+        st[C + j] = sd;
       }
     }
   }
@@ -286,14 +303,14 @@ loocv_sym_tile_kernel(const double* __restrict__ total,
 template <typename T, int FPB>
 int launch_loocv(const int64_t* rows, const T* total, const T* xw,
                  const T* xu, const T* yu, const T* yw, const T* gx,
-                 const T* gy, const T* scal, T* vec, T* out, int64_t F,
-                 int64_t K, int64_t M, int flags, double resolution,
-                 cudaStream_t s) {
+                 const T* gy, const T* scal, T* vec, T* stats, T* out,
+                 int64_t F, int64_t K, int64_t M, int flags,
+                 double resolution, cudaStream_t s) {
   const int64_t C = K + M;
   const int64_t blocks = (F + FPB - 1) / FPB;
   loocv_vectors_kernel<T, FPB><<<static_cast<unsigned>(blocks), kVecThreads,
                                  0, s>>>(
-      rows, xw, xu, yu, yw, gx, gy, scal, vec, F, K, M, flags,
+      rows, xw, xu, yu, yw, gx, gy, scal, vec, stats, F, K, M, flags,
       static_cast<T>(resolution));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -308,9 +325,10 @@ int launch_loocv(const int64_t* rows, const T* total, const T* xw,
 template <typename T>
 int launch_loocv_fpb(const int64_t* rows, const T* total, const T* xw,
                      const T* xu, const T* yu, const T* yw, const T* gx,
-                     const T* gy, const T* scal, T* vec, T* out, int64_t F,
-                     int64_t K, int64_t M, int flags, double resolution,
-                     int folds_per_block, int device, void* stream) {
+                     const T* gy, const T* scal, T* vec, T* stats, T* out,
+                     int64_t F, int64_t K, int64_t M, int flags,
+                     double resolution, int folds_per_block, int device,
+                     void* stream) {
   if (F <= 0 || K <= 0) return 0;
   if (folds_per_block != 1 && folds_per_block != 2) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -320,28 +338,30 @@ int launch_loocv_fpb(const int64_t* rows, const T* total, const T* xw,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (folds_per_block == 2) {
     return launch_loocv<T, 2>(rows, total, xw, xu, yu, yw, gx, gy, scal, vec,
-                              out, F, K, M, flags, resolution, s);
+                              stats, out, F, K, M, flags, resolution, s);
   }
   return launch_loocv<T, 1>(rows, total, xw, xu, yu, yw, gx, gy, scal, vec,
-                            out, F, K, M, flags, resolution, s);
+                            stats, out, F, K, M, flags, resolution, s);
 }
 
 }  // namespace
 
 // Launch both phases on `stream`. Pointers are device pointers; yu, yw and
 // gy may be null when flags lacks kWithY (then M must be 0). vec is
-// caller-allocated scratch of F*5*(K+M) elements, out of F*K*(K+M).
+// caller-allocated scratch of F*5*(K+M) elements, out of F*K*(K+M); stats
+// is null, or receives F*2*(K+M) elements (the statistics of the header).
 // folds_per_block is 1 or 2. Returns the cudaError_t of the launches (0 on
 // success).
 extern "C" int cvm_loocv_f64(
     const int64_t* rows, const double* total, const double* xw,
     const double* xu, const double* yu, const double* yw, const double* gx,
-    const double* gy, const double* scal, double* vec, double* out,
-    int64_t F, int64_t K, int64_t M, int flags, double resolution,
-    int folds_per_block, int device, void* stream) {
+    const double* gy, const double* scal, double* vec, double* stats,
+    double* out, int64_t F, int64_t K, int64_t M, int flags,
+    double resolution, int folds_per_block, int device, void* stream) {
   return launch_loocv_fpb<double>(rows, total, xw, xu, yu, yw, gx, gy, scal,
-                                  vec, out, F, K, M, flags, resolution,
-                                  folds_per_block, device, stream);
+                                  vec, stats, out, F, K, M, flags,
+                                  resolution, folds_per_block, device,
+                                  stream);
 }
 
 // The float32 kernel (port of fused_loocv_f32 and, with folds_per_block 2,
@@ -350,11 +370,11 @@ extern "C" int cvm_loocv_f64(
 extern "C" int cvm_loocv_f32(
     const int64_t* rows, const float* total, const float* xw,
     const float* xu, const float* yu, const float* yw, const float* gx,
-    const float* gy, const float* scal, float* vec, float* out, int64_t F,
-    int64_t K, int64_t M, int flags, double resolution, int folds_per_block,
-    int device, void* stream) {
+    const float* gy, const float* scal, float* vec, float* stats,
+    float* out, int64_t F, int64_t K, int64_t M, int flags,
+    double resolution, int folds_per_block, int device, void* stream) {
   return launch_loocv_fpb<float>(rows, total, xw, xu, yu, yw, gx, gy, scal,
-                                 vec, out, F, K, M, flags, resolution,
+                                 vec, stats, out, F, K, M, flags, resolution,
                                  folds_per_block, device, stream);
 }
 
@@ -364,9 +384,9 @@ extern "C" int cvm_loocv_f32(
 extern "C" int cvm_loocv_sym_f64(
     const int64_t* rows, const double* total, const double* xw,
     const double* xu, const double* yu, const double* yw, const double* gx,
-    const double* gy, const double* scal, double* vec, double* out,
-    int64_t F, int64_t K, int64_t M, int flags, double resolution,
-    int device, void* stream) {
+    const double* gy, const double* scal, double* vec, double* stats,
+    double* out, int64_t F, int64_t K, int64_t M, int flags,
+    double resolution, int device, void* stream) {
   if (F <= 0 || K <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -374,7 +394,8 @@ extern "C" int cvm_loocv_sym_f64(
   const int64_t C = K + M;
   loocv_vectors_kernel<double, 1><<<static_cast<unsigned>(F), kVecThreads,
                                     0, s>>>(
-      rows, xw, xu, yu, yw, gx, gy, scal, vec, F, K, M, flags, resolution);
+      rows, xw, xu, yu, yw, gx, gy, scal, vec, stats, F, K, M, flags,
+      resolution);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kt = static_cast<int>((K + kSymTile - 1) / kSymTile);

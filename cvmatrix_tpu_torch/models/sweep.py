@@ -59,14 +59,7 @@ from ..core.fit import fit
 from ..core.fold import training_matrices
 from ..core.state import FitState
 from ..ops.loocv import IMPLS, check_rows
-from ..utils.profiling import (
-    REDUCE_FN,
-    SOURCES,
-    SWEEP,
-    span,
-    spanned,
-    to_device,
-)
+from ..utils.profiling import REDUCE_FN, SOURCES, SWEEP, span, spanned
 from .partitioner import Partitioner
 
 __all__ = ["chunking", "cross_validate", "cross_validate_dict",
@@ -317,9 +310,10 @@ def cross_validate_dict(
 def _vmap_reduce(reduce_fn, mats, stats):
     """``reduce_fn`` over the fold axis of one chunk (``torch.func.vmap``;
     ``None`` statistics pass through unbatched). A reduction that is a view
-    of the chunk's matrices (``xty[:, 0]``) is copied, so that it does not
-    hold the chunk's (F, K, C) output alive until the sweep ends: the JAX
-    sweep keeps only the reductions."""
+    of the chunk's matrices (``xty[:, 0]``) or statistics is copied, so
+    that it does not hold the chunk's (F, K, C) output, or the buffer the
+    LOOCV kernel stores the statistics in, alive until the sweep ends: the
+    JAX sweep keeps only the reductions."""
     def dims(tree):
         return pytree.tree_map(
             lambda a: 0 if isinstance(a, torch.Tensor) else None, tree,
@@ -327,7 +321,8 @@ def _vmap_reduce(reduce_fn, mats, stats):
 
     res = torch.func.vmap(reduce_fn, in_dims=(dims(mats), dims(stats)))(
         mats, stats)
-    held = {a.untyped_storage().data_ptr() for a in pytree.tree_leaves(mats)
+    held = {a.untyped_storage().data_ptr()
+            for a in pytree.tree_leaves((mats, stats))
             if isinstance(a, torch.Tensor)}
     return pytree.tree_map(
         lambda a: a.clone() if isinstance(a, torch.Tensor)
@@ -473,9 +468,9 @@ def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
     """Hoisted-source LOOCV reduce sweep (JAX ``sweep.py:314``): one
     :func:`prepare_loocv_sources` for every fold, then per chunk the LOOCV
     kernel (symmetric under ``sym_loocv``, two folds per block under the
-    x2 knob when the chunk is even: no bump here), the statistics of the
-    chunk's rows, and the reduction. ``n_rows_total``: the global row
-    count where ``state`` is one rank's row shard (the mesh path)."""
+    x2 knob when the chunk is even: no bump here), which also stores the
+    chunk's statistics, and the reduction. ``n_rows_total``: the global
+    row count where ``state`` is one rank's row shard (the mesh path)."""
     rows = check_rows(idx[:, 0], state.N)
     if state.device.type == "cuda":
         rows = rows.pin_memory()  # asynchronous per-chunk copies
@@ -484,17 +479,15 @@ def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
                                 n_rows_total=n_rows_total)
     route = route_kernel(config, state, 1, True, return_XTY, False,
                          n_folds=bs)
-    flags = _batch._stat_flags(config, True, return_XTY)
     out = []
     for c0 in range(0, rows.shape[0], bs):
-        ci = rows[c0:c0 + bs]
-        mats = run_loocv_route(config, src, ci, route, src.scal[c0:c0 + bs],
-                               return_XTY=return_XTY, impl=impl)
-        rows_d = to_device(ci, state.device, non_blocking=True)[:, None]
-        stats = _batch._summed_stats(config, state, rows_d, None,
-                                     **flags)[:4]
+        mats, stats = run_loocv_route(
+            config, src, rows[c0:c0 + bs], route, src.scal[c0:c0 + bs],
+            return_XTY=return_XTY, impl=impl, return_stats=True)
         out.append(_vmap_reduce(
             reduce_fn, _split_mats(mats, state.K, True, return_XTY), stats))
+        # freed before the next chunk allocates its own
+        del mats, stats
     return out
 
 

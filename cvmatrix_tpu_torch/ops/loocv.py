@@ -19,7 +19,11 @@ latter the ports of ``fused_loocv_df64x2`` and ``fused_loocv_f32x2``), and
 ``cvm_loocv_sym_f64`` (``sym=True``), the port of ``fused_loocv_df64_sym``:
 the upper triangle of the X block computed, ``out[f, j, i] = out[f, i, j]``
 for ``i < j < K``, every XTY column computed (twin
-:func:`loocv_sym_reference`).
+:func:`loocv_sym_reference`). Asked for them (``return_stats``), the
+kernels' vector phase also stores each fold's training statistics, (F, 2,
+C): the means in row 0 and the clamped stds of ``core/fold._train_std`` in
+row 1, X in columns ``[0, K)`` and Y in ``[K, C)``; the twins return the
+same.
 
 :func:`fused_loocv` dispatches: ``impl="auto"`` launches the kernel for CUDA
 tensors and runs :func:`loocv_reference` for CPU tensors; ``"cuda"`` always
@@ -35,7 +39,7 @@ import torch
 
 from ..utils.profiling import to_device
 
-__all__ = ["side_stats", "loocv_vectors", "loocv_reference",
+__all__ = ["side_mean_std", "side_stats", "loocv_vectors", "loocv_reference",
            "loocv_sym_reference", "mirror_x_block", "fused_loocv",
            "check_rows", "launch_counts", "reset_launch_counts", "IMPLS"]
 
@@ -65,20 +69,21 @@ def check_rows(rows, n: int) -> torch.Tensor:
     return rows
 
 
-def side_stats(sums, sq, g, scal, *, need_mean: bool, resolution: float
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Downdated mean and clamped reciprocal std of one side, (F, W) each.
+def side_mean_std(sums, sq, g, scal, *, need_mean: bool, resolution: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Downdated mean and clamped std of one side, (F, W) each.
 
     ``sums`` (F, W) are the fold's weighted (and masked) row sums, ``sq``
     their squared sums against the unweighted rows or ``None`` where the
     side is not scaled, ``g`` the (2, W) global ``[sum, sum_sq]``, ``scal``
     the (F, 3) ``[sw, 1/sw, 1/divisor]``; the formulas of
     ``core/fold._train_std``. The mean is 0 where neither is needed and
-    the reciprocal std 1 where ``sq`` is ``None``; NaN passes the clamp.
+    the std 1 where ``sq`` is ``None`` or the std is at most
+    ``resolution``; NaN passes the clamp.
     """
     sw, rsw, rdv = scal[:, 0:1], scal[:, 1:2], scal[:, 2:3]
     m = torch.zeros_like(sums)
-    r = torch.ones_like(sums)
+    sd = torch.ones_like(sums)
     if need_mean or sq is not None:
         st = g[0] - sums
         m = st * rsw
@@ -86,56 +91,75 @@ def side_stats(sums, sq, g, scal, *, need_mean: bool, resolution: float
             ss = g[1] - sq
             var = (-2.0 * m * st + sw * (m * m) + ss) * rdv
             sd = torch.sqrt(torch.clamp(var, min=0.0))
-            r = torch.where(sd <= resolution, torch.ones_like(sd), 1.0 / sd)
-    return m, r
+            sd = torch.where(sd <= resolution, torch.ones_like(sd), sd)
+    return m, sd
+
+
+def side_stats(sums, sq, g, scal, *, need_mean: bool, resolution: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Downdated mean and clamped reciprocal std of one side, (F, W) each:
+    :func:`side_mean_std` with the std's reciprocal (1 where the std is
+    clamped to 1)."""
+    m, sd = side_mean_std(sums, sq, g, scal, need_mean=need_mean,
+                          resolution=resolution)
+    return m, 1.0 / sd
 
 
 def loocv_vectors(src, rows: torch.Tensor, scal: torch.Tensor, *,
                   center_xtx: bool, center_xty: bool, scale_x: bool,
-                  scale_y: bool, with_y: bool, resolution: float
-                  ) -> Tuple[torch.Tensor, ...]:
+                  scale_y: bool, with_y: bool, resolution: float,
+                  return_stats: bool = False) -> Tuple[torch.Tensor, ...]:
     """The per-fold vectors ``(rc, u, v, p, q)``: (F, C), (F, K), (F, C),
-    (F, K), (F, C). The kernel's vector phase computes the same."""
+    (F, K), (F, C). The kernel's vector phase computes the same, and with
+    ``return_stats`` the (F, 2, C) statistics it stores, appended."""
     center_xty = with_y and center_xty
     scale_y = with_y and scale_y
     center = center_xtx or center_xty
     sw = scal[:, 0:1]
 
     def side(w_rows, u_rows, g, need_mean, need_std):
-        return side_stats(w_rows, w_rows * u_rows if need_std else None, g,
-                          scal, need_mean=need_mean, resolution=resolution)
+        return side_mean_std(w_rows, w_rows * u_rows if need_std else None,
+                             g, scal, need_mean=need_mean,
+                             resolution=resolution)
 
     xw_r, xu_r = src.xw[rows], src.xu[rows]
-    mX, r1 = side(xw_r, xu_r, src.gx, center or scale_x, scale_x)
+    mX, sX = side(xw_r, xu_r, src.gx, center or scale_x, scale_x)
+    r1 = 1.0 / sX
     mr = mX * r1
     u = xw_r * r1
     v = xu_r * r1
     p = sw * mr if center else torch.zeros_like(mr)
     q = mr if center_xtx else torch.zeros_like(mr)
-    rc = r1
+    rc, mean, std = r1, mX, sX
     if with_y:
         yw_r, yu_r = src.yw[rows], src.yu[rows]
-        mY, r2 = side(yw_r, yu_r, src.gy, center_xty or scale_y, scale_y)
+        mY, sY = side(yw_r, yu_r, src.gy, center_xty or scale_y, scale_y)
+        r2 = 1.0 / sY
         rc = torch.cat([r1, r2], dim=1)
         v = torch.cat([v, yu_r * r2], dim=1)
         q = torch.cat([q, mY * r2 if center_xty else torch.zeros_like(mY)],
                       dim=1)
+        mean, std = torch.cat([mX, mY], dim=1), torch.cat([sX, sY], dim=1)
+    if return_stats:
+        return rc, u, v, p, q, torch.stack([mean, std], dim=1)
     return rc, u, v, p, q
 
 
 def loocv_reference(src, rows: torch.Tensor, scal: torch.Tensor, *,
                     center_xtx: bool, center_xty: bool, scale_x: bool,
-                    scale_y: bool, with_y: bool, resolution: float
-                    ) -> torch.Tensor:
-    """Plain-torch twin of the kernel: (F, K, C) in the sources' dtype."""
-    rc, u, v, p, q = loocv_vectors(
+                    scale_y: bool, with_y: bool, resolution: float,
+                    return_stats: bool = False):
+    """Plain-torch twin of the kernel: (F, K, C) in the sources' dtype, and
+    with ``return_stats`` the (F, 2, C) statistics beside it."""
+    rc, u, v, p, q, *stats = loocv_vectors(
         src, rows, scal, center_xtx=center_xtx, center_xty=center_xty,
         scale_x=scale_x, scale_y=scale_y, with_y=with_y,
-        resolution=resolution,
+        resolution=resolution, return_stats=return_stats,
     )
     k = u.shape[1]
-    return (src.total * (rc[:, :k, None] * rc[:, None, :])
-            - u[:, :, None] * v[:, None, :] - p[:, :, None] * q[:, None, :])
+    out = (src.total * (rc[:, :k, None] * rc[:, None, :])
+           - u[:, :, None] * v[:, None, :] - p[:, :, None] * q[:, None, :])
+    return (out, *stats) if return_stats else out
 
 
 def mirror_x_block(out: torch.Tensor) -> torch.Tensor:
@@ -148,10 +172,14 @@ def mirror_x_block(out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def loocv_sym_reference(src, rows: torch.Tensor, scal: torch.Tensor,
-                        **flags) -> torch.Tensor:
+def loocv_sym_reference(src, rows: torch.Tensor, scal: torch.Tensor, *,
+                        return_stats: bool = False, **flags):
     """Plain-torch twin of the symmetric kernel: :func:`loocv_reference`,
-    then :func:`mirror_x_block`."""
+    then :func:`mirror_x_block` (the statistics beside it unchanged)."""
+    if return_stats:
+        out, stats = loocv_reference(src, rows, scal, return_stats=True,
+                                     **flags)
+        return mirror_x_block(out), stats
     return mirror_x_block(loocv_reference(src, rows, scal, **flags))
 
 
@@ -163,15 +191,17 @@ _KERNELS = {torch.float64: "cvm_loocv_f64", torch.float32: "cvm_loocv_f32"}
 _SYM_KERNEL = "cvm_loocv_sym_f64"
 
 
-def _launch(name, src, rows, scal, out, flags: int, resolution: float,
-            extra=()) -> None:
-    """Launch ``name`` of ``loocv.cu``; ``extra`` are trailing int
-    arguments before the device (the folds per block)."""
+def _launch(name, src, rows, scal, out, stats, flags: int,
+            resolution: float, extra=()) -> None:
+    """Launch ``name`` of ``loocv.cu``; ``stats`` is ``None`` (no
+    statistics stored) or the (F, 2, C) buffer that receives them;
+    ``extra`` are trailing int arguments before the device (the folds per
+    block)."""
     from . import _build
 
     fn = getattr(_build.load_library("loocv"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 12
                    + [ctypes.c_int64] * 3
                    + [ctypes.c_int, ctypes.c_double]
                    + [ctypes.c_int] * len(extra)
@@ -182,8 +212,8 @@ def _launch(name, src, rows, scal, out, flags: int, resolution: float,
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = fn(_ptr(rows), _ptr(src.total), _ptr(src.xw), _ptr(src.xu),
              _ptr(src.yu), _ptr(src.yw), _ptr(src.gx), _ptr(src.gy),
-             _ptr(scal), _ptr(vec), _ptr(out), f_folds, k, m, flags,
-             float(resolution), *extra, out.device.index,
+             _ptr(scal), _ptr(vec), _ptr(stats), _ptr(out), f_folds, k, m,
+             flags, float(resolution), *extra, out.device.index,
              ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -242,8 +272,9 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
                 center_xty: bool, scale_x: bool, scale_y: bool,
                 with_y: bool, resolution: float, sym: bool = False,
                 folds_per_block: int = 1, impl: str = "auto",
-                out=None) -> torch.Tensor:
-    """All-in-one LOOCV downdate of fold rows ``rows`` -> (F, K, C).
+                out=None, return_stats: bool = False):
+    """All-in-one LOOCV downdate of fold rows ``rows`` -> (F, K, C), or
+    with ``return_stats`` ``(out, stats)``.
 
     ``src`` holds the dataset-wide operands (see
     :class:`cvmatrix_tpu_torch.core.batch.LoocvSources`); ``scal`` the
@@ -254,10 +285,17 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
     is the same, bit for bit. ``sym`` (float64 only, one fold per block)
     launches the symmetric kernel: the X block's upper triangle and every
     XTY column computed as here, the strictly lower triangle of the X
-    block their mirror (exactly symmetric). Launch counters:
-    ``fused_loocv.launches`` (float64), ``.launches_f32``,
-    ``.launches_x2`` (float64, two per block), ``.launches_f32x2`` and
-    ``.launches_sym``.
+    block their mirror (exactly symmetric). ``return_stats``: the kernel
+    also stores each fold's training statistics, (F, 2, C) in the sources'
+    dtype: row 0 the means, row 1 the stds (clamped to 1 at or below
+    ``resolution``), X in columns ``[0, K)`` and Y in ``[K, C)``; a mean is
+    0 where neither centring nor scaling needs it and a std 1 on a side
+    that is not scaled. Without it the kernel stores none, and the matrices
+    are the same bit for bit. Launch counters: ``fused_loocv.launches``
+    (float64), ``.launches_f32``, ``.launches_x2`` (float64, two per
+    block), ``.launches_f32x2`` and ``.launches_sym``, one a launch;
+    ``.launches_stats``, one a launch of any of them that stored the
+    statistics.
     """
     if folds_per_block not in (1, 2) or (sym and folds_per_block != 1):
         raise ValueError(f"folds_per_block must be 1 or 2 (1 with sym), got "
@@ -270,18 +308,27 @@ def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,
         (torch.float64,) if sym else _KERNELS)
     if bits is None:
         twin = loocv_sym_reference if sym else loocv_reference
-        res = twin(src, rows, scal, **flags)
-        return res if out is None else out.copy_(res)
+        got = twin(src, rows, scal, return_stats=return_stats, **flags)
+        res, stats = got if return_stats else (got, None)
+        if out is not None:
+            res = out.copy_(res)
+        return (res, stats) if return_stats else res
+    f_folds, _, c = res.shape
+    stats = (torch.empty((f_folds, 2, c), dtype=res.dtype, device=res.device)
+             if return_stats else None)
     if sym:
-        _launch(_SYM_KERNEL, src, rows, scal, res, bits, resolution)
+        _launch(_SYM_KERNEL, src, rows, scal, res, stats, bits, resolution)
         name = "launches_sym"
     else:
-        _launch(_KERNELS[res.dtype], src, rows, scal, res, bits, resolution,
-                (folds_per_block,))
+        _launch(_KERNELS[res.dtype], src, rows, scal, res, stats, bits,
+                resolution, (folds_per_block,))
         name = {(True, 1): "launches", (False, 1): "launches_f32",
                 (True, 2): "launches_x2", (False, 2): "launches_f32x2"}[
                     (res.dtype == torch.float64, folds_per_block)]
     setattr(fused_loocv, name, getattr(fused_loocv, name) + 1)
+    if return_stats:
+        fused_loocv.launches_stats += 1
+        return res, stats
     return res
 
 
@@ -292,6 +339,8 @@ _COUNTERS = {
     "fused_loocv_x2": "launches_x2",
     "fused_loocv_f32x2": "launches_f32x2",
     "fused_loocv_sym": "launches_sym",
+    # launches of any of the five that stored the training statistics
+    "fused_loocv_stats": "launches_stats",
 }
 
 
@@ -301,7 +350,9 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """``{kernel: launches}`` of the five LOOCV kernels."""
+    """``{kernel: launches}`` of the five LOOCV kernels, and under
+    ``fused_loocv_stats`` those of their launches that stored the
+    training statistics."""
     return {name: getattr(fused_loocv, attr)
             for name, attr in _COUNTERS.items()}
 

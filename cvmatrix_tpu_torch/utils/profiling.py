@@ -23,7 +23,8 @@ name:
   large-fold routes the rows, mask and ``[XTX | XTY]`` built for a call or
   a sweep;
 - ``cvmatrix_tpu_torch.core.batch.stats``: the folds' training statistics,
-  ``_summed_stats`` and ``stats_from_blocks``;
+  ``_summed_stats`` and ``stats_from_blocks`` (none on the LOOCV routes,
+  whose kernel stores the statistics);
 - ``cvmatrix_tpu_torch.h2d``: each copy of fold rows or a fold mask from
   the host to the state's device (:func:`to_device`), the wait for the
   stream that a blocking copy pays included;

@@ -953,10 +953,11 @@ def test_slice_rows_kernel_edges(dev, k, row_major):
 
 
 def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
-    """One profiled LOOCV chunk at K=500 (980 folds): the LOOCV kernel
-    starts on the card inside the chunk's route span, and the blocking copy
-    of the statistics' rows that follows its launch waits for it: that
-    ``h2d`` span starts before the kernel ends and ends after it."""
+    """Two profiled LOOCV chunks at K=500 (980 folds each): each LOOCV
+    kernel starts on the card after its chunk's route span starts, and the
+    second chunk's blocking copy of its sources' rows, issued after the
+    first kernel's launch, waits for it: that ``h2d`` span starts before
+    the first kernel ends and ends after it."""
     import json
 
     from cvmatrix_tpu_torch.utils import profiling as P
@@ -967,13 +968,15 @@ def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
                for s in ((n, k), (n, m), (n, 1)))
     cfg = T.CVConfig(True, True, True, True, ddof=1)
     st = T.fit(cfg, X, Y, w)
-    idx = rng.permutation(n)[:980, None]
-    TB.training_matrices_batched(cfg, st, idx)  # loads the kernel
+    perm = rng.permutation(n)
+    chunks = perm[:980, None], perm[980:1960, None]
+    TB.training_matrices_batched(cfg, st, chunks[0])  # loads the kernel
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        TB.training_matrices_batched(cfg, st, idx)
+        for idx in chunks:
+            TB.training_matrices_batched(cfg, st, idx)
         torch.cuda.synchronize()
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
@@ -989,7 +992,104 @@ def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
     route = spans("user_annotation", lambda s: s == P.ROUTE + "loocv")
     h2d = spans("user_annotation", lambda s: s == P.H2D)
     kernel = spans("kernel", lambda s: "loocv_tile_kernel" in s)
-    assert len(route) == 1 and len(kernel) == 1 and len(h2d) == 3
-    (r0, r1), (k0, k1), (c0, c1) = route[0], kernel[0], h2d[-1]
-    assert r0 <= k0 <= r1
+    # two copies a chunk: the sources' rows and the kernel wrapper's
+    assert len(route) == 2 and len(kernel) == 2 and len(h2d) == 4
+    assert all(r0 <= k0 for (r0, _), (k0, _) in zip(route, kernel))
+    (c0, c1), k1 = h2d[2], kernel[0][1]
     assert c0 < k1 <= c1
+
+
+# ---- the training statistics the LOOCV kernels store ---------------------- #
+
+
+@pytest.mark.parametrize("with_y", [True, False])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", [(True,) * 4, (False,) * 4,
+                                   (True, False, False, True),
+                                   (False, True, True, False)])
+def test_loocv_kernels_store_the_twins_stats(dev, flags, weighted, with_y):
+    """Each LOOCV kernel (one and two folds a block, float64 and float32;
+    the symmetric one, float64) stores the twin's statistics, at 1e-12 of
+    each statistic's largest entry in float64 and 1e-5 in float32, ``None``
+    in the same places; its matrices are those of the same launch without
+    statistics, bit for bit; ``launches_stats`` moves by one a launch that
+    stores them, and by none otherwise."""
+    X, Y, w = _sym_data(17)
+    rows = np.arange(0, NS, 4)[:75]  # 75 folds: x2 ends on a single fold
+    for dtype, rtol in ((np.float64, 1e-12), (np.float32, 1e-5)):
+        cfg = T.CVConfig(*flags, dtype=dtype)
+        st = T.fit(cfg, X, Y if with_y else None, w if weighted else None,
+                   device=dev)
+        src = TB.prepare_loocv_sources(cfg, st, rows, return_XTY=with_y)
+        _, ref = TB.loocv_from_sources(cfg, src, rows, return_XTY=with_y,
+                                       impl="torch", return_stats=True)
+        kinds = [{}, dict(two_per_step=True)]
+        if dtype == np.float64:
+            kinds.append(dict(sym=True))
+        for kw in kinds:
+            before = TL.fused_loocv.launches_stats
+            plain = TB.loocv_from_sources(cfg, src, rows, return_XTY=with_y,
+                                          **kw)
+            assert TL.fused_loocv.launches_stats == before
+            out, stats = TB.loocv_from_sources(
+                cfg, src, rows, return_XTY=with_y, return_stats=True, **kw)
+            assert TL.fused_loocv.launches_stats == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain), kw
+            for got, want in zip(stats, ref):
+                assert (got is None) == (want is None)
+                if got is None:
+                    continue
+                assert got.dtype == want.dtype and got.shape == want.shape
+                assert got.device == want.device == out.device
+                err = (got - want).abs().max().item()
+                assert err <= rtol * want.abs().max().item(), (kw, err)
+
+
+@pytest.mark.parametrize("knobs,kernel", [
+    ({}, "fused_loocv"),
+    (dict(df64x2=True), "fused_loocv_x2"),
+    (dict(sym_loocv=True), "fused_loocv_sym"),
+])
+def test_launches_stats_one_a_chunk_on_the_loocv_routes(
+        dev, policy_restored, knobs, kernel):
+    """``fused_loocv_stats`` counts one a chunk where a LOOCV route returns
+    the statistics (``training_matrices_batched`` and the hoisted LOOCV
+    reduce loop), none in ``materialize_sweep`` and on the mesh path's
+    blocks; the reduce sweep, whose reduction reads the statistics, matches
+    the same sweep on the CPU."""
+    from cvmatrix_tpu_torch.core.fold import gather_val_blocks
+
+    X, Y, w = _sym_data(18)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    T.set_routing(**knobs)
+    idx = np.arange(NS)[:, None]
+
+    def moved(run):
+        before = _counts()
+        res = run()
+        after = _counts()
+        return res, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    def red(mats, stats):
+        return (torch.trace(mats[0]) + mats[1].sum()
+                + sum(s.sum() for s in stats))
+
+    _, n = moved(lambda: TB.training_matrices_batched(cfg, st, idx[:50]))
+    assert n == {kernel: 1, "fused_loocv_stats": 1}
+    got, n = moved(lambda: TS.cross_validate_reduce(
+        cfg, st, idx, reduce_fn=red, batch_size=30))
+    assert n == {kernel: 10, "fused_loocv_stats": 10}
+    ref = TS.cross_validate_reduce(cfg, T.fit(cfg, X, Y, w, device="cpu"),
+                                   idx, reduce_fn=red, batch_size=30)
+    assert (got.cpu() - ref).abs().max().item() <= (
+        1e-10 * ref.abs().max().item())
+    _, n_chunks = TS.sweep_chunking(cfg, NS, KS, KS + MS, 30)
+    _, n = moved(lambda: TS.materialize_sweep(cfg, st, idx, batch_size=30))
+    assert n == {kernel: n_chunks}
+    blocks = gather_val_blocks(cfg, st, torch.arange(50, device=dev)[:, None],
+                               None, True)
+    _, n = moved(lambda: TB.batched_matrices_from_blocks(cfg, st, blocks))
+    assert n == {kernel: 1}

@@ -23,7 +23,10 @@ from cvmatrix_tpu.core import batch as JB
 from cvmatrix_tpu.ops import kernels as JK
 from cvmatrix_tpu.ops.df64 import df_to_f64
 from cvmatrix_tpu_torch.core import batch as TB
+from cvmatrix_tpu_torch.models import sweep as TS
 from cvmatrix_tpu_torch.ops import loocv as TL
+
+from .oracle import NaiveOracle
 
 N, K, M = 70, 9, 4
 rng = np.random.default_rng(11)
@@ -294,3 +297,103 @@ def test_sym_and_x2_wrappers_on_cpu():
     with pytest.raises(ValueError, match="impl='cuda'"):
         TB.loocv_from_sources(cfg, src, IDX_S, return_XTY=True, sym=True,
                               impl="cuda")
+
+
+# ---- the training statistics the kernels store ---------------------------- #
+
+
+def _stats_state(flags, weighted, with_y, dtype):
+    cfg = T.CVConfig(*flags, dtype=dtype)
+    st = T.fit(cfg, X_ALL, Y_ALL if with_y else None,
+               W_ALL if weighted else None, device="cpu")
+    return cfg, st
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("with_y", [True, False])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", list(product([False, True], repeat=4)))
+def test_twin_stats_match_summed_stats(flags, weighted, with_y, dtype):
+    """The statistics the twins return beside the matrices (the kernels'
+    vector phase stores the same) against ``_summed_stats`` on the same
+    rows, at 1e-12 relative in float64 and 1e-5 in float32, ``None`` in
+    the same places; the symmetric and two-per-block twins return the same
+    statistics bit for bit, and the matrices are those of a call without
+    them."""
+    cfg, st = _stats_state(flags, weighted, with_y, dtype)
+    src = TB.prepare_loocv_sources(cfg, st, IDX, return_XTY=with_y)
+    out, stats = TB.loocv_from_sources(cfg, src, IDX, return_XTY=with_y,
+                                       return_stats=True)
+    assert torch.equal(out, TB.loocv_from_sources(cfg, src, IDX,
+                                                  return_XTY=with_y))
+    ref = TB._summed_stats(cfg, st, torch.as_tensor(IDX)[:, None], None,
+                           **TB._stat_flags(cfg, True, with_y))[:4]
+    rtol = 1e-12 if dtype == np.float64 else 1e-5
+    for got, want in zip(stats, ref):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert_allclose(got.numpy(), want.numpy(), rtol=rtol, atol=0)
+    others = [dict(two_per_step=True)]
+    if dtype == np.float64:
+        others.append(dict(sym=True))
+    for kw in others:
+        _, again = TB.loocv_from_sources(cfg, src, IDX, return_XTY=with_y,
+                                         return_stats=True, **kw)
+        for a, b in zip(stats, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _oracle_stats_fn(mats, stats):
+    """One fold's statistics, flattened, and one matrix entry."""
+    xtx = mats[0] if isinstance(mats, tuple) else mats
+    return torch.cat([s.reshape(-1) for s in stats if s is not None]
+                     + [xtx[0, :1]])
+
+
+@pytest.mark.parametrize("entry", ["batched", "reduce"])
+@pytest.mark.parametrize("with_y", [True, False])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", list(product([False, True], repeat=4)))
+def test_loocv_route_stats_match_oracle(flags, weighted, with_y, entry):
+    """Every LOOCV fold's statistics through ``training_matrices_batched``
+    (one call, the ``loocv`` route) and through ``cross_validate_reduce``'s
+    hoisted LOOCV loop (chunks of 16 folds) against ``tests/oracle.py`` at
+    the 1e-8 contract, where both have the statistic; ``None`` where the
+    per-fold engine has ``None``."""
+    cfg, st = _stats_state(flags, weighted, with_y, np.float64)
+    idx = np.arange(N)[:, None]
+    assert TB.route_kernel(cfg, st, 1, True, with_y, False,
+                           n_folds=N) == "loocv"
+    _, per_fold = T.training_matrices(cfg, st, idx[0],
+                                      return_XTY=with_y)
+    if entry == "batched":
+        _, stats = TB.training_matrices_batched(cfg, st, idx,
+                                                return_XTY=with_y)
+        assert [s is None for s in stats] == [s is None for s in per_fold]
+        present = [s.reshape(N, -1) for s in stats if s is not None]
+        got = torch.cat(present, dim=1) if present else None
+    else:
+        red = TS.cross_validate_reduce(
+            cfg, st, idx, reduce_fn=_oracle_stats_fn, return_XTY=with_y,
+            batch_size=16)
+        got = red[:, :-1] if red.shape[1] > 1 else None
+    oracle = NaiveOracle(*flags).fit(X_ALL, Y_ALL if with_y else None,
+                                     W_ALL if weighted else None)
+    if got is None:
+        assert all(s is None for s in per_fold)
+        return
+    for f in range(N):
+        _, ref = oracle.training_matrices(
+            np.delete(np.arange(N), f), return_XTX=True, return_XTY=with_y)
+        mine = got[f].numpy()
+        off = 0
+        for p, r in zip(per_fold, ref):
+            if p is None:
+                continue
+            width = p.shape[-1]
+            if r is not None:
+                assert_allclose(mine[off:off + width], r.reshape(-1),
+                                atol=1e-8, rtol=0)
+            off += width
+        assert off == mine.size

@@ -283,3 +283,39 @@ def test_view_reductions_hold_no_chunk(case, loops, monkeypatch):
     assert_allclose(got["diag"].numpy(),
                     xtx.diagonal(dim1=1, dim2=2).numpy(), rtol=1e-10,
                     atol=1e-10 * float(xtx.abs().max()))
+
+
+def stats_view_t(mats, stats):
+    """A reduction that is a view of the fold's statistics."""
+    del mats
+    return {"x_std": stats[1][0], "y_mean": stats[2][0]}
+
+
+@pytest.mark.parametrize("case", ["loocv", "loocv_sym", "packed_l4",
+                                  "v3_l10", "large_fold_generic"])
+def test_stats_view_reductions_hold_no_buffer(case, loops, monkeypatch):
+    """Each body's per-chunk reductions of statistics own their storage: a
+    view of the chunk's statistics would hold the buffer they came in (on
+    the LOOCV loop the (F, 2, C) one the kernel stores them in) alive until
+    the sweep ends; the results equal the per-fold engine's."""
+    k, idx, _, knobs, _, dtype, mode, loop = CASES[case]
+    T.set_routing(**knobs)
+    _, _, cfg, st = both(k, dtype, mode)
+    chunks = []
+
+    def spy(parts, _fn=TS._stack_chunks):
+        chunks.extend(parts)
+        return _fn(parts)
+
+    monkeypatch.setattr(TS, "_stack_chunks", spy)
+    got = TS.cross_validate_reduce(cfg, st, idx, reduce_fn=stats_view_t,
+                                   batch_size=7)
+    assert loops == ([loop] if loop else [])
+    assert len(chunks) == -(-idx.shape[0] // 7)
+    for leaf in (a for c in chunks for a in c.values()):
+        assert leaf.untyped_storage().nbytes() == (leaf.numel()
+                                                   * leaf.element_size())
+    _, (_, x_std, y_mean, _) = T.training_matrices(cfg, st, idx)
+    assert_allclose(got["x_std"].numpy(), x_std[:, 0].numpy(), rtol=1e-12)
+    assert_allclose(got["y_mean"].numpy(), y_mean[:, 0].numpy(), rtol=1e-12,
+                    atol=1e-12 * float(y_mean.abs().max()))

@@ -62,11 +62,11 @@ def _folds(n_folds, n_l, n=N, masked=False):
 # per route of training_matrices_batched, one call: (h2d, sources, stats)
 # with every centre/scale flag on and weights; a mask adds one h2d
 ROUTE_SPANS = {
-    # prepare_loocv_sources' rows, the kernel wrapper's rows, the
-    # statistics' rows; sources; _summed_stats
-    "loocv": (3, 1, 1),
-    "loocv_x2": (3, 1, 1),
-    "loocv_sym": (3, 1, 1),
+    # prepare_loocv_sources' rows, the kernel wrapper's rows; sources; no
+    # statistics span (the kernel stores them)
+    "loocv": (2, 1, 0),
+    "loocv_x2": (2, 1, 0),
+    "loocv_sym": (2, 1, 0),
     # _rows_mask's rows; prepare_fold_operands; stats_from_blocks
     "packed": (1, 1, 1),
     "packed_f32": (1, 1, 1),
@@ -112,6 +112,7 @@ def _batched_case(route, masked):
     h2d, sources, stats = ROUTE_SPANS[route]
     want = {P.ROUTE + route: 1, P.H2D: h2d + masked, P.SOURCES: sources,
             P.STATS: stats}
+    want = {name: n for name, n in want.items() if n}
 
     def run():
         return TB.training_matrices_batched(cfg, st, idx, mask)
@@ -135,8 +136,9 @@ def _reduce_case(kind):
     chunks = -(-n_folds // min(bs, n_folds))
     want = {P.SWEEP + "cross_validate_reduce": 1, P.REDUCE_FN: chunks}
     if kind == "loocv":
-        # sources once; per chunk the kernel's rows and the statistics'
-        want.update({P.SOURCES: 1, P.H2D: 1 + 2 * chunks, P.STATS: chunks})
+        # sources once; per chunk the kernel's rows (the kernel stores the
+        # statistics: no statistics span)
+        want.update({P.SOURCES: 1, P.H2D: 1 + chunks})
     elif kind == "packed":
         want.update({P.SOURCES: 1, P.H2D: 1, P.STATS: 1})
     elif kind == "v3":
