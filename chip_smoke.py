@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. Device: require CUDA; print the card, its power limit and the toolchain.
 2. Build: compile the kernels of ``cvmatrix_tpu_torch/csrc/`` (``loocv.cu``,
-   ``fold_downdate.cu``, ``fold_epilogue.cu``, ``slice_rows.cu``), one
-   ``nvcc`` each, all at once; print their register and spill lines.
+   ``fold_downdate.cu``, ``fold_epilogue.cu``, ``slice_rows.cu``,
+   ``pls.cu``), one ``nvcc`` each, all at once; print their register and
+   spill lines.
 3. LOOCV kernel against its plain twin on the card: 16 flag sets x
    weighted and unweighted at N=2,000, K=500, M=10 over 64 folds, and the
    main path's first and last 256 folds; bound max|kernel - twin| <= 1e-12
@@ -199,7 +200,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
     relative (float32 1e-5) of the probe of the earlier phase that ran the
     same configuration on the same data (phases 4, 7, 10, 14, 18 and 20),
     whose total it logs beside its own.
-23. Prints the kernels' JSON line (fourteen kernels, each with its bound and
+23. PLS cross-validation (``models.pls``, the port's own ``ikpls2``
+    kernel) at full width on phase 4's data: A=20 components, leave-one-out
+    in the sweep's 196 chunks of 511 folds. The sweep's first and last
+    chunks, as its chunk consumer gets them, through the kernel and the
+    twin, every fold's PRESS within 1e-12 of its largest; one chunk timed
+    in turns (twin, kernel, kernel, twin). Then ``cross_validate_pls`` over
+    every fold: one LOOCV kernel and one ``ikpls2`` launch a chunk and no
+    other, F x A fold-components a chunk, the two chunks' folds within
+    1e-12 of the kernel's own, and folds 0 and N-1 within 1e-9 of
+    ``tests/pls_reference.py`` on the card.
+24. Prints the kernels' JSON line (fifteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
     path, each one's ``mesh_launches`` in phase 19 (a),
@@ -235,6 +246,13 @@ KC = dict(k=K, c=K + M)  # the main path's (K, C), for the cost functions
 WIDEK = (5_000, 20_000, 1, 10)
 TWIN_RTOL = 1e-12
 ORACLE_RTOL = 1e-10
+# Phase 23: PLS components, the sweep's batch_size, and the PRESS of folds
+# 0 and N-1 against tests/pls_reference.py, relative to the fold's largest
+# PRESS: the cell ikpls_n100k.loocv read at most 1.56e-11 over 21 seeds of
+# its data, against the same reference.
+PLS_A = 20
+PLS_BATCH = 512
+PLS_ORACLE_RTOL = 1e-9
 # P -> the wrapper whose kernel the K-fold main path must launch
 KFOLD_P = ((25_000, "fold_packed"), (10_000, "fold_v3"), (1_000, "fold_v3"),
            (100, "fold_ozaki_df64"), (10, "fold_epilogue"),
@@ -277,6 +295,8 @@ KERNEL_SOURCES = {
     # the epilogue again, on phase 18's wide-K path
     "fold_epilogue_widek": ("cvmatrix_tpu_torch/csrc/fold_epilogue.cu",
                             "cvmatrix_tpu/ops/kernels.py:531"),
+    # the port's own: no TPU kernel stands behind it
+    "ikpls2": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -557,9 +577,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA card.", file=sys.stderr)
         return 1
+    from cvbench.pls_costs import pls_cost
     from cvmatrix_tpu_torch import (
         CVConfig,
         Partitioner,
+        cross_validate_pls,
         fit,
         policy,
         set_routing,
@@ -579,13 +601,16 @@ def main() -> int:
         sweep_chunking,
         sweep_last_chunk,
     )
+    from cvmatrix_tpu_torch.models import pls as TP
     from cvmatrix_tpu_torch.ops import _build
     from cvmatrix_tpu_torch.ops import fold_downdate as FD
     from cvmatrix_tpu_torch.ops import loocv as TL
+    from cvmatrix_tpu_torch.ops import pls as OP
     from cvmatrix_tpu_torch.ops import slice_rows as SR
     from cvmatrix_tpu_torch.ops.loocv import fused_loocv
     from cvmatrix_tpu_torch.ops.precision import highest_precision
     from tests.oracle import NaiveOracle
+    from tests.pls_reference import fold_press
 
     dev = torch.device("cuda", 0)
     card = G.card_line(dev)
@@ -604,7 +629,7 @@ def main() -> int:
         f"{'present' if triton else 'absent'}")
 
     # ---- 2. build ----------------------------------------------------------
-    libs = ("loocv", "fold_downdate", "fold_epilogue", "slice_rows")
+    libs = ("loocv", "fold_downdate", "fold_epilogue", "slice_rows", "pls")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, at once
         list(pool.map(_build.load_library, libs))
@@ -2928,16 +2953,117 @@ def main() -> int:
     log(f"[bench] launches {bench_launches}; phase 22 in "
         f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
 
-    # ---- 23. result ---------------------------------------------------------
+    # ---- 23. PLS cross-validation at full width ------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg_p = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
+    st_p = fit(cfg_p, Xd, Yd, wd, copy=False)
+    loocv_idx = np.arange(N)[:, None]
+    n_pls = -(-N // PLS_BATCH)
+    pls_bs = -(-N // n_pls)  # the sweep's equalised chunk
+    last = n_pls - 1
+    pls_flags = dict(center_X=True, center_Y=True, scale_X=True,
+                     scale_Y=True)
+    held, sizes = {}, []
+
+    def hold(mats, stats, rows):
+        """The sweep's chunk consumer: keeps the first and last chunks as
+        the PLS solve gets them."""
+        if len(sizes) in (0, last):
+            held[len(sizes)] = (mats, stats, rows)
+        sizes.append(rows.X.shape[0])
+        return rows.X.new_zeros(rows.X.shape[0])
+
+    cross_validate_reduce(cfg_p, st_p, loocv_idx, chunk_fn=hold,
+                          batch_size=PLS_BATCH)
+    if sizes != [pls_bs] * n_pls:
+        raise AssertionError(f"PLS sweep chunks {sorted(set(sizes))} x "
+                             f"{len(sizes)}, expected {n_pls} of {pls_bs}")
+
+    def pls_solve(c, impl):
+        return TP.solve(cfg_p, *held[c], n_components=PLS_A, impl=impl)
+
+    def press_rel(got, ref):
+        """Widest gap of each fold's PRESS over its largest, worst fold."""
+        scale = ref.abs().amax(dim=(1, 2), keepdim=True)
+        return float(((got - ref).abs() / scale).max())
+
+    pls_kernel, pls_err = {}, 0.0
+    for c in (0, last):
+        got, ref = pls_solve(c, "cuda"), pls_solve(c, "torch")
+        torch.cuda.synchronize()
+        rel = press_rel(got, ref)
+        if not (bool(torch.isfinite(got).all()) and rel <= TWIN_RTOL):
+            raise AssertionError(f"ikpls2 vs twin, chunk {c}: relative "
+                                 f"{rel:.3e} > {TWIN_RTOL:g} (or not finite)")
+        pls_err = max(pls_err, (got - ref).abs().max().item())
+        pls_kernel[c] = got
+        log(f"[pls] chunk {c} ({pls_bs} folds, K={K}, M={M}, A={PLS_A}): "
+            f"kernel vs twin max|diff| {(got - ref).abs().max().item():.3e},"
+            f" worst fold relative {rel:.3e}")
+    pls_ms = {"torch": [], "cuda": []}
+    for impl in ("torch", "cuda", "cuda", "torch"):
+        pls_ms[impl].append(cuda_ms(lambda impl=impl: pls_solve(0, impl),
+                                    10 if impl == "cuda" else 1))
+    least = bound(*pls_cost([(pls_bs, 1)], K, M, PLS_A, 8, True))
+    xtx_once = pls_bs * K * K * 8 / HBM_BYTES_PER_S * 1e3
+    chunk_times["ikpls2"] = (min(pls_ms["cuda"]), min(pls_ms["torch"]),
+                             *least, None)
+    log(f"[pls] one {pls_bs}-fold chunk: kernel {pls_ms['cuda']} ms, twin "
+        f"{pls_ms['torch']} ms (twin, kernel, kernel, twin); bound "
+        f"{least[0]:.4f} ms by {least[1]} (no fold matrix read); reading "
+        f"each fold's XTX once {xtx_once:.3f} ms, {PLS_A} times "
+        f"{PLS_A * xtx_once:.3f} ms  [{card}]")
+    del held
+
+    reset_launch_counts(TL, FD, SR, OP)
+    t_pls, press = wall(lambda: cross_validate_pls(
+        cfg_p, st_p, loocv_idx, n_components=PLS_A, batch_size=PLS_BATCH))
+    pls_launches = launch_counts(TL, FD, SR, OP)
+    want = {"fused_loocv": n_pls, "ikpls2": n_pls}
+    if {k_: v for k_, v in pls_launches.items() if v} != want:
+        raise AssertionError(f"cross_validate_pls launched {pls_launches}, "
+                             f"expected {want}")
+    if OP.fold_components() != n_pls * pls_bs * PLS_A:
+        raise AssertionError(f"fold-components {OP.fold_components()}, "
+                             f"expected {n_pls * pls_bs * PLS_A}")
+    if tuple(press.shape) != (N, PLS_A, M):
+        raise AssertionError(f"PRESS shape {tuple(press.shape)}")
+    c_last = last * pls_bs
+    same = {0: press_rel(press[:pls_bs], pls_kernel[0]),
+            last: press_rel(press[c_last:], pls_kernel[last][:N - c_last])}
+    if not max(same.values()) <= TWIN_RTOL:
+        raise AssertionError(f"cross_validate_pls vs the kernel on its own "
+                             f"chunks: {same} > {TWIN_RTOL:g}")
+    oracle_rel = {}
+    for p in (0, N - 1):
+        ref = fold_press(Xd, Yd, wd, [p], n_components=PLS_A, ddof=1,
+                         **pls_flags)
+        oracle_rel[p] = press_rel(press[p:p + 1], ref[None])
+    torch.cuda.synchronize()
+    if not max(oracle_rel.values()) <= PLS_ORACLE_RTOL:
+        raise AssertionError(f"cross_validate_pls vs tests/pls_reference.py: "
+                             f"{oracle_rel} > {PLS_ORACLE_RTOL:g}")
+    log(f"[pls] cross_validate_pls, {N:,} folds, A={PLS_A}: {t_pls:.4f} s "
+        f"({N / t_pls:,.0f} folds/s); launches {pls_launches}; "
+        f"fold-components {OP.fold_components():,}; against the kernel's "
+        f"own chunks {same}; folds 0 and N-1 against the reference "
+        f"{oracle_rel}; phase 23 in {time.perf_counter() - t_phase:.1f} s  "
+        f"[{card}]")
+    del st_p, press, pls_kernel
+
+    # ---- 24. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,
                        "slice_rows": slice_launches,
-                       "fold_epilogue_widek": widek_launches}
+                       "fold_epilogue_widek": widek_launches,
+                       "ikpls2": pls_launches["ikpls2"]}
     fold_err["fused_loocv"] = worst_abs
+    fold_err["ikpls2"] = pls_err
     names = ("fused_loocv", *ROUTE_WRAPPER.values(),
              *ROUTE_WRAPPER_F32.values(), *new_kernels, "fold_smallfold",
-             "slice_rows", "fold_epilogue_widek")
+             "slice_rows", "fold_epilogue_widek", "ikpls2")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

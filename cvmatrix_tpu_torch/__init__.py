@@ -8,7 +8,8 @@ float32), and imports neither JAX nor ``cvmatrix_tpu``. Importing it builds
 and loads no kernel: each kernel is compiled from ``csrc/`` at first launch.
 
 Public surface: ``CVMatrix`` (the engine facade) and ``Partitioner`` (fold
-bookkeeping), plus the functional core (``CVConfig``, ``FitState``, ``fit``,
+bookkeeping), ``cross_validate_pls`` (PLS cross-validation, the port's
+own), plus the functional core (``CVConfig``, ``FitState``, ``fit``,
 ``training_*``) and the routing policy (``RoutingPolicy``, ``policy``,
 ``set_routing``). Entry points given non-tensor inputs run on the CUDA
 card unless the caller passes ``device="cpu"``.
@@ -24,7 +25,7 @@ from .core import (
     training_XTX_XTY,
     training_XTY,
 )
-from .models import CVMatrix, Partitioner
+from .models import CVMatrix, Partitioner, cross_validate_pls
 from .policy import RoutingPolicy, policy, set_routing
 
 __version__ = "0.1.0"
@@ -32,6 +33,7 @@ __version__ = "0.1.0"
 __all__ = [
     "CVMatrix",
     "Partitioner",
+    "cross_validate_pls",
     "CVConfig",
     "FitState",
     "fit",

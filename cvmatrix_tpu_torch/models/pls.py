@@ -1,0 +1,123 @@
+"""PLS cross-validation on the port: IKPLS Algorithm #2 fitted on every fold's
+training matrices, each fold scored by the weighted PRESS of its validation
+rows.
+
+The port's own capability; the JAX package fits no per-fold model. It is
+the fast cross-validation that the ``ikpls`` package (Engstrøm et al., JOSS
+9(99) 6533, 2024) builds on cvmatrix: each fold's PLS model is fitted by
+Improved Kernel PLS Algorithm #2 (Dayal & MacGregor, J. Chemometrics
+11:73-85, 1997) from that fold's training ``XTX`` and ``XTY`` alone, its
+validation rows are predicted with 1..A components, and each component
+count is scored, so that the user can choose A.
+
+:func:`cross_validate_pls` runs through the reduce sweep's bodies
+(:func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce` with a
+chunk consumer: the hoisted LOOCV loop, the small-fold and v3 loops, the
+generic per-chunk body, masked batches); :func:`solve` is the consumer,
+one ``ops.pls.ikpls2`` call a chunk: the hand-written kernel on the card,
+its plain twin on the CPU. There is no float32 kernel: a float32 state on
+the card needs ``impl="torch"``, which runs the twin there.
+"""
+
+from __future__ import annotations
+
+import operator
+
+import numpy as np
+import torch
+
+from ..config import CVConfig
+from ..core.batch import host_folds, host_mask
+from ..core.state import FitState
+from ..ops import pls as _pls
+from ..ops.loocv import IMPLS
+from ..utils.profiling import PLS, PLS_SOLVE, spanned
+from .sweep import ValidationRows, cross_validate_reduce
+
+__all__ = ["cross_validate_pls", "solve"]
+
+
+@spanned(PLS_SOLVE)
+def solve(config: CVConfig, mats, stats, rows: ValidationRows, *,
+          n_components: int, impl: str = "auto") -> torch.Tensor:
+    """One chunk's IKPLS #2 fits and scores -> (F, A, M) weighted PRESS.
+
+    ``mats`` is the chunk's ``(XTX, XTY)`` and ``stats`` its ``(X_mean,
+    X_std, Y_mean, Y_std)``, as the sweep's chunk consumer gets them, and
+    ``rows`` its :class:`~cvmatrix_tpu_torch.models.sweep.ValidationRows`.
+    A fold's prediction of a validation row ``x`` with ``a`` components is
+    ``((x - X_mean) / X_std) B_a * Y_std + Y_mean``, each term only where
+    its flag is on, with the fold's own training statistics, and
+    ``PRESS[a - 1, m]`` the sum over the fold's rows of weight times mask
+    times the squared residual of response ``m``."""
+    xtx, xty = mats
+    return _pls.ikpls2(
+        xtx, xty, rows.X, rows.Y, rows.w, rows.mask, stats,
+        n_components=n_components, center_X=config.center_X,
+        center_Y=config.center_Y, scale_X=config.scale_X,
+        scale_Y=config.scale_Y, impl=impl)
+
+
+@spanned(PLS + "cross_validate_pls")
+def cross_validate_pls(
+    config: CVConfig,
+    state: FitState,
+    idx_batch,
+    mask_batch=None,
+    *,
+    n_components: int,
+    batch_size: int = 512,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """The (P, A, M) weighted PRESS of every fold's validation rows for
+    1..A = ``n_components`` PLS components, on the state's device.
+
+    ``idx_batch`` is a (P, L) fold-index batch (indices in [-N, N), the
+    negative ones wrapped), ``mask_batch`` an optional (P, L) 0/1 mask of
+    padded rows; either may be a tensor on any device, as for
+    :func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce`, whose
+    bodies and chunks of at most ``batch_size`` folds this runs. Each
+    fold's model is IKPLS Algorithm #2 on its training ``XTX`` and ``XTY``
+    (centred and scaled by the config's flags with the fold's own training
+    statistics); ``PRESS[p, a - 1, m]`` is the sum, over fold ``p``'s
+    validation rows, of the row's weight (1 unweighted) times its mask
+    times ``(y_m - yhat_m)^2``, ``yhat`` predicted with ``a`` components
+    (:func:`solve`). ``n_components`` must be at least 1 and at most K and
+    the training rows of every fold (N less its validation rows).
+
+    ``impl``: ``"auto"`` takes the sweep's hoisted bodies and the
+    ``ikpls2`` kernel on the card (the twins on the CPU), ``"cuda"`` the
+    same and requires CUDA tensors, ``"torch"`` the generic body and every
+    twin. The kernel is float64 only: a float32 state runs on the CPU, or
+    on the card with ``impl="torch"``, and raises otherwise.
+    A fold whose component is degenerate (``t^T t`` or ``||XTY q||`` of
+    0) reads NaN from that component on; ``ikpls`` stops the fit there.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
+    if state.Y is None:
+        raise ValueError("Response variables `Y` are not provided.")
+    if config.torch_dtype != torch.float64 and (
+            impl == "cuda" or (impl == "auto"
+                               and state.device.type == "cuda")):
+        raise ValueError(
+            f"impl={impl!r} on the card needs a float64 config: ikpls2 has "
+            "no float32 kernel; pass impl='torch' to run its plain twin.")
+    n_components = operator.index(n_components)
+    idx = host_folds(idx_batch, state.N)
+    mask = host_mask(mask_batch)
+    n_val = (idx.shape[1] if mask is None
+             else int(np.count_nonzero(mask, axis=1).max(initial=0)))
+    n_train = state.N - n_val
+    if not 1 <= n_components <= min(state.K, n_train):
+        raise ValueError(
+            f"n_components={n_components} must be in [1, min(K, training "
+            f"rows)] = [1, {min(state.K, n_train)}] (K={state.K}, the "
+            f"fewest training rows {n_train}).")
+
+    def consume(mats, stats, rows):
+        return solve(config, mats, stats, rows, n_components=n_components,
+                     impl=impl)
+
+    return cross_validate_reduce(config, state, idx, mask, chunk_fn=consume,
+                                 batch_size=batch_size, impl=impl)

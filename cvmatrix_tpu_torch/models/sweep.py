@@ -23,7 +23,9 @@ the JAX package's does.
 
 ``cross_validate`` yields each chunk's per-fold engine results;
 ``cross_validate_reduce`` maps a user reduction over every fold's matrices
-chunk by chunk and keeps only the reductions. Where the JAX package
+chunk by chunk and keeps only the reductions, or hands each chunk whole to
+a chunk consumer with the chunk's validation rows (the port's own:
+``models.pls`` fits a PLS model a fold through it). Where the JAX package
 compiles one ``lax.scan`` program, the port runs a Python loop of eager
 chunks with the same four bodies (the hoisted LOOCV, packed and v3 loops,
 and the generic per-chunk body) and the same gates, except that the
@@ -32,7 +34,7 @@ hoisted loops run on any device: on the CPU they run the kernels' twins.
 
 from __future__ import annotations
 
-from typing import Dict, Hashable, Iterator, Optional, Tuple
+from typing import Dict, Hashable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,9 +64,9 @@ from ..ops.loocv import IMPLS, check_rows
 from ..utils.profiling import REDUCE_FN, SOURCES, SWEEP, span, spanned
 from .partitioner import Partitioner
 
-__all__ = ["chunking", "cross_validate", "cross_validate_dict",
-           "cross_validate_reduce", "materialize_cv", "materialize_sweep",
-           "sweep_chunking", "sweep_last_chunk"]
+__all__ = ["ValidationRows", "chunking", "cross_validate",
+           "cross_validate_dict", "cross_validate_reduce", "materialize_cv",
+           "materialize_sweep", "sweep_chunking", "sweep_last_chunk"]
 
 
 def chunking(n_folds: int, k: int, c: int, batch_size: Optional[int] = None,
@@ -329,14 +331,63 @@ def _vmap_reduce(reduce_fn, mats, stats):
         and a.untyped_storage().data_ptr() in held else a, res)
 
 
+class ValidationRows(NamedTuple):
+    """A chunk's validation rows on the state's device, as a chunk consumer
+    of :func:`cross_validate_reduce` gets them: ``X`` (F, L, K) and ``Y``
+    (F, L, M) (``None`` without Y) unweighted, ``w`` (F, L) the rows'
+    weights (``None`` unweighted) and ``mask`` (F, L) the fold mask in the
+    config dtype (``None`` unmasked)."""
+
+    X: torch.Tensor
+    Y: Optional[torch.Tensor]
+    w: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor]
+
+
+def _validation_rows(state: FitState, rows: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> ValidationRows:
+    """The rows ``rows`` (F, L), on the state's device and checked, gathered
+    from the state: one gather of X, of Y and of the weights."""
+    return ValidationRows(
+        state.X[rows], None if state.Y is None else state.Y[rows],
+        None if state.weights is None else state.weights[rows, 0], mask)
+
+
+def _reducer(reduce_fn):
+    """``reduce_fn`` as the reduce bodies' chunk consumer ``consume(mats,
+    stats, rows)``: mapped over the chunk's folds; it never calls ``rows``,
+    so no validation row is gathered."""
+    return lambda mats, stats, rows: _vmap_reduce(reduce_fn, mats, stats)
+
+
+def _copied_rows(config, state, idx, mask):
+    """``(c0, size) -> ValidationRows`` of the folds ``idx[c0:c0 + size]``,
+    gathered by rows (and the mask) copied to the state's device at the
+    first call: once a sweep, and never in a sweep that asks for none."""
+    held = []
+
+    def chunk(c0, size):
+        if not held:
+            with span(SOURCES):
+                held.append(_rows_mask(config, state, idx, mask))
+        rows, mask_d = held[0]
+        return _validation_rows(state, rows[c0:c0 + size],
+                                _slice(mask_d, c0, size))
+    return chunk
+
+
 def _split_mats(out, k: int, return_XTX: bool, return_XTY: bool):
     if return_XTX and return_XTY:
         return out[:, :, :k], out[:, :, k:]
     return out
 
 
+def _slice(t, start: int, size: int):
+    return None if t is None else t[start:start + size]
+
+
 def _slice_stats(stats, start: int, size: int):
-    return tuple(None if s is None else s[start:start + size] for s in stats)
+    return tuple(_slice(s, start, size) for s in stats)
 
 
 @spanned(SWEEP + "cross_validate_reduce")
@@ -346,15 +397,17 @@ def cross_validate_reduce(
     idx_batch,
     mask_batch=None,
     *,
-    reduce_fn,
+    reduce_fn=None,
     return_XTX: bool = True,
     return_XTY: bool = True,
     batch_size: int = 512,
     impl: str = "auto",
     donate_state: bool = False,
+    chunk_fn=None,
 ):
     """Map ``reduce_fn`` over every fold's training matrices on the state's
-    device; only the reductions are kept.
+    device; only the reductions are kept. Or, with ``chunk_fn`` instead,
+    hand each chunk to it whole.
 
     ``idx_batch`` is a (P, L) fold-index batch (indices in [-N, N), the
     negative ones wrapped), ``mask_batch`` an optional (P, L) 0/1 mask of
@@ -370,6 +423,17 @@ def cross_validate_reduce(
     repeating the last fold, and the padded results are dropped. Returns
     the reductions stacked along a leading axis of P.
 
+    ``chunk_fn(matrices, stats, rows)`` (the port's own; pass it instead of
+    ``reduce_fn``) is called once a chunk of F folds, padded ones included,
+    with the chunk's batched ``matrices`` and ``stats`` as
+    :func:`~cvmatrix_tpu_torch.core.batch.training_matrices_batched`
+    returns them and its :class:`ValidationRows`, gathered on the device
+    once a chunk (the hoisted LOOCV and v3 bodies gather from their
+    sources' device rows, the others from rows copied to the device once a
+    sweep); it returns a tensor or a pytree of tensors with a leading axis
+    of F, which are stacked and trimmed as the reductions are. Without it
+    the sweep gathers no rows.
+
     ``impl``: ``"auto"`` takes the JAX package's hoisted loops where its
     gates allow (kernels on CUDA, twins on the CPU), ``"cuda"`` the same
     and requires CUDA tensors, ``"torch"`` the generic per-chunk body with
@@ -380,6 +444,13 @@ def cross_validate_reduce(
     del donate_state
     if impl not in IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
+    if (reduce_fn is None) == (chunk_fn is None):
+        raise ValueError("Pass one of `reduce_fn` and `chunk_fn`.")
+    if chunk_fn is None:
+        consume = _reducer(reduce_fn)
+    else:
+        def consume(mats, stats, rows):
+            return chunk_fn(mats, stats, rows())
     if not return_XTX and not return_XTY:
         raise ValueError(
             "At least one of `return_XTX` and `return_XTY` must be True."
@@ -398,7 +469,7 @@ def cross_validate_reduce(
     n_chunks = -(-n_folds // bs)
     bs = -(-n_folds // n_chunks)
     idx, mask = _pad_folds(idx, mask, bs)
-    chunks = _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn,
+    chunks = _reduce_sweep_impl(config, state, idx, mask, bs, consume,
                                 return_XTX, return_XTY, impl)
     return pytree.tree_map(lambda a: a[:n_folds], _stack_chunks(chunks))
 
@@ -413,10 +484,12 @@ def _stack_chunks(chunks):
         spec)
 
 
-def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
+def _reduce_sweep_impl(config, state, idx, mask, bs, consume, return_XTX,
                        return_XTY, impl):
-    """The per-chunk reductions of the padded (n_chunks * bs, L) batch, by
-    the first of the JAX package's four bodies whose gate holds."""
+    """The per-chunk outputs of ``consume(mats, stats, rows)`` over the
+    padded (n_chunks * bs, L) batch, by the first of the JAX package's four
+    bodies whose gate holds; ``rows()`` gathers the chunk's
+    :class:`ValidationRows`, only where it is called."""
     is_f64 = _batch._is_f64(config)
     n_total, n_l = idx.shape
     hoist = impl in ("auto", "cuda")
@@ -425,7 +498,7 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
     if (hoist and mask is None and n_l == 1 and return_XTX
             and _batch.loocv_single_tile_ok(config, state, return_XTX,
                                             return_XTY)):
-        return _loocv_reduce_loop(config, state, idx, bs, reduce_fn,
+        return _loocv_reduce_loop(config, state, idx, bs, consume,
                                   return_XTY, impl)
     # Small folds: the packed operands once for every fold (:243-259).
     threshold = (_batch.large_fold_threshold(config, state, return_XTX,
@@ -436,7 +509,7 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
                 state, n_total, n_l, return_XTX, return_XTY)
             <= _batch._HOIST_BUDGET_BYTES):
         return _smallfold_reduce_loop(config, state, idx, mask, bs,
-                                      reduce_fn, return_XTX, return_XTY,
+                                      consume, return_XTX, return_XTY,
                                       impl)
     # Mid-band: the v3 sources and statistics once for every fold
     # (:267-281).
@@ -446,12 +519,13 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
                                    n_l)
             and _batch._v3_hoist_bytes(state, n_total, n_l)
             <= _batch._HOIST_BUDGET_BYTES):
-        return _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn,
+        return _v3_reduce_loop(config, state, idx, mask, bs, consume,
                                return_XTY, impl)
     # Generic body: every chunk through training_matrices_batched, with
     # [XTX | XTY] built once for every chunk (3.2 GB at K = 20,000).
     with span(SOURCES):
         total = _batch._total(state, return_XTX, return_XTY)
+    rows_of = _copied_rows(config, state, idx, mask)
     out = []
     for c0 in range(0, n_total, bs):
         mats, stats = _batch.training_matrices_batched(
@@ -459,17 +533,18 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, reduce_fn, return_XTX,
             None if mask is None else mask[c0:c0 + bs],
             return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
             total=total)
-        out.append(_vmap_reduce(reduce_fn, mats, stats))
+        out.append(consume(mats, stats, lambda: rows_of(c0, bs)))
     return out
 
 
-def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
+def _loocv_reduce_loop(config, state, idx, bs, consume, return_XTY,
                        impl, n_rows_total=None):
     """Hoisted-source LOOCV reduce sweep (JAX ``sweep.py:314``): one
     :func:`prepare_loocv_sources` for every fold, then per chunk the LOOCV
     kernel (symmetric under ``sym_loocv``, two folds per block under the
     x2 knob when the chunk is even: no bump here), which also stores the
-    chunk's statistics, and the reduction. ``n_rows_total``: the global
+    chunk's statistics, and ``consume`` (rows gathered by the sources'
+    device rows; :func:`_reduce_sweep_impl`). ``n_rows_total``: the global
     row count where ``state`` is one rank's row shard (the mesh path)."""
     rows = check_rows(idx[:, 0], state.N)
     if state.device.type == "cuda":
@@ -484,41 +559,43 @@ def _loocv_reduce_loop(config, state, idx, bs, reduce_fn, return_XTY,
         mats, stats = run_loocv_route(
             config, src, rows[c0:c0 + bs], route, src.scal[c0:c0 + bs],
             return_XTY=return_XTY, impl=impl, return_stats=True)
-        out.append(_vmap_reduce(
-            reduce_fn, _split_mats(mats, state.K, True, return_XTY), stats))
+        out.append(consume(
+            _split_mats(mats, state.K, True, return_XTY), stats,
+            lambda: _validation_rows(state, src.rows[c0:c0 + bs], None)))
         # freed before the next chunk allocates its own
         del mats, stats
     return out
 
 
-def _smallfold_reduce_loop(config, state, idx, mask, bs, reduce_fn,
+def _smallfold_reduce_loop(config, state, idx, mask, bs, consume,
                            return_XTX, return_XTY, impl, blocks_stats=None):
     """Hoisted-prep small-fold reduce sweep (JAX ``sweep.py:453``):
     :func:`prepare_fold_operands` once for every fold (of ``idx``/``mask``,
     or of gathered ``blocks_stats``: the mesh path), then per chunk the
-    packed kernel on sliced operands and the reduction over sliced
-    statistics."""
+    packed kernel on sliced operands and ``consume`` over sliced
+    statistics (rows copied to the device once, where it asks for them)."""
     ops, stats = prepare_fold_operands(config, state, idx, mask,
                                        return_XTX=return_XTX,
                                        return_XTY=return_XTY,
                                        blocks_stats=blocks_stats)
+    rows_of = _copied_rows(config, state, idx, mask)
     out = []
     for c0 in range(0, ops.u.shape[0], bs):
         mats = downdate_from_operands(slice_operands(ops, c0, bs), impl=impl)
-        out.append(_vmap_reduce(
-            reduce_fn, _split_mats(mats, state.K, return_XTX, return_XTY),
-            _slice_stats(stats, c0, bs)))
+        out.append(consume(
+            _split_mats(mats, state.K, return_XTX, return_XTY),
+            _slice_stats(stats, c0, bs), lambda: rows_of(c0, bs)))
     return out
 
 
-def _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn, return_XTY,
+def _v3_reduce_loop(config, state, idx, mask, bs, consume, return_XTY,
                     impl, blocks_stats=None):
     """Hoisted-source mid-band reduce sweep (JAX ``sweep.py:390``):
     :func:`prepare_ozaki_sources` and the statistics once for every fold
     (or :func:`~cvmatrix_tpu_torch.core.batch.ozaki_sources_from_blocks`
     of gathered ``blocks_stats``: the mesh path), then per chunk the v3
-    kernel (symmetric under ``sym_loocv``) on sliced sources and the
-    reduction."""
+    kernel (symmetric under ``sym_loocv``) on sliced sources and
+    ``consume`` (rows gathered by the sources' device rows)."""
     if blocks_stats is None:
         src = prepare_ozaki_sources(config, state, idx, mask,
                                     return_XTX=True, return_XTY=return_XTY)
@@ -533,7 +610,9 @@ def _v3_reduce_loop(config, state, idx, mask, bs, reduce_fn, return_XTY,
     for c0 in range(0, src.rows.shape[0], bs):
         mats = ozaki_v3_from_sources(config, slice_operands(src, c0, bs),
                                      return_XTY=return_XTY, impl=impl)
-        out.append(_vmap_reduce(
-            reduce_fn, _split_mats(mats, state.K, True, return_XTY),
-            _slice_stats(stats, c0, bs)))
+        out.append(consume(
+            _split_mats(mats, state.K, True, return_XTY),
+            _slice_stats(stats, c0, bs),
+            lambda: _validation_rows(state, src.rows[c0:c0 + bs],
+                                     _slice(src.mask, c0, bs))))
     return out

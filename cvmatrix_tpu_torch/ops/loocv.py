@@ -54,14 +54,22 @@ def check_rows(rows, n: int) -> torch.Tensor:
 
     A CUDA gather out of range reads out of bounds (the JAX kernel clamps
     under jit), so the check runs before every launch: on the host for a
-    CPU tensor or array, with one device sync for a CUDA tensor.
+    CPU tensor or array, with one device sync for a CUDA tensor. Host rows
+    take NumPy's single-threaded reduction: torch's multithreaded
+    ``aminmax`` of 98,000-100,000 host rows held the card idle 1.7-8 ms a
+    call on the H100 machine's shared host, and its wait varied from run
+    to run.
     """
     rows = torch.as_tensor(rows)
     if rows.dtype not in (torch.int64, torch.int32):
         raise TypeError(f"fold rows must be int32/int64, got {rows.dtype}")
     rows = rows.reshape(-1).to(torch.int64)
     if rows.numel():
-        lo, hi = (int(x) for x in torch.aminmax(rows))
+        if rows.is_cpu:
+            host = rows.numpy()
+            lo, hi = int(host.min()), int(host.max())
+        else:
+            lo, hi = (int(x) for x in torch.aminmax(rows))
         if lo < 0 or hi >= n:
             raise ValueError(
                 f"fold rows outside [0, {n}) (min {lo}, max {hi})."

@@ -1,0 +1,303 @@
+"""IKPLS Algorithm #2 on each fold of a chunk: plain PyTorch twin, CUDA kernel
+wrapper, dispatch.
+
+The port's own kernel: the JAX package fits no per-fold model, so no TPU
+kernel stands behind it. For each fold, from its training ``XTX`` (K, K)
+and ``XTY`` (K, M) alone, Improved Kernel PLS Algorithm #2 (Dayal &
+MacGregor, J. Chemometrics 11:73-85, 1997, as the ``ikpls`` package runs
+it) takes ``A`` components in turn::
+
+    w   = XTY q / ||XTY q||, q the dominant eigenvector of XTY^T XTY
+    r   = w - sum_{j<a} (p_j . w) r_j
+    t   = r^T XTX                      tt = t . r
+    p   = t / tt                       q_a = XTY^T r / tt
+    XTY = XTY - (p q_a^T) tt
+
+and the fold's validation rows are predicted with 1..A components as the
+components come, ``yhat_a = yhat_{a-1} + (x~ . r_a) q_a^T`` with ``x~ =
+(x - X_mean) / X_std``, then ``yhat_a * Y_std + Y_mean`` (a flag that is off
+drops its term). The result is each fold's weighted PRESS, (F, A, M): the
+sum over the validation rows of weight times mask times the squared
+residual, for each component count and response.
+
+The M x M eigenproblem is solved by cyclic Jacobi in round-robin order
+(:func:`jacobi_dominant`): each round rotates up to M/2 disjoint pairs at
+once, until the off-diagonal's Frobenius norm is at most float64's epsilon
+times the matrix's (or 30 sweeps). The kernel and the twin run the same
+rotations; for M = 1 the vector is 1 and ``w = XTY / ||XTY||``.
+
+Kernel: ``csrc/pls.cu`` (``cvm_ikpls2_f64``), float64, one block a fold,
+one launch a chunk. :func:`ikpls2` dispatches as the other wrappers of the
+port do: ``impl="auto"`` launches the kernel for CUDA tensors and runs
+:func:`ikpls2_reference` for CPU tensors; ``"cuda"`` always launches (and
+raises for CPU operands); ``"torch"`` always runs the twin. There is no
+float32 kernel: float32 CUDA operands raise under ``"auto"`` and
+``"cuda"``, and run the twin only under ``"torch"``. The kernel's library
+is built and loaded at its first launch only.
+
+Counters: :func:`launch_counts` (kernel launches) and
+:func:`fold_components` (F x A of every solve, kernel or twin).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .fold_downdate import _fn, _run, _use_kernel
+from .loocv import _ptr
+from .precision import highest_precision
+
+__all__ = ["MAX_M", "MAX_SWEEPS", "fold_components", "ikpls2",
+           "ikpls2_reference", "jacobi_dominant", "round_robin_pairs",
+           "launch_counts", "reset_launch_counts"]
+
+# Widest response the kernel takes (one warp's lanes over the responses)
+# and the widest fold product (its three K-vectors in shared memory).
+MAX_M = 32
+MAX_K = 8192
+# Jacobi sweeps at most; one sweep rotates every pair once.
+MAX_SWEEPS = 30
+
+_FLAG_BITS = {"center_X": 1, "center_Y": 2, "scale_X": 4, "scale_Y": 8}
+
+
+def round_robin_pairs(m: int):
+    """The rounds of one Jacobi sweep over ``m`` indices: a list of rounds,
+    each a list of disjoint ``(p, q)`` pairs with ``p < q < m``. The
+    tournament order (index 0 fixed, the others rotated) of the kernel:
+    in round ``r``, position ``j > 0`` holds ``1 + (j - 1 + r) % (mp -
+    1)``, ``mp`` = m rounded up to even, and pair ``i`` is positions ``i``
+    and ``mp - 1 - i``; a pair that holds the dummy index ``m`` (odd m) is
+    left out."""
+    mp = m + (m % 2)
+    rounds = []
+    for r in range(mp - 1):
+        def pos(j):
+            return 0 if j == 0 else 1 + (j - 1 + r) % (mp - 1)
+        pairs = []
+        for i in range(mp // 2):
+            a, b = pos(i), pos(mp - 1 - i)
+            p, q = min(a, b), max(a, b)
+            if q < m:
+                pairs.append((p, q))
+        rounds.append(pairs)
+    return rounds
+
+
+def jacobi_dominant(S: torch.Tensor,
+                    max_sweeps: int = MAX_SWEEPS) -> torch.Tensor:
+    """The eigenvector of the largest eigenvalue of each symmetric (F, M, M)
+    ``S`` -> (F, M), by the kernel's cyclic Jacobi.
+
+    Each rotation of pair (p, q): ``theta = (S_qq - S_pp) / (2 S_pq)``,
+    ``t = sign(theta) / (|theta| + sqrt(theta^2 + 1))`` (0 where ``S_pq``
+    is 0), ``c = 1 / sqrt(t^2 + 1)``, ``s = t c``; the round's columns,
+    then its rows, then the eigenvector columns are rotated, and the
+    pair's 2 x 2 block is set to ``(S_pp - t S_pq, 0; 0, S_qq + t
+    S_pq)``. A fold stops once the off-diagonal part's squared Frobenius
+    norm is at most eps^2 times the whole matrix's at the start; the
+    vector is the column of the largest diagonal entry (the first of equal
+    ones)."""
+    f_folds, m, _ = S.shape
+    S = S.clone()
+    V = torch.eye(m, dtype=S.dtype, device=S.device).expand(
+        f_folds, m, m).clone()
+    eps = torch.finfo(S.dtype).eps
+    norm2 = (S * S).sum(dim=(1, 2))
+    offdiag = ~torch.eye(m, dtype=torch.bool, device=S.device)
+    rounds = [rd for rd in round_robin_pairs(m) if rd]
+    for _ in range(max_sweeps if rounds else 0):
+        off2 = (S * S * offdiag).sum(dim=(1, 2))
+        todo = ~(off2 <= eps * eps * norm2)
+        if not bool(todo.any()):
+            break
+        S0, V0 = S.clone(), V.clone()
+        for pairs in rounds:
+            P = torch.tensor([p for p, _ in pairs], device=S.device)
+            Q = torch.tensor([q for _, q in pairs], device=S.device)
+            app, aqq, apq = S[:, P, P], S[:, Q, Q], S[:, P, Q]
+            zero = apq == 0
+            theta = (aqq - app) / (2.0 * torch.where(zero, 1.0, apq))
+            t = torch.copysign(torch.ones_like(theta), theta) / (
+                theta.abs() + torch.sqrt(theta * theta + 1.0))
+            t = torch.where(zero, 0.0, t)
+            c = 1.0 / torch.sqrt(t * t + 1.0)
+            s = t * c
+            cc, sc = c[:, None, :], s[:, None, :]
+            sp, sq = S[:, :, P], S[:, :, Q]
+            S[:, :, P], S[:, :, Q] = cc * sp - sc * sq, sc * sp + cc * sq
+            cr, sr = c[:, :, None], s[:, :, None]
+            sp, sq = S[:, P, :], S[:, Q, :]
+            S[:, P, :], S[:, Q, :] = cr * sp - sr * sq, sr * sp + cr * sq
+            vp, vq = V[:, :, P], V[:, :, Q]
+            V[:, :, P], V[:, :, Q] = cc * vp - sc * vq, sc * vp + cc * vq
+            S[:, P, P] = app - t * apq
+            S[:, Q, Q] = aqq + t * apq
+            S[:, P, Q] = 0.0
+            S[:, Q, P] = 0.0
+        keep = ~todo[:, None, None]
+        S = torch.where(keep, S0, S)
+        V = torch.where(keep, V0, V)
+    top = torch.diagonal(S, dim1=1, dim2=2).argmax(dim=1)
+    return V[torch.arange(f_folds, device=S.device), :, top]
+
+
+@highest_precision()
+def ikpls2_reference(xtx, xty, X_val, Y_val, w_val, mask, stats, *,
+                     n_components: int, center_X: bool, center_Y: bool,
+                     scale_X: bool, scale_Y: bool) -> torch.Tensor:
+    """Plain-torch twin of the kernel -> (F, A, M) weighted PRESS, in the
+    operands' dtype.
+
+    ``xtx`` (F, K, K) and ``xty`` (F, K, M) are the folds' training
+    matrices (views of one (F, K, K + M) output are fine), ``X_val`` (F, L,
+    K) and ``Y_val`` (F, L, M) the validation rows, ``w_val`` and ``mask``
+    (F, L) or ``None``, ``stats`` the folds' ``(X_mean, X_std, Y_mean,
+    Y_std)``, each (F, 1, W) or ``None``; a statistic is read only where
+    its flag is on."""
+    X_mean, X_std, Y_mean, Y_std = stats
+    f_folds, k, m = xty.shape
+    A = n_components
+    G = xty.clone()
+    xs = X_val
+    if center_X:
+        xs = xs - X_mean
+    if scale_X:
+        xs = xs / X_std
+    wm = None
+    for t in (w_val, mask):
+        if t is not None:
+            wm = t if wm is None else wm * t
+    Pm = xtx.new_zeros((f_folds, A, k))
+    Rm = xtx.new_zeros((f_folds, A, k))
+    yhat = Y_val.new_zeros(Y_val.shape)
+    press = xtx.new_empty((f_folds, A, m))
+    for a in range(A):
+        qe = jacobi_dominant(G.mT @ G)
+        w = (G @ qe[:, :, None])[:, :, 0]
+        w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True)
+        r = w
+        if a:
+            d = (Pm[:, :a] @ w[:, :, None])[:, :, 0]
+            for j in range(a):
+                r = r - d[:, j:j + 1] * Rm[:, j]
+        t = (r[:, None, :] @ xtx)[:, 0]
+        tt = (t * r).sum(dim=1)[:, None]
+        p = t / tt
+        qn = (G.mT @ r[:, :, None])[:, :, 0] / tt
+        G = G - (p[:, :, None] * qn[:, None, :]) * tt[:, :, None]
+        Pm[:, a], Rm[:, a] = p, r
+        z = (xs @ r[:, :, None])[:, :, 0]
+        yhat = yhat + z[:, :, None] * qn[:, None, :]
+        pred = yhat
+        if scale_Y:
+            pred = pred * Y_std
+        if center_Y:
+            pred = pred + Y_mean
+        e2 = (Y_val - pred) ** 2
+        press[:, a] = (e2 if wm is None else wm[:, :, None] * e2).sum(dim=1)
+    return press
+
+
+def _strided(t: Optional[torch.Tensor], on: bool):
+    """``(tensor, fold stride)`` of a (F, R, W) operand whose rows are
+    contiguous, made so where they are not; ``(None, 0)`` where off."""
+    if t is None or not on:
+        return None, 0
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+def ikpls2(xtx, xty, X_val, Y_val, w_val, mask, stats, *, n_components: int,
+           center_X: bool, center_Y: bool, scale_X: bool, scale_Y: bool,
+           impl: str = "auto") -> torch.Tensor:
+    """Every fold's IKPLS #2 solve and score -> (F, A, M) weighted PRESS.
+
+    Operands as :func:`ikpls2_reference`; on the kernel's path every one is
+    float64 on one CUDA device, ``xtx``/``xty``/statistics with contiguous
+    rows (any fold and row strides), the validation rows contiguous, M at
+    most :data:`MAX_M` and K at most :data:`MAX_K`."""
+    k = xty.shape[1]
+    m = xty.shape[2]
+    f_folds = xty.shape[0]
+    A = int(n_components)
+    if A < 1:
+        raise ValueError(f"n_components must be at least 1, got {A}")
+    flags = dict(center_X=center_X, center_Y=center_Y, scale_X=scale_X,
+                 scale_Y=scale_Y)
+    device = xty.device
+    launch = _use_kernel("ikpls2", impl, device)
+    if launch and xty.dtype != torch.float64:
+        raise ValueError(f"ikpls2 has no kernel for {xty.dtype}; pass "
+                         "impl='torch' to run its plain twin")
+    ikpls2.fold_components += f_folds * A
+    if not launch:
+        return ikpls2_reference(xtx, xty, X_val, Y_val, w_val, mask, stats,
+                                n_components=A, **flags)
+    if m > MAX_M or k > MAX_K:
+        raise ValueError(
+            f"ikpls2's kernel takes M <= {MAX_M} and K <= {MAX_K} (M={m}, "
+            f"K={k}); run impl='torch'")
+    n_l = X_val.shape[1]
+    if (tuple(xtx.shape) != (f_folds, k, k)
+            or tuple(X_val.shape) != (f_folds, n_l, k)
+            or tuple(Y_val.shape) != (f_folds, n_l, m)):
+        raise ValueError(
+            f"ikpls2: xtx {tuple(xtx.shape)}, xty {tuple(xty.shape)}, X_val "
+            f"{tuple(X_val.shape)} and Y_val {tuple(Y_val.shape)} do not "
+            "match (F, K, K), (F, K, M), (F, L, K), (F, L, M)")
+    xtx, xtx_sf = _strided(xtx, True)
+    xty, xty_sf = _strided(xty, True)
+    X_mean, X_std, Y_mean, Y_std = stats
+    mean_x, mean_x_sf = _strided(X_mean, center_X)
+    std_x, std_x_sf = _strided(X_std, scale_X)
+    mean_y, mean_y_sf = _strided(Y_mean, center_Y)
+    std_y, std_y_sf = _strided(Y_std, scale_Y)
+    dense = [t.contiguous() if t is not None else None
+             for t in (X_val, Y_val, w_val, mask)]
+    for t in [xtx, xty, mean_x, std_x, mean_y, std_y, *dense]:
+        if t is not None and (t.device != device
+                              or t.dtype != torch.float64):
+            raise ValueError(f"ikpls2 operands must all be float64 on "
+                             f"{device}.")
+    for name, t, shape in (("w_val", dense[2], (f_folds, n_l)),
+                           ("mask", dense[3], (f_folds, n_l))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"ikpls2: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    g = torch.empty((f_folds, m, k), dtype=torch.float64, device=device)
+    pr = torch.empty((f_folds, 2, A, k), dtype=torch.float64, device=device)
+    yhat = torch.empty((f_folds, n_l, m), dtype=torch.float64, device=device)
+    press = torch.empty((f_folds, A, m), dtype=torch.float64, device=device)
+    fn = _fn("pls", "cvm_ikpls2_f64", 14, 13, (ctypes.c_int,))
+    bits = sum(b for n, b in _FLAG_BITS.items() if flags[n])
+    _run("ikpls2", fn, _ptr(xtx), _ptr(xty), *(_ptr(t) for t in dense),
+         _ptr(mean_x), _ptr(std_x), _ptr(mean_y), _ptr(std_y), _ptr(g),
+         _ptr(pr), _ptr(yhat), _ptr(press), f_folds, k, m, n_l, A,
+         xtx_sf, xtx.stride(1), xty_sf, xty.stride(1), mean_x_sf, std_x_sf,
+         mean_y_sf, std_y_sf, bits, device=device)
+    ikpls2.launches += 1
+    return press
+
+
+def reset_launch_counts() -> None:
+    ikpls2.launches = 0
+    ikpls2.fold_components = 0
+
+
+def launch_counts() -> dict:
+    """``{"ikpls2": launches}`` since the last :func:`reset_launch_counts`."""
+    return {"ikpls2": ikpls2.launches}
+
+
+def fold_components() -> int:
+    """The fold-components solved since the last :func:`reset_launch_counts`:
+    F x A a solve, the twin's included."""
+    return ikpls2.fold_components
+
+
+reset_launch_counts()

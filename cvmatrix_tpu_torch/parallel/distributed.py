@@ -582,8 +582,9 @@ def _sharded_loocv_identity_reduce(config, state, mesh, reduce_fn,
     R = local.N
     bs_local = max(1, min(bs_local_target, R))
     chunks = _sweep._loocv_reduce_loop(
-        config, local, np.arange(R)[:, None], bs_local, reduce_fn,
-        return_XTY, impl, n_rows_total=state.n_rows)
+        config, local, np.arange(R)[:, None], bs_local,
+        _sweep._reducer(reduce_fn), return_XTY, impl,
+        n_rows_total=state.n_rows)
     return _tree_map(lambda a: _all_gather(mesh, a)[:n_folds],
                      _sweep._stack_chunks(chunks))
 
@@ -615,11 +616,11 @@ def _sharded_hoisted_reduce(config, state, mesh, idx, mask, reduce_fn,
                                               return_XTY))
     if route == "smallfold":
         chunks = _sweep._smallfold_reduce_loop(
-            config, g, None, None, bs_local, reduce_fn, return_XTX,
-            return_XTY, impl, blocks_stats=blocks_stats)
+            config, g, None, None, bs_local, _sweep._reducer(reduce_fn),
+            return_XTX, return_XTY, impl, blocks_stats=blocks_stats)
     else:
         chunks = _sweep._v3_reduce_loop(
-            config, g, None, None, bs_local, reduce_fn, return_XTY, impl,
-            blocks_stats=blocks_stats)
+            config, g, None, None, bs_local, _sweep._reducer(reduce_fn),
+            return_XTY, impl, blocks_stats=blocks_stats)
     return _tree_map(lambda a: _all_gather(mesh, a)[:n_folds],
                      _sweep._stack_chunks(chunks))

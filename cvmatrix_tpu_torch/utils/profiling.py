@@ -32,8 +32,14 @@ name:
   ``cross_validate_reduce`` and ``materialize_sweep`` call;
 - ``cvmatrix_tpu_torch.models.sweep.reduce_fn``: the user's reduction over
   one chunk (``torch.func.vmap``), with the copies of views it returns.
+- ``cvmatrix_tpu_torch.models.pls.<entry>``: each ``cross_validate_pls``
+  call;
+- ``cvmatrix_tpu_torch.models.pls.solve``: one chunk's IKPLS #2 solve and
+  score (``models.pls.solve``: the ``ikpls2`` kernel or its twin).
 
-No span nests inside another of its name, and none changes a result.
+No span nests inside another of its name, and none changes a result. The
+fold-components that ``models.pls.solve`` solves (F x A a chunk) are
+counted by ``ops.pls.fold_components()``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,8 @@ STATS = PREFIX + "core.batch.stats"
 H2D = PREFIX + "h2d"
 SWEEP = PREFIX + "models.sweep."
 REDUCE_FN = SWEEP + "reduce_fn"
+PLS = PREFIX + "models.pls."
+PLS_SOLVE = PLS + "solve"
 
 _OFF = contextlib.nullcontext()
 

@@ -1,0 +1,484 @@
+"""PLS cross-validation on the port (``cvmatrix_tpu_torch.models.pls``) against
+the plain reference ``tests/pls_reference.py``, and the reference against
+NIPALS.
+
+Tolerances, and why:
+
+- reference against NIPALS, equal ``B`` to 1e-10 of its largest entry: two
+  float64 algorithms on the same preprocessed rows, NIPALS iterated until
+  its scores move by under 1e-15; both differ from the exact answer by
+  rounding amplified by the components' conditioning, which this data
+  keeps small.
+- the port against the reference, PRESS to 1e-9 of the fold's largest
+  PRESS (``PRESS_TOL``): the port's fold matrices come from the fitted
+  totals by the engine's downdate and the reference's from the training
+  rows, two float64 orders of the same sums (about 1e-14 apart at these
+  sizes, ``tests/test_torch_loocv.py``), which the A components amplify
+  by their conditioning; the Jacobi eigenvector and ``eigh``'s agree to
+  rounding. The same reference computed in float32 misses it by over
+  three decades (``test_float32_misses_the_tolerance``).
+
+The CPU runs the twin (``ops.pls.ikpls2_reference``); the cases marked
+``cuda`` run the kernel and skip without a card. This file imports no JAX;
+on a card, ``python -m pytest --noconftest -q tests/test_torch_pls.py``.
+"""
+
+import itertools
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import cvmatrix_tpu_torch as T
+from cvmatrix_tpu_torch.models import pls as TP
+from cvmatrix_tpu_torch.models import sweep as TS
+from cvmatrix_tpu_torch.ops import pls as OP
+from cvmatrix_tpu_torch.utils import profiling as P
+
+from .pls_reference import (
+    fold_press,
+    ikpls2_coefficients,
+    nipals_coefficients,
+    training_products,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PRESS_TOL = 1e-9
+N, K, A = 30, 5, 3
+FLAGS = list(itertools.product([True, False], repeat=4))
+
+
+def _data(m, n=N, k=K, seed=0):
+    """X uniform; Y a linear map of X with well separated response scales
+    plus noise, so that every component's eigen-gap is wide."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, k))
+    beta = rng.normal(size=(k, m)) * (3.0 ** -np.arange(m))
+    Y = X @ beta + 0.05 * rng.normal(size=(n, m))
+    w = rng.uniform(0.2, 1.5, size=n)
+    w[::7] = 0.0
+    return X, Y, w
+
+
+def _folds(scheme, n=N):
+    """``(idx, mask, validation rows of each fold)``: LOOCV; K-fold of 3
+    folds of 10 rows (the v3 body); 10 folds of 3 rows (the small-fold
+    body); 7 uneven folds as one padded masked batch."""
+    if scheme == "loocv":
+        idx, mask = np.arange(n)[:, None], None
+    elif scheme in ("kfold", "small"):
+        p = 3 if scheme == "kfold" else 10
+        idx, mask = np.arange(n).reshape(-1, p).T.copy(), None
+    else:
+        p = 7
+        L = -(-n // p)
+        idx = np.arange(p)[:, None] + p * np.arange(L)[None, :]
+        mask = (idx < n).astype(np.float64)
+        idx = np.where(idx < n, idx, np.arange(p)[:, None])
+    val = [row if mask is None else row[mask[f] == 1]
+           for f, row in enumerate(idx)]
+    return idx, mask, val
+
+
+def _reference(X, Y, w, val, flags, ddof, n_components=A,
+               dtype=torch.float64):
+    c_x, c_y, s_x, s_y = flags
+    return torch.stack([
+        fold_press(torch.as_tensor(X), torch.as_tensor(Y),
+                   None if w is None else torch.as_tensor(w), v,
+                   n_components=n_components, center_X=c_x, center_Y=c_y,
+                   scale_X=s_x, scale_Y=s_y, ddof=ddof, dtype=dtype)
+        for v in val])
+
+
+def _gap(got, ref):
+    """The widest gap of each fold's PRESS over that fold's largest
+    reference PRESS, worst fold."""
+    got = torch.as_tensor(got).to(torch.float64).cpu()
+    ref = ref.cpu()
+    scale = ref.abs().amax(dim=(1, 2)).clamp_min(1e-300)
+    return float(((got - ref).abs().amax(dim=(1, 2)) / scale).max())
+
+
+def _run(dev, flags, weighted, m, scheme, ddof, impl="auto", dtype=None):
+    X, Y, w = _data(m)
+    if not weighted:
+        w = None
+    cfg = T.CVConfig(*flags, ddof=ddof,
+                     **({} if dtype is None else {"dtype": dtype}))
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx, mask, val = _folds(scheme)
+    got = T.cross_validate_pls(cfg, st, idx, mask, n_components=A,
+                               batch_size=4, impl=impl)
+    return got, _reference(X, Y, w, val, flags, ddof)
+
+
+# ---- the reference against an independent algorithm --------------------- #
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("m", [1, 3])
+def test_reference_matches_nipals(m, weighted):
+    X, Y, w = _data(m, n=60, k=6, seed=3)
+    X, Y = torch.as_tensor(X), torch.as_tensor(Y)
+    w = torch.as_tensor(w) if weighted else None
+    keep = torch.ones(60, dtype=torch.bool)
+    keep[::5] = False
+    XTX, XTY, _, Xp, Yp, wt = training_products(
+        X, Y, w, keep, center_X=True, center_Y=True, scale_X=True,
+        scale_Y=True, ddof=1, resolution=1e-14)
+    root = torch.ones(1) if wt is None else wt.sqrt()
+    B_nip, iters = nipals_coefficients(Xp * root, Yp * root, 5)
+    B = ikpls2_coefficients(XTX, XTY, 5)
+    assert iters < 100_000
+    for a in range(5):
+        assert float((B[a] - B_nip[a]).abs().max()) <= (
+            1e-10 * float(B_nip[a].abs().max())), a
+
+
+# ---- the port against the reference, on the CPU (the twin) --------------- #
+
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("scheme", ["loocv", "kfold", "masked"])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_twin_matches_reference(flags, weighted, m, scheme, ddof):
+    got, ref = _run("cpu", flags, weighted, m, scheme, ddof)
+    assert got.shape == ref.shape == (len(ref), A, m)
+    assert got.dtype == torch.float64
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+@pytest.mark.parametrize("body, scheme, impl", [
+    ("_loocv_reduce_loop", "loocv", "auto"),
+    ("_v3_reduce_loop", "kfold", "auto"),
+    ("_smallfold_reduce_loop", "small", "auto"),
+    ("_smallfold_reduce_loop", "masked", "auto"),
+    (None, "loocv", "torch"),
+    (None, "masked", "torch"),
+])
+def test_every_sweep_body(monkeypatch, body, scheme, impl):
+    """Each of the sweep's bodies hands the consumer its chunks; ``None``
+    is the generic per-chunk body."""
+    ran = []
+    for name in ("_loocv_reduce_loop", "_smallfold_reduce_loop",
+                 "_v3_reduce_loop"):
+        def spy(*a, _name=name, _fn=getattr(TS, name), **kw):
+            ran.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(TS, name, spy)
+    got, ref = _run("cpu", (True,) * 4, True, 3, scheme, 1, impl=impl)
+    assert ran == ([] if body is None else [body])
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+def test_float32_misses_the_tolerance():
+    """The reference in float32, and the port on a float32 state (the
+    twin), each miss the tolerance by over three decades."""
+    X, Y, w = _data(3)
+    _, _, val = _folds("loocv")
+    flags = (True,) * 4
+    ref = _reference(X, Y, w, val, flags, 1)
+    low = _reference(X, Y, w, val, flags, 1, dtype=torch.float32)
+    assert _gap(low, ref) > 1e3 * PRESS_TOL
+    got32, _ = _run("cpu", flags, True, 3, "loocv", 1, dtype=np.float32)
+    assert got32.dtype == torch.float32
+    assert _gap(got32, ref) > 1e3 * PRESS_TOL
+
+
+def test_jacobi_matches_eigh():
+    """The Jacobi eigenvector of the largest eigenvalue against ``eigh``'s,
+    up to sign, on random symmetric positive semi-definite matrices of 1 to
+    12 rows, odd and even."""
+    rng = np.random.default_rng(5)
+    for m in range(1, 13):
+        G = torch.as_tensor(rng.normal(size=(9, 20, m)))
+        S = G.mT @ G
+        v = OP.jacobi_dominant(S)
+        ref = torch.linalg.eigh(S)[1][:, :, -1]
+        sign = torch.sign((v * ref).sum(1, keepdim=True))
+        assert float((v * sign - ref).abs().max()) <= 1e-12, m
+
+
+def test_round_robin_covers_every_pair_once():
+    for m in range(1, 34):
+        rounds = OP.round_robin_pairs(m)
+        pairs = [p for r in rounds for p in r]
+        assert sorted(pairs) == [(p, q) for p in range(m)
+                                 for q in range(p + 1, m)]
+        for r in rounds:
+            idx = [i for p in r for i in p]
+            assert len(idx) == len(set(idx))
+
+
+# ---- inputs -------------------------------------------------------------- #
+
+def _state(m=2, dtype=np.float64):
+    X, Y, w = _data(m)
+    cfg = T.CVConfig(dtype=dtype)
+    return cfg, T.fit(cfg, X, Y, w, device="cpu")
+
+
+@pytest.mark.parametrize("n_components, match", [
+    (0, "n_components"), (K + 1, "n_components"), (-1, "n_components")])
+def test_n_components_out_of_range_raises(n_components, match):
+    cfg, st = _state()
+    with pytest.raises(ValueError, match=match):
+        T.cross_validate_pls(cfg, st, np.arange(N)[:, None],
+                             n_components=n_components)
+
+
+def test_n_components_over_the_training_rows_raises():
+    X, Y, w = _data(2, n=12, k=10)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device="cpu")
+    idx = np.arange(12).reshape(2, 6)  # 6 training rows a fold
+    assert T.cross_validate_pls(cfg, st, idx, n_components=6).shape == (
+        2, 6, 2)
+    with pytest.raises(ValueError, match="training rows"):
+        T.cross_validate_pls(cfg, st, idx, n_components=7)
+
+
+def test_bad_inputs_raise():
+    cfg, st = _state()
+    idx = np.arange(N)[:, None]
+    with pytest.raises(TypeError):
+        T.cross_validate_pls(cfg, st, idx, n_components=2.5)
+    with pytest.raises(ValueError, match="Unknown impl"):
+        T.cross_validate_pls(cfg, st, idx, n_components=2, impl="xla")
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        T.cross_validate_pls(cfg, st, idx, n_components=2, impl="cuda")
+    st_x = T.fit(cfg, _data(2)[0], None, device="cpu")
+    with pytest.raises(ValueError, match="Response variables"):
+        T.cross_validate_pls(cfg, st_x, idx, n_components=2)
+    cfg32, st32 = _state(dtype=np.float32)
+    with pytest.raises(ValueError, match="float64"):
+        T.cross_validate_pls(cfg32, st32, idx, n_components=2, impl="cuda")
+    with pytest.raises(ValueError, match="one of"):
+        TS.cross_validate_reduce(cfg, st, idx)
+    with pytest.raises(ValueError, match="one of"):
+        TS.cross_validate_reduce(cfg, st, idx, reduce_fn=lambda m, s: m[0],
+                                 chunk_fn=lambda m, s, r: m[0])
+
+
+def test_exports_and_counter():
+    assert T.cross_validate_pls is TP.cross_validate_pls
+    assert "cross_validate_pls" in T.__all__
+    from cvmatrix_tpu_torch import models, ops
+
+    assert models.cross_validate_pls is TP.cross_validate_pls
+    cfg, st = _state()
+    ops.reset_launch_counts()
+    T.cross_validate_pls(cfg, st, np.arange(N)[:, None], n_components=2,
+                         batch_size=7)  # 5 chunks of 6: 30 folds, 2 each
+    assert OP.fold_components() == 60
+    assert ops.launch_counts() == {}  # the twin launches nothing
+    ops.reset_launch_counts()
+    assert OP.fold_components() == 0
+
+
+def _span_counts(fn):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    counts = {}
+    for e in prof.events():
+        if e.name.startswith(P.PREFIX):
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def test_spans_a_call_and_a_chunk():
+    cfg, st = _state()
+    counts = _span_counts(lambda: T.cross_validate_pls(
+        cfg, st, np.arange(N)[:, None], n_components=2, batch_size=7))
+    assert counts[P.PLS + "cross_validate_pls"] == 1
+    assert counts[P.PLS_SOLVE] == 5
+    assert counts[P.SWEEP + "cross_validate_reduce"] == 1
+    assert P.REDUCE_FN not in counts
+
+
+@pytest.mark.parametrize("scheme, impl", [
+    ("loocv", "auto"), ("kfold", "auto"), ("small", "auto"),
+    ("masked", "auto"), ("masked", "torch")])
+def test_reduce_without_a_consumer_is_unchanged(monkeypatch, scheme, impl):
+    """With a ``reduce_fn`` the sweep gathers no validation rows and copies
+    no rows beyond its bodies' own: its operators are those of the same
+    sweep with the consumer's helpers made to fail, and the per-fold
+    results are bitwise those of the per-fold reduction."""
+    cfg, st = _state(3)
+    idx, mask, _ = _folds(scheme)
+
+    def fn(mats, stats):
+        return mats[0].sum(0) + mats[1].sum()
+
+    def ops_of(call):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = call()
+        return out, [e.name for e in prof.events()
+                     if not e.name.startswith(P.PREFIX)]
+
+    out, names = ops_of(lambda: TS.cross_validate_reduce(
+        cfg, st, idx, mask, reduce_fn=fn, batch_size=4, impl=impl))
+
+    def fail(*a, **k):
+        raise AssertionError("gathered validation rows without a consumer")
+
+    monkeypatch.setattr(TS, "_validation_rows", fail)
+    real_rows_mask = TS._rows_mask
+    calls = []
+    monkeypatch.setattr(TS, "_rows_mask",
+                        lambda *a, **k: calls.append(1) or real_rows_mask(
+                            *a, **k))
+    out2, names2 = ops_of(lambda: TS.cross_validate_reduce(
+        cfg, st, idx, mask, reduce_fn=fn, batch_size=4, impl=impl))
+    assert names2 == names and torch.equal(out, out2)
+    assert calls == []  # the sweep's own copy of rows is the consumer's
+
+
+def test_consumer_sees_the_chunk_and_its_rows():
+    """The chunk consumer's rows are the folds' rows of X, Y and the
+    weights, and its output is stacked and trimmed to the P folds."""
+    cfg, st = _state(3)
+    idx, mask, _ = _folds("masked")
+    seen = []
+
+    def consume(mats, stats, rows):
+        seen.append(rows)
+        return rows.X.sum(dim=(1, 2))
+
+    out = TS.cross_validate_reduce(cfg, st, idx, mask, chunk_fn=consume,
+                                   batch_size=4)
+    assert out.shape == (7,)
+    assert len(seen) == 2 and seen[0].X.shape == (4, 5, K)
+    got = torch.cat([r.X for r in seen])[:7]
+    assert torch.equal(got, st.X[torch.as_tensor(idx)])
+    assert torch.equal(torch.cat([r.w for r in seen])[:7],
+                       st.weights[torch.as_tensor(idx), 0])
+    assert torch.equal(torch.cat([r.mask for r in seen])[:7],
+                       torch.as_tensor(mask))
+
+
+def test_example_runs_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "cvmatrix_tpu_torch.examples."
+         "cross_validation_pls", "--device", "cpu"], cwd=ROOT,
+        capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == "PRESS: (7, 8, 2)  (n_folds, n_components, M)"
+    assert lines[1].startswith("best n_components:")
+    gap = float(lines[2].split(":")[1])
+    assert gap < 1e-9
+
+
+def test_api_lists_the_pls_spans():
+    text = (ROOT / "docs" / "torch" / "api.md").read_text()
+    for name in (P.PLS + "<entry>", P.PLS_SOLVE):
+        assert f"`{name}`" in text, name
+    assert "cvmatrix_tpu_torch.examples.cross_validation_pls" in text
+
+
+# ---- on the card: the kernel ------------------------------------------- #
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("scheme", ["loocv", "kfold", "masked"])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_kernel_matches_reference(dev, flags, weighted, m, scheme, ddof):
+    OP.reset_launch_counts()
+    got, ref = _run(dev, flags, weighted, m, scheme, ddof)
+    assert got.device.type == "cuda"
+    assert OP.ikpls2.launches == -(-len(ref) // 4)
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_full_width(dev):
+    """K=500, M=10, A=20 on one chunk of LOOCV folds, every flag on and
+    weighted: the kernel against the twin on the same operands."""
+    rng = np.random.default_rng(11)
+    n = 4000
+    X = rng.uniform(size=(n, 500))
+    Y = rng.uniform(size=(n, 10))
+    w = rng.uniform(size=n)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    got = {}
+    for impl in ("cuda", "torch"):
+        got[impl] = []
+
+        def consume(mats, stats, rows, _impl=impl):
+            out = TP.solve(cfg, mats, stats, rows, n_components=20,
+                           impl=_impl)
+            got[_impl].append(out)
+            return out
+
+        TS.cross_validate_reduce(cfg, st, np.arange(0, n, 8)[:, None],
+                                 chunk_fn=consume, batch_size=250)
+    a = torch.cat(got["cuda"])
+    b = torch.cat(got["torch"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    scale = b.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(((a - b).abs() / scale).max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_kernel_limits_raise(dev):
+    X, Y, w = _data(2)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, np.tile(Y, (1, 17)), w, device=dev)  # M = 34
+    with pytest.raises(ValueError, match="M <= 32"):
+        T.cross_validate_pls(cfg, st, np.arange(N)[:, None], n_components=2)
+    got = T.cross_validate_pls(cfg, st, np.arange(N)[:, None],
+                               n_components=2, impl="torch")
+    assert got.shape == (N, 2, 34)
+
+
+@pytest.mark.cuda
+def test_float32_on_the_card_needs_the_twin(dev):
+    """No float32 kernel: a float32 state on the card raises under "auto"
+    and "cuda", and runs the twin, launching no ``ikpls2``, only under
+    "torch"."""
+    X, Y, w = _data(3)
+    cfg = T.CVConfig(dtype=np.float32)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx = np.arange(N)[:, None]
+    for impl in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="impl='torch'"):
+            T.cross_validate_pls(cfg, st, idx, n_components=2, impl=impl)
+    OP.reset_launch_counts()
+    got = T.cross_validate_pls(cfg, st, idx, n_components=2, impl="torch")
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert OP.ikpls2.launches == 0 and OP.fold_components() == 2 * N
+
+
+@pytest.mark.cuda
+def test_reduce_without_a_consumer_launches_no_pls(dev):
+    """The LOOCV reduce sweep with a reduction launches one LOOCV kernel a
+    chunk and no ``ikpls2``, as before the consumer existed."""
+    from cvmatrix_tpu_torch import ops
+
+    X, Y, w = _data(3, n=300, k=40)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    ops.reset_launch_counts()
+    TS.cross_validate_reduce(cfg, st, np.arange(300)[:, None],
+                             reduce_fn=lambda m, s: m[0].sum(0),
+                             batch_size=64)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"fused_loocv": 5, "fused_loocv_stats": 5}
