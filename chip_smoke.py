@@ -200,17 +200,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
     relative (float32 1e-5) of the probe of the earlier phase that ran the
     same configuration on the same data (phases 4, 7, 10, 14, 18 and 20),
     whose total it logs beside its own.
-23. PLS cross-validation (``models.pls``, the port's own ``ikpls2``
-    kernel) at full width on phase 4's data: A=20 components, leave-one-out
-    in the sweep's 196 chunks of 511 folds. The sweep's first and last
-    chunks, as its chunk consumer gets them, through the kernel and the
-    twin, every fold's PRESS within 1e-12 of its largest; one chunk timed
-    in turns (twin, kernel, kernel, twin). Then ``cross_validate_pls`` over
-    every fold: one LOOCV kernel and one ``ikpls2`` launch a chunk and no
-    other, F x A fold-components a chunk, the two chunks' folds within
-    1e-12 of the kernel's own, and folds 0 and N-1 within 1e-9 of
+23. PLS cross-validation (``models.pls``, the port's own kernels) at full
+    width on phase 4's data: A=20 components, leave-one-out in chunks of
+    511 folds (196). The first and last chunks through the operator kernel
+    ``ikpls2_op`` and its twin, and through the kernel on formed matrices
+    ``ikpls2`` (the reduce sweep's chunks, as its consumer gets them) and
+    its twin: each kernel against its twin and the two kernels against
+    each other, every fold's PRESS within 1e-12 of its largest; one chunk
+    timed in turns (operator twin, formed, operator, operator, formed,
+    operator twin, formed twin), and the clusters of ``ikpls2_op`` the card
+    holds at once. Then ``cross_validate_pls`` over every fold: one
+    ``ikpls2_op`` launch a chunk and no other kernel, F x A fold-components
+    a chunk all on the operator route, the two chunks' folds within 1e-12
+    of the kernel's own, and folds 0 and N-1 within 1e-9 of
     ``tests/pls_reference.py`` on the card.
-24. Prints the kernels' JSON line (fifteen kernels, each with its bound and
+24. Prints the kernels' JSON line (sixteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
     path, each one's ``mesh_launches`` in phase 19 (a),
@@ -297,6 +301,7 @@ KERNEL_SOURCES = {
                             "cvmatrix_tpu/ops/kernels.py:531"),
     # the port's own: no TPU kernel stands behind it
     "ikpls2": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
+    "ikpls2_op": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -2967,8 +2972,8 @@ def main() -> int:
     held, sizes = {}, []
 
     def hold(mats, stats, rows):
-        """The sweep's chunk consumer: keeps the first and last chunks as
-        the PLS solve gets them."""
+        """The formed-matrix route's chunk consumer: keeps the first and
+        last chunks as the PLS solve gets them."""
         if len(sizes) in (0, last):
             held[len(sizes)] = (mats, stats, rows)
         sizes.append(rows.X.shape[0])
@@ -2979,59 +2984,89 @@ def main() -> int:
     if sizes != [pls_bs] * n_pls:
         raise AssertionError(f"PLS sweep chunks {sorted(set(sizes))} x "
                              f"{len(sizes)}, expected {n_pls} of {pls_bs}")
+    pls_rows = torch.arange(N, device=dev)
+    chunk_rows = {0: pls_rows[:pls_bs], last: pls_rows[last * pls_bs:]}
 
     def pls_solve(c, impl):
+        """The kernel on formed matrices (or its twin) on chunk c."""
         return TP.solve(cfg_p, *held[c], n_components=PLS_A, impl=impl)
+
+    def pls_operator(c, impl):
+        """The operator kernel (or its twin) on chunk c."""
+        return TP.solve_operator(cfg_p, st_p, chunk_rows[c],
+                                 n_components=PLS_A, impl=impl)
 
     def press_rel(got, ref):
         """Widest gap of each fold's PRESS over its largest, worst fold."""
         scale = ref.abs().amax(dim=(1, 2), keepdim=True)
         return float(((got - ref).abs() / scale).max())
 
-    pls_kernel, pls_err = {}, 0.0
+    pls_kernel, pls_err, op_err = {}, 0.0, 0.0
     for c in (0, last):
-        got, ref = pls_solve(c, "cuda"), pls_solve(c, "torch")
+        n_c = chunk_rows[c].shape[0]
+        formed, formed_twin = pls_solve(c, "cuda"), pls_solve(c, "torch")
+        op, op_twin = pls_operator(c, "cuda"), pls_operator(c, "torch")
         torch.cuda.synchronize()
-        rel = press_rel(got, ref)
-        if not (bool(torch.isfinite(got).all()) and rel <= TWIN_RTOL):
-            raise AssertionError(f"ikpls2 vs twin, chunk {c}: relative "
-                                 f"{rel:.3e} > {TWIN_RTOL:g} (or not finite)")
-        pls_err = max(pls_err, (got - ref).abs().max().item())
-        pls_kernel[c] = got
-        log(f"[pls] chunk {c} ({pls_bs} folds, K={K}, M={M}, A={PLS_A}): "
-            f"kernel vs twin max|diff| {(got - ref).abs().max().item():.3e},"
-            f" worst fold relative {rel:.3e}")
+        formed = formed[:n_c]
+        rel = {"ikpls2 vs twin": press_rel(formed, formed_twin[:n_c]),
+               "ikpls2_op vs twin": press_rel(op, op_twin),
+               "ikpls2_op vs ikpls2": press_rel(op, formed)}
+        finite = all(bool(torch.isfinite(t).all()) for t in (formed, op))
+        if not (finite and max(rel.values()) <= TWIN_RTOL):
+            raise AssertionError(f"PLS kernels, chunk {c}: relative {rel} > "
+                                 f"{TWIN_RTOL:g} (or not finite)")
+        pls_err = max(pls_err,
+                      (formed - formed_twin[:n_c]).abs().max().item())
+        op_err = max(op_err, (op - op_twin).abs().max().item())
+        pls_kernel[c] = op
+        log(f"[pls] chunk {c} ({n_c} folds, K={K}, M={M}, A={PLS_A}): "
+            f"worst fold relative {rel}")
     pls_ms = {"torch": [], "cuda": []}
-    for impl in ("torch", "cuda", "cuda", "torch"):
-        pls_ms[impl].append(cuda_ms(lambda impl=impl: pls_solve(0, impl),
-                                    10 if impl == "cuda" else 1))
+    op_ms = {"torch": [], "cuda": []}
+    for what, impl in (("op", "torch"), ("formed", "cuda"), ("op", "cuda"),
+                       ("op", "cuda"), ("formed", "cuda"), ("op", "torch"),
+                       ("formed", "torch")):
+        runs = 10 if impl == "cuda" else 1
+        if what == "op":
+            op_ms[impl].append(cuda_ms(
+                lambda impl=impl: pls_operator(0, impl), runs))
+        else:
+            pls_ms[impl].append(cuda_ms(
+                lambda impl=impl: pls_solve(0, impl), runs))
     least = bound(*pls_cost([(pls_bs, 1)], K, M, PLS_A, 8, True))
     xtx_once = pls_bs * K * K * 8 / HBM_BYTES_PER_S * 1e3
     chunk_times["ikpls2"] = (min(pls_ms["cuda"]), min(pls_ms["torch"]),
                              *least, None)
-    log(f"[pls] one {pls_bs}-fold chunk: kernel {pls_ms['cuda']} ms, twin "
-        f"{pls_ms['torch']} ms (twin, kernel, kernel, twin); bound "
-        f"{least[0]:.4f} ms by {least[1]} (no fold matrix read); reading "
-        f"each fold's XTX once {xtx_once:.3f} ms, {PLS_A} times "
-        f"{PLS_A * xtx_once:.3f} ms  [{card}]")
+    chunk_times["ikpls2_op"] = (min(op_ms["cuda"]), min(op_ms["torch"]),
+                                *least, None)
+    clusters = OP.max_active_clusters(K, M, dev)
+    log(f"[pls] one {pls_bs}-fold chunk: operator kernel {op_ms['cuda']} "
+        f"ms, kernel on formed matrices {pls_ms['cuda']} ms, twins "
+        f"{op_ms['torch']} / {pls_ms['torch']} ms (in turns: op twin, "
+        f"formed, op, op, formed, op twin, formed twin); bound "
+        f"{least[0]:.4f} ms by {least[1]}; reading each fold's XTX once "
+        f"{xtx_once:.3f} ms, {PLS_A} times {PLS_A * xtx_once:.3f} ms; "
+        f"operator clusters the card holds {clusters} ({8 * clusters} "
+        f"folds a wave)  [{card}]")
     del held
 
     reset_launch_counts(TL, FD, SR, OP)
     t_pls, press = wall(lambda: cross_validate_pls(
         cfg_p, st_p, loocv_idx, n_components=PLS_A, batch_size=PLS_BATCH))
     pls_launches = launch_counts(TL, FD, SR, OP)
-    want = {"fused_loocv": n_pls, "ikpls2": n_pls}
+    want = {"ikpls2_op": n_pls}
     if {k_: v for k_, v in pls_launches.items() if v} != want:
         raise AssertionError(f"cross_validate_pls launched {pls_launches}, "
                              f"expected {want}")
-    if OP.fold_components() != n_pls * pls_bs * PLS_A:
+    if (OP.fold_components("operator"), OP.fold_components("matrices")) != (
+            N * PLS_A, 0):
         raise AssertionError(f"fold-components {OP.fold_components()}, "
-                             f"expected {n_pls * pls_bs * PLS_A}")
+                             f"expected {N * PLS_A}, all by the operator")
     if tuple(press.shape) != (N, PLS_A, M):
         raise AssertionError(f"PRESS shape {tuple(press.shape)}")
     c_last = last * pls_bs
     same = {0: press_rel(press[:pls_bs], pls_kernel[0]),
-            last: press_rel(press[c_last:], pls_kernel[last][:N - c_last])}
+            last: press_rel(press[c_last:], pls_kernel[last])}
     if not max(same.values()) <= TWIN_RTOL:
         raise AssertionError(f"cross_validate_pls vs the kernel on its own "
                              f"chunks: {same} > {TWIN_RTOL:g}")
@@ -3058,12 +3093,14 @@ def main() -> int:
                        "fold_smallfold": smallfold_launches,
                        "slice_rows": slice_launches,
                        "fold_epilogue_widek": widek_launches,
-                       "ikpls2": pls_launches["ikpls2"]}
+                       "ikpls2": pls_launches["ikpls2"],
+                       "ikpls2_op": pls_launches["ikpls2_op"]}
     fold_err["fused_loocv"] = worst_abs
     fold_err["ikpls2"] = pls_err
+    fold_err["ikpls2_op"] = op_err
     names = ("fused_loocv", *ROUTE_WRAPPER.values(),
              *ROUTE_WRAPPER_F32.values(), *new_kernels, "fold_smallfold",
-             "slice_rows", "fold_epilogue_widek", "ikpls2")
+             "slice_rows", "fold_epilogue_widek", "ikpls2", "ikpls2_op")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,11 +1,15 @@
-// IKPLS Algorithm #2 on every fold of a chunk, in float64, for Hopper (sm_90a).
+// IKPLS Algorithm #2 on every fold of a chunk, in float64, for Hopper (sm_90a):
+// two kernels, one on the folds' formed training matrices and one that forms
+// none (one-row folds).
 //
-// The port's own kernel: the JAX package fits no per-fold model, so no TPU
-// kernel stands behind it. Its plain twin is ops/pls.ikpls2_reference.
+// The port's own kernels: the JAX package fits no per-fold model, so no TPU
+// kernel stands behind them. Their plain twins are ops/pls.ikpls2_reference
+// and ops/pls.ikpls2_operator_reference.
 //
-// One block a fold, one launch a chunk. From the fold's training XTX (K, K)
-// and XTY (K, M) alone (Dayal & MacGregor, J. Chemometrics 11:73-85, 1997,
-// Algorithm 2, as the ikpls package runs it), component a = 0 .. A-1:
+// ikpls2_kernel (cvm_ikpls2_f64): one block a fold, one launch a chunk. From
+// the fold's training XTX (K, K) and XTY (K, M) alone (Dayal & MacGregor, J.
+// Chemometrics 11:73-85, 1997, Algorithm 2, as the ikpls package runs it),
+// component a = 0 .. A-1:
 //
 //   S   = XTY^T XTY (M, M); q its dominant eigenvector (cyclic Jacobi)
 //   w   = XTY q / ||XTY q||
@@ -35,12 +39,56 @@
 // c = 1 / sqrt(t^2 + 1), s = t c; the round's columns of S and V, then its
 // rows of S, then each pair's 2 x 2 block set to (S_pp - t S_pq, 0; 0,
 // S_qq + t S_pq). The vector is V's column of the largest diagonal entry.
+//
+// ikpls2_op_kernel (cvm_ikpls2_op_f64): the same components and scores for
+// one-row (LOOCV) folds, one launch a chunk, no fold matrix formed. A fold's
+// training XTX differs from the fitted total by its validation row's
+// rank-one term and its own centring and scaling (ops/loocv.loocv_reference):
+//
+//   XTX_f r = r1 (.) (XTX_total (r1 (.) r)) - u (v . r) - p (q . r)
+//
+// with r1 = 1 / X std, u = w_i x r1, v = x r1, p = sw mean r1 and q = mean
+// r1 (p 0 uncentred, q 0 unless X is centred), the statistics from the
+// fit's sums less the row, as the LOOCV kernels' vector phase computes them;
+// XTY_f is formed the same way into a (K, M) global scratch.
+//
+// Layout: a block holds kOpSlots = 4 folds of kOpFold = 128 threads (named
+// barriers 1-4), a cluster of 2 blocks 8 folds, the n of the FP64 tensor
+// cores' mma.sync m16n8k8. Each component every fold writes r1 (.) r into
+// B (K8 x 8, shared) of both blocks, the cluster syncs, each block
+// multiplies its half of the total's rows by B (A from L2, B from shared
+// memory) and writes row i of column j into fold j's t, and the cluster
+// syncs again. The total (2 MB at K=500) is shared by every fold and stays
+// in L2: a chunk of 511 folds reads it 64 times a component, 2.6 GB from L2
+// over 20 components, where ikpls2_kernel read 21 GB of formed fold
+// matrices from HBM.
+//
+// Per fold and component otherwise: S = XTY^T XTY on the tensor cores, XTY
+// staged through shared memory (cp.async) and deflated by the last
+// component on the way (and stored back); the Jacobi above, warm-started
+// from the last component's eigenvectors (in their basis the deflated S
+// differs from a diagonal matrix in one row and column: 3.9 sweeps a
+// component at K=500, M=10 against 6 cold), each round's rotations and
+// 2 x 2 blocks computed by all the fold's threads from one buffer of S into
+// the other, one barrier a round; q_a = S q / (||XTY q|| tt) (= XTY^T r / tt
+// in exact arithmetic: the deflated XTY is orthogonal to every earlier r);
+// the p and r of earlier components in a global scratch, streamed with
+// evict-first hints.
+//
+// What bounds it (PERF.md): a fold's chain of dependent steps, 20 times. At
+// K=500, M=10 a component takes about 90 us: Jacobi's 35 rounds of about
+// 0.8 us (40%), the product (22%: each block reads 1 MB of the total from
+// L2) and the Gram matrix (12%). Limits: float64, M <= 32, K <= 768 (shared
+// memory at M = 32), any A.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -377,6 +425,818 @@ __global__ void __launch_bounds__(kThreads) ikpls2_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The operator kernel (ikpls2_op_kernel): one-row folds, no fold matrix
+// formed. See the file's comment.
+
+constexpr int kOpFold = 128;                      // threads a fold
+constexpr int kOpFoldWarps = kOpFold / 32;
+constexpr int kOpSlots = 4;                       // folds a block
+constexpr int kOpCluster = 2;                     // blocks a cluster
+constexpr int kOpGroup = kOpSlots * kOpCluster;   // folds a cluster: MMA n
+constexpr int kOpThreads = kOpFold * kOpSlots;
+constexpr int kOpWarps = kOpThreads / 32;
+constexpr int kOpMinB = kOpWarps * 128;  // doubles of B at least: partials
+constexpr int kOpUnroll = 4;     // k-steps of A loads in flight a warp
+constexpr int kOpStage = 2048;   // doubles of a fold's XTY staged, at most
+constexpr int kOpRows = 4;       // rows of a thread in flight (r, p_j . w)
+constexpr int kOpShmem = 227 * 1024 - 8192;  // dynamic shared memory, most
+constexpr int kOpDots = 4;       // p_j . w sums a pass
+constexpr int kOpGramTiles = 2;  // Gram tiles a warp: 8 at M = 32, 4 warps
+constexpr int kOpJacItems = 6;   // Jacobi items a thread: np^2 + M np <= 768
+static_assert(kOpGramTiles * kOpFoldWarps >= 8, "Gram tiles at M = 32");
+static_assert(kOpJacItems * kOpFold >= kMaxM * kMaxM * 3 / 4, "items");
+static_assert(kOpGroup == 8, "a cluster's folds are the MMA's n");
+
+struct OpArgs {
+  const double* xtx;       // (K, K) fitted total, row stride ld_xtx
+  const double* xty;       // (K, M), row stride ld_xty
+  const double* X;         // (N, K), row stride ld_x
+  const double* Y;         // (N, M), row stride ld_y
+  const double* wts;       // (N, 1) weights, row stride ld_w, or null
+  const double* sum_x;     // K; null unless a flag needs it
+  const double* sum_sq_x;  // K
+  const double* sum_y;     // M
+  const double* sum_sq_y;  // M
+  const double* sum_w;     // 1
+  const int64_t* nnz;      // 1
+  const int64_t* rows;     // (F,) the folds' validation rows
+  double* g;               // (F, K, M) scratch: the fold's XTY, deflated
+  double* pr;              // (F, 2, A, K) scratch: p, then r
+  double* vec;             // (F, 3, K) scratch: X mean, 1 / X std, x~
+  double* aux;             // (F, M M + A) scratch: S kept, p_j . w
+  double* press;           // (F, A, M) output
+  int64_t F, N, K, M, A;
+  int64_t ld_xtx, ld_xty, ld_x, ld_y, ld_w, ddof;
+  double resolution;
+  int flags;
+  int64_t K8;    // K rounded up to 8 (the MMA's k)
+  int64_t rs;    // product rows a block owns, a multiple of 16
+  int64_t nB;     // doubles of B
+  int64_t slot;   // doubles of a fold's shared memory
+  int64_t stage;  // of which XTY staged (Gram)
+};
+
+// The named barrier of one fold's kOpFold threads (barrier 0 is the
+// block's).
+__device__ __forceinline__ void ikpls2_fold_sync(int slot) {
+  asm volatile("bar.sync %0, %1;" ::"r"(slot + 1), "r"(kOpFold) : "memory");
+}
+
+// One fold's sum of v, the same in its every thread; red: kOpFoldWarps doubles.
+__device__ double ikpls2_fold_sum(double v, double* red, int slot) {
+  v = warp_sum(v);
+  ikpls2_fold_sync(slot);
+  if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) % kOpFoldWarps] = v;
+  ikpls2_fold_sync(slot);
+  double s = 0.0;
+#pragma unroll
+  for (int i = 0; i < kOpFoldWarps; ++i) s += red[i];
+  return s;
+}
+
+// One fold's sums of v0, v1, v2; red: 3 kOpFoldWarps doubles.
+__device__ void ikpls2_fold_sum3(double& v0, double& v1, double& v2,
+                                 double* red, int slot) {
+  v0 = warp_sum(v0);
+  v1 = warp_sum(v1);
+  v2 = warp_sum(v2);
+  ikpls2_fold_sync(slot);
+  if ((threadIdx.x & 31) == 0) {
+    const int w = (threadIdx.x >> 5) % kOpFoldWarps;
+    red[w] = v0;
+    red[kOpFoldWarps + w] = v1;
+    red[2 * kOpFoldWarps + w] = v2;
+  }
+  ikpls2_fold_sync(slot);
+  v0 = v1 = v2 = 0.0;
+#pragma unroll
+  for (int i = 0; i < kOpFoldWarps; ++i) {
+    v0 += red[i];
+    v1 += red[kOpFoldWarps + i];
+    v2 += red[2 * kOpFoldWarps + i];
+  }
+}
+
+// mma.sync.aligned.m16n8k8 f64, D += A B (lane = 4 g + t): A holds A[g + 8
+// (r % 2)][t + 4 (r / 2)], B holds B[t + 4 r][g], D holds D[g + 8 (r /
+// 2)][2 t + r % 2].
+__device__ __forceinline__ void ikpls2_dmma(double (&d)[4], const double* a,
+                                            const double* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// An 8-byte cp.async from global to shared memory, and the wait for all of
+// the thread's.
+__device__ __forceinline__ void ikpls2_cp8(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ikpls2_cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 1 / x and 1 / sqrt(x) to about an ulp: the hardware's approximations, then
+// two Newton steps each.
+__device__ __forceinline__ double ikpls2_rcp(double x) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  double e = fma(-x, y, 1.0);
+  y = fma(y, e, y);
+  e = fma(-x, y, 1.0);
+  return fma(y, e, y);
+}
+
+__device__ __forceinline__ double ikpls2_rsqrt(double x) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+  double h = 0.5 * x;
+  y = y * fma(-h * y, y, 1.5);
+  return y * fma(-h * y, y, 1.5);
+}
+
+// S = G^T G (M x M) of one fold's (K, M) XTY g, where deflate deflated
+// first by the last component (g - (p_k qa_m) tt) and stored so: g passes
+// through stg (stage doubles) in chunks of whole rows, copied with
+// cp.async, and each chunk's G_c^T G_c runs on the FP64 tensor cores: the
+// (16 x 8) tiles of S, split with the k-steps over the fold's warps where
+// there are fewer tiles than warps; the k-parts meet in stg, summed in order.
+// S is made symmetric from its upper triangle. t: the fold's thread.
+__device__ void ikpls2_gram(double* g, const double* p, const double* qa,
+                            double tt, bool deflate, int64_t K, int M,
+                            double* S, double* stg, int64_t stage, int t,
+                            int slot) {
+  const int rows = static_cast<int>(stage / M);
+  const int mt = (M + 15) / 16, nt = (M + 7) / 8, tiles = mt * nt;
+  const int kp = tiles >= kOpFoldWarps ? 1 : kOpFoldWarps / tiles;
+  const int warp = t >> 5, lane = t & 31, gq = lane >> 2, tq = lane & 3;
+  double acc[kOpGramTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOpGramTiles; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.0;
+  const int dk = kOpFold / M, dm = kOpFold % M;  // one stride of t in (k, m)
+  for (int64_t k0 = 0; k0 < K; k0 += rows) {
+    const int nr = static_cast<int>(K - k0 < rows ? K - k0 : rows);
+    const int n_el = nr * M;
+    double* gc = g + k0 * M;
+    for (int e = t; e < n_el; e += kOpFold) ikpls2_cp8(stg + e, gc + e);
+    ikpls2_cp_wait();
+    ikpls2_fold_sync(slot);
+    if (deflate) {
+      int k = static_cast<int>(k0) + t / M, m = t % M;
+      for (int e0 = t; e0 < n_el; e0 += 4 * kOpFold) {  // the loads first
+        double v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * kOpFold;
+          v[u] = e < n_el ? stg[e] - (p[k] * qa[m]) * tt : 0.0;
+          k += dk;
+          m += dm;
+          if (m >= M) {
+            m -= M;
+            ++k;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * kOpFold;
+          if (e < n_el) {
+            stg[e] = v[u];
+            gc[e] = v[u];
+          }
+        }
+      }
+      ikpls2_fold_sync(slot);
+    }
+    const int nks = (nr + 7) / 8, ksp = (nks + kp - 1) / kp;
+#pragma unroll
+    for (int n = 0; n < kOpGramTiles; ++n) {
+      const int item = warp + n * kOpFoldWarps;  // tile + tiles * k-part
+      if (item >= tiles * kp) continue;
+      const int tile = item % tiles, part = item / tiles;
+      const int m0 = 16 * (tile / nt), n0 = 8 * (tile % nt);
+      const int ks1 = min(nks, (part + 1) * ksp);
+      for (int ks = part * ksp; ks < ks1; ++ks) {
+        const int k = 8 * ks;
+        double av[4], bv[2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // A = G_c^T: A[m][k] = G_c[k][m]
+          const int m = m0 + gq + 8 * (r % 2), kk = k + tq + 4 * (r / 2);
+          av[r] = m < M && kk < nr ? stg[kk * M + m] : 0.0;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // B = G_c
+          const int kk = k + tq + 4 * r, c = n0 + gq;
+          bv[r] = c < M && kk < nr ? stg[kk * M + c] : 0.0;
+        }
+        ikpls2_dmma(acc[n], av, bv);
+      }
+    }
+    ikpls2_fold_sync(slot);
+  }
+  // S[i][j] = S[j][i] from the tiles' entries i <= j: straight from the
+  // accumulators with one k-part, else the k-parts meet in stg first
+  if (kp == 1) {
+#pragma unroll
+    for (int n = 0; n < kOpGramTiles; ++n) {
+      const int tile = warp + n * kOpFoldWarps;
+      if (tile >= tiles) continue;
+      const int m0 = 16 * (tile / nt), n0 = 8 * (tile % nt);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = m0 + gq + 8 * (r / 2), j = n0 + 2 * tq + r % 2;
+        if (i <= j && j < M) {
+          S[i * M + j] = acc[n][r];
+          S[j * M + i] = acc[n][r];
+        }
+      }
+    }
+    ikpls2_fold_sync(slot);
+    return;
+  }
+  if (warp < tiles * kp) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) stg[warp * 128 + r * 32 + lane] = acc[0][r];
+  }
+  ikpls2_fold_sync(slot);
+  for (int i = t; i < M * M; i += kOpFold) {
+    const int a = i / M, b = i % M;
+    const int row = min(a, b), col = max(a, b);
+    const int tile = (row / 16) * nt + col / 8;
+    const int rr = row % 16, cc = col % 8;
+    const int at = 2 * (rr / 8) + cc % 2, al = 4 * (rr % 8) + cc / 2;
+    double v = 0.0;
+    for (int q = 0; q < kp; ++q) v += stg[(q * tiles + tile) * 128 + at * 32 + al];
+    S[i] = v;
+  }
+  ikpls2_fold_sync(slot);
+}
+
+// Jacobi's rotation of pair slot i in round r of a sweep over S (M x M):
+// the indices at tournament positions i and mp - 1 - i (jacobi_dominant's
+// round_robin_pairs), q = -1 where p is paired with no index (the
+// identity), and t = sign(d) 2 a_pq / (|d| + sqrt(d^2 + 4 a_pq^2)), d = a_qq
+// - a_pp (jacobi_dominant's t), c = 1 / sqrt(t^2 + 1), s = t c.
+struct OpRot {
+  int p, q;
+  double c, s, t, app, aqq, apq;
+};
+
+__device__ __forceinline__ OpRot ikpls2_rotation(const double* S, int M,
+                                                 int mp, int i, int r) {
+  OpRot o;
+  int a = 0;
+  if (i > 0) {
+    a = i - 1 + r;
+    if (a >= mp - 1) a -= mp - 1;
+    a += 1;
+  }
+  int b = mp - 2 - i + r;  // position mp - 1 - i, never 0
+  if (b >= mp - 1) b -= mp - 1;
+  b += 1;
+  o.p = min(a, b);
+  const int qq = max(a, b);
+  const bool real = qq < M;
+  o.q = real ? qq : -1;
+  // no branch: a fold's two rotations of a block interleave; t = 0 where
+  // a_pq = 0 (then z is taken as 1), and for p paired with no index
+  const int qs = real ? qq : o.p;
+  o.app = S[o.p * M + o.p];
+  o.aqq = real ? S[qs * M + qs] : 0.0;
+  o.apq = real ? S[o.p * M + qs] : 0.0;
+  const double d = o.aqq - o.app;
+  double z = fma(d, d, 4.0 * (o.apq * o.apq));
+  z = o.apq != 0.0 ? z : 1.0;
+  o.t = copysign(1.0, d) * (2.0 * o.apq) *
+        ikpls2_rcp(fabs(d) + z * ikpls2_rsqrt(z));
+  const double c = ikpls2_rsqrt(fma(o.t, o.t, 1.0));
+  o.c = o.t != 0.0 ? c : 1.0;  // exactly the identity where t = 0
+  o.s = o.t * o.c;
+  return o;
+}
+
+// The dominant eigenvector of the symmetric S (M x M, shared) into q, by the
+// cyclic Jacobi of jacobi_dominant, warm-started: the sweeps start from
+// V^T S V, V (shared) holding the last component's eigenvectors (the
+// identity where cold), and V ends holding the eigenvectors found. S and Sx
+// take turns as a round's input and output: in a round every thread
+// computes the rotations of its items from the input and writes its items
+// of the output, every 2 x 2 block of S (the rows of one pair and the
+// columns of another, rotated by the columns' pair, then by the rows') and
+// the pairs' columns of V (in place), so a round takes one barrier.
+// t: the fold's thread.
+__device__ void ikpls2_jacobi(double* S, double* Sx, double* V, double* q,
+                              int M, bool warm, double* red, int t,
+                              int slot) {
+  const int MM = M * M;
+  if (!warm) {
+    for (int i = t; i < MM; i += kOpFold) V[i] = (i / M == i % M) ? 1.0 : 0.0;
+  } else {
+    for (int i = t; i < MM; i += kOpFold) {  // Sx = V^T S
+      const int r = i / M, c = i % M;
+      double s = 0.0;
+      for (int k = 0; k < M; ++k) s += V[k * M + r] * S[k * M + c];
+      Sx[i] = s;
+    }
+    ikpls2_fold_sync(slot);
+    for (int i = t; i < MM; i += kOpFold) {  // S = Sx V
+      const int r = i / M, c = i % M;
+      double s = 0.0;
+      for (int k = 0; k < M; ++k) s += Sx[r * M + k] * V[k * M + c];
+      S[i] = s;
+    }
+  }
+  ikpls2_fold_sync(slot);
+  double n2 = 0.0;
+  for (int i = t; i < MM; i += kOpFold) n2 += S[i] * S[i];
+  n2 = ikpls2_fold_sum(n2, red, slot);
+  const int mp = M + (M & 1);
+  const int np = mp / 2;
+  const int nblk = np * np;
+  // a thread's items of a round, the same in every round: block (bi, bj),
+  // or with bi = -1 - k row k of V and pair bj
+  int ib[kOpJacItems], jb[kOpJacItems];
+#pragma unroll
+  for (int n = 0; n < kOpJacItems; ++n) {
+    const int it = t + n * kOpFold;
+    ib[n] = jb[n] = -1;
+    if (it < nblk) {
+      ib[n] = it / np;
+      jb[n] = it - ib[n] * np;
+    } else if (it < nblk + M * np) {
+      const int k = (it - nblk) / np;
+      ib[n] = -1 - k;
+      jb[n] = it - nblk - k * np;
+    }
+  }
+  double* cur = S;
+  double* nxt = Sx;
+  for (int sweep = 0; sweep < kMaxSweeps && M > 1; ++sweep) {
+    double off = 0.0;
+    for (int i = t; i < MM; i += kOpFold) {
+      if (i / M != i % M) off += cur[i] * cur[i];
+    }
+    off = ikpls2_fold_sum(off, red, slot);
+    if (off <= DBL_EPSILON * DBL_EPSILON * n2) break;
+    for (int r = 0; r < mp - 1; ++r) {
+#pragma unroll
+      for (int n = 0; n < kOpJacItems; ++n) {
+        if (jb[n] < 0) continue;
+        // straight-line: both rotations (the same one for a V row or a
+        // diagonal block) and the loads interleave; an index paired with
+        // none reads its own entry and rotates by the identity
+        const bool blk = ib[n] >= 0;
+        const OpRot rj = ikpls2_rotation(cur, M, mp, jb[n], r);
+        const OpRot ri = ikpls2_rotation(cur, M, mp, blk ? ib[n] : jb[n], r);
+        const int pj = rj.p, qj = rj.q >= 0 ? rj.q : rj.p;
+        if (blk) {  // the block of rows pair bi, columns pair bj
+          const int pi = ri.p, qi = ri.q >= 0 ? ri.q : ri.p;
+          const double s0 = cur[pi * M + pj], s1 = cur[pi * M + qj];
+          const double s2 = cur[qi * M + pj], s3 = cur[qi * M + qj];
+          const double xp = rj.c * s0 - rj.s * s1;  // the columns
+          const double yp = rj.s * s0 + rj.c * s1;
+          const double xq = rj.c * s2 - rj.s * s3;
+          const double yq = rj.s * s2 + rj.c * s3;
+          nxt[pi * M + pj] = ri.c * xp - ri.s * xq;  // the rows
+          if (ri.q >= 0) nxt[qi * M + pj] = ri.s * xp + ri.c * xq;
+          if (rj.q >= 0) nxt[pi * M + qj] = ri.c * yp - ri.s * yq;
+          if (ri.q >= 0 && rj.q >= 0) nxt[qi * M + qj] = ri.s * yp + ri.c * yq;
+          if (ib[n] == jb[n] && ri.q >= 0) {
+            nxt[pi * M + pi] = ri.app - ri.t * ri.apq;
+            nxt[qi * M + qi] = ri.aqq + ri.t * ri.apq;
+            nxt[pi * M + qi] = 0.0;
+            nxt[qi * M + pi] = 0.0;
+          }
+        } else if (rj.q >= 0) {  // row k of V, the columns of pair bj
+          const int k = -1 - ib[n];
+          const double vp = V[k * M + pj], vq = V[k * M + qj];
+          V[k * M + pj] = rj.c * vp - rj.s * vq;
+          V[k * M + qj] = rj.s * vp + rj.c * vq;
+        }
+      }
+      ikpls2_fold_sync(slot);
+      double* sw = cur;
+      cur = nxt;
+      nxt = sw;
+    }
+  }
+  int top = 0;
+  double best = cur[0];
+  for (int m = 1; m < M; ++m) {
+    if (cur[m * M + m] > best) {
+      best = cur[m * M + m];
+      top = m;
+    }
+  }
+  for (int m = t; m < M; m += kOpFold) q[m] = V[m * M + top];
+  ikpls2_fold_sync(slot);
+}
+
+// The block's rows [row0, row0 + rs) of T = XTX B, B the cluster's (K8, 8)
+// (r1 (.) r) columns in this block's shared memory, pushed to each column's
+// fold: row i of column j into t of fold j % kOpSlots of block j /
+// kOpSlots. Warps take (m-tile, k-part) items; with k-parts (fewer m-tiles
+// than warps) the partials meet in B's first doubles once every warp has
+// read B, summed in k-part order.
+__device__ void ikpls2_product(const OpArgs& a, double* B, double* sh,
+                               cg::cluster_group& cluster, int rank) {
+  const int64_t K = a.K;
+  const int64_t row0 = rank * a.rs;
+  const int n_mt = row0 < K ? static_cast<int>(a.rs / 16) : 0;
+  const int nks = static_cast<int>(a.K8 / 8);
+  const int kp_n = n_mt == 0 || n_mt >= kOpWarps ? 1 : kOpWarps / n_mt;
+  const int ksp = (nks + kp_n - 1) / kp_n;
+  const int nfull = static_cast<int>(K / 8);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int items = n_mt * kp_n;
+  auto push = [&](int mt, const double (&acc)[4]) {
+    const int64_t i0 = row0 + 16 * mt;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t row = i0 + gq + 8 * (r / 2);
+      const int col = 2 * tq + r % 2;
+      if (row < K) {
+        double* t = sh + a.nB + (col % kOpSlots) * a.slot;
+        cluster.map_shared_rank(t, col / kOpSlots)[row] = acc[r];
+      }
+    }
+  };
+  int mt = 0, kp = 0;
+  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  bool mine = false;
+  for (int item = warp; item < items; item += kOpWarps) {
+    mt = item % n_mt;
+    kp = item / n_mt;
+    mine = true;
+    const int64_t i0 = row0 + 16 * mt;
+    const int64_t ra = i0 + gq < K ? i0 + gq : 0;  // rows past K: any row,
+    const int64_t rb = i0 + gq + 8 < K ? i0 + gq + 8 : 0;  // never pushed
+    const double* pa = a.xtx + ra * a.ld_xtx + tq;
+    const double* pb = a.xtx + rb * a.ld_xtx + tq;
+    const double* bs = B + tq * kOpGroup + gq;
+    const int ks0 = kp * ksp;
+    const int ks1 = min(nks, ks0 + ksp);
+    const int kfull = min(ks1, nfull);
+    int ks = ks0;
+    for (; ks + kOpUnroll <= kfull; ks += kOpUnroll) {
+      double av[kOpUnroll][4], bv[kOpUnroll][2];
+#pragma unroll
+      for (int u = 0; u < kOpUnroll; ++u) {
+        const int64_t k = 8 * static_cast<int64_t>(ks + u);
+        av[u][0] = __ldg(pa + k);
+        av[u][1] = __ldg(pb + k);
+        av[u][2] = __ldg(pa + k + 4);
+        av[u][3] = __ldg(pb + k + 4);
+        bv[u][0] = bs[k * kOpGroup];
+        bv[u][1] = bs[(k + 4) * kOpGroup];
+      }
+#pragma unroll
+      for (int u = 0; u < kOpUnroll; ++u) ikpls2_dmma(acc, av[u], bv[u]);
+    }
+    for (; ks < ks1; ++ks) {  // the rest, columns past K read as 0
+      const int64_t k = 8 * static_cast<int64_t>(ks);
+      const bool c0 = k + tq < K, c1 = k + tq + 4 < K;
+      double av[4], bv[2];
+      av[0] = c0 ? __ldg(pa + k) : 0.0;
+      av[1] = c0 ? __ldg(pb + k) : 0.0;
+      av[2] = c1 ? __ldg(pa + k + 4) : 0.0;
+      av[3] = c1 ? __ldg(pb + k + 4) : 0.0;
+      bv[0] = bs[k * kOpGroup];
+      bv[1] = bs[(k + 4) * kOpGroup];
+      ikpls2_dmma(acc, av, bv);
+    }
+    if (kp_n == 1) {  // whole rows: push now (kp_n > 1: one item a warp)
+      push(mt, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[r] = 0.0;
+    }
+  }
+  if (kp_n > 1) {
+    __syncthreads();  // every warp has read B
+    if (mine && kp > 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        B[((kp - 1) * n_mt + mt) * 128 + r * 32 + lane] = acc[r];
+    }
+    __syncthreads();
+    if (mine && kp == 0) {
+      for (int q = 1; q < kp_n; ++q) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[r] += B[((q - 1) * n_mt + mt) * 128 + r * 32 + lane];
+      }
+      push(mt, acc);
+    }
+  }
+}
+
+// One-row folds: a block kOpSlots folds of kOpFold threads each, a cluster
+// of kOpCluster blocks a group of kOpGroup folds (slots past F only take
+// part in the product).
+__global__ void __cluster_dims__(kOpCluster, 1, 1)
+    __launch_bounds__(kOpThreads, 1) ikpls2_op_kernel(const OpArgs a) {
+  extern __shared__ double sh[];
+  __shared__ double reds[kOpSlots][3 * kOpFoldWarps];
+  __shared__ double scs[kOpSlots][4];  // w_i, sw, 1 / sw, 1 / divisor
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int slot = threadIdx.x / kOpFold;
+  const int tid = threadIdx.x % kOpFold;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int col = rank * kOpSlots + slot;  // the fold's column of B
+  const int64_t f = static_cast<int64_t>(blockIdx.x) * kOpSlots + slot;
+  const bool live = f < a.F;
+  const int64_t K = a.K;
+  const int M = static_cast<int>(a.M), A = static_cast<int>(a.A);
+  const bool cx = a.flags & kCenterX, cy = a.flags & kCenterY;
+  const bool scx = a.flags & kScaleX, scy = a.flags & kScaleY;
+  const bool center = cx || cy;
+  double* red = reds[slot];
+  double* sc = scs[slot];
+
+  double* B = sh;                            // (K8, 8): the r1 (.) r
+  double* wt = sh + a.nB + slot * a.slot;    // K: w, then T and t, then p
+  double* r = wt + K;     // K
+  double* S = r + K;      // M * M: the Gram matrix, Jacobi's work
+  double* Sx = S + M * M; // M * M: Jacobi's work
+  double* V = Sx + M * M; // M * M: eigenvectors, kept for the warm start
+  double* q = V + M * M;  // M: eigenvector
+  double* qa = q + M;     // M: q_a
+  double* yh = qa + M;    // M: running prediction
+  double* yr = yh + M;    // M: the validation row's y
+  double* my = yr + M;    // M: Y mean
+  double* sy = my + M;    // M: Y std
+  double* part = sy + M;  // kOpFold: Gram partials
+  double* stg = part + kOpFold;  // stage: XTY staged (Gram)
+
+  const int64_t fl = live ? f : 0;
+  const int64_t row = live ? a.rows[fl] : 0;
+  const double* x = a.X + row * a.ld_x;
+  double* g = a.g + fl * K * M;
+  double* P = a.pr + fl * 2 * A * K;
+  double* R = P + A * K;
+  double* mx = a.vec + fl * 3 * K;
+  double* r1v = mx + K;
+  double* xt = r1v + K;
+  double* S0 = a.aux + fl * (M * M + A);  // M * M: S kept
+  double* d = S0 + M * M;                   // A: p_j . w
+  double* press = a.press + fl * A * M;
+
+  for (int64_t i = K * kOpGroup + threadIdx.x; i < kOpGroup * a.K8;
+       i += kOpThreads)
+    B[i] = 0.0;
+  cluster.sync();  // every block has started: its shared memory takes writes
+
+  double nrm = 0.0, tt = 0.0;
+  if (live) {
+    if (tid == 0) {
+      const double wi = a.wts ? a.wts[row * a.ld_w] : 1.0;
+      double sw = 0.0, rsw = 0.0, rdv = 0.0;
+      if (center || scx || scy) {
+        double nnz_t;
+        if (a.wts) {
+          sw = *a.sum_w - wi;
+          nnz_t = static_cast<double>(*a.nnz - (wi != 0.0 ? 1 : 0));
+        } else {
+          sw = static_cast<double>(a.N - 1);
+          nnz_t = sw;
+        }
+        const double divisor = (nnz_t - a.ddof) * sw / nnz_t;
+        rsw = 1.0 / sw;
+        rdv = 1.0 / divisor;
+      }
+      sc[0] = wi;
+      sc[1] = sw;
+      sc[2] = rsw;
+      sc[3] = rdv;
+    }
+    ikpls2_fold_sync(slot);
+    const double wi = sc[0], sw = sc[1], rsw = sc[2], rdv = sc[3];
+    // training mean and std of a column (ops.loocv.side_mean_std)
+    auto stats = [&](double u, const double* sum, const double* sq,
+                     bool need_mean, bool need_std, int64_t c, double& m,
+                     double& sd) {
+      const double uw = a.wts ? u * wi : u;
+      m = 0.0;
+      sd = 1.0;
+      if (need_mean || need_std) {
+        const double st = sum[c] - uw;
+        m = st * rsw;
+        if (need_std) {
+          const double ss = sq[c] - uw * u;
+          double var = (-2.0 * m * st + sw * (m * m) + ss) * rdv;
+          var = var < 0.0 ? 0.0 : var;  // NaN passes
+          sd = sqrt(var);
+          sd = sd <= a.resolution ? 1.0 : sd;
+        }
+      }
+    };
+    for (int64_t k = tid; k < K; k += kOpFold) {
+      const double xk = x[k];
+      double m, sd;
+      stats(xk, a.sum_x, a.sum_sq_x, center || scx, scx, k, m, sd);
+      mx[k] = m;
+      r1v[k] = 1.0 / sd;
+      double v = xk;
+      if (cx) v = v - m;
+      if (scx) v = v / sd;
+      xt[k] = v;
+    }
+    for (int c = tid; c < M; c += kOpFold) {
+      const double yc = a.Y[row * a.ld_y + c];
+      double m, sd;
+      stats(yc, a.sum_y, a.sum_sq_y, center || scy, scy, c, m, sd);
+      yr[c] = yc;
+      my[c] = m;
+      sy[c] = sd;
+      yh[c] = 0.0;
+    }
+    ikpls2_fold_sync(slot);
+    // XTY_f = XTY (.) (r1 r2^T) - u vy^T - p qy^T
+    for (int64_t i = tid; i < K * M; i += kOpFold) {
+      const int64_t k = i / M;
+      const int c = static_cast<int>(i % M);
+      const double r1 = r1v[k], r2 = 1.0 / sy[c];
+      const double xk = x[k];
+      const double u = (a.wts ? xk * wi : xk) * r1;
+      const double p = center ? sw * (mx[k] * r1) : 0.0;
+      const double qy = center ? my[c] * r2 : 0.0;
+      g[i] = a.xty[k * a.ld_xty + c] * (r1 * r2) - u * (yr[c] * r2) - p * qy;
+    }
+    ikpls2_fold_sync(slot);
+    ikpls2_gram(g, wt, qa, 0.0, false, K, M, S, stg, a.stage, tid, slot);
+  }
+
+  for (int c = 0; c < A; ++c) {
+    for (int64_t i = K * kOpGroup + threadIdx.x; i < kOpGroup * a.K8;
+         i += kOpThreads)
+      B[i] = 0.0;  // the pad rows (the partials may have used them)
+    double za = 0.0, zb = 0.0, zz = 0.0;
+    if (live) {
+      // XTY deflated by the last component (and stored), its Gram matrix
+      if (c > 0) {
+        ikpls2_gram(g, wt, qa, tt, true, K, M, S, stg, a.stage, tid, slot);
+      }
+      for (int i = tid; i < M * M; i += kOpFold) S0[i] = S[i];
+      ikpls2_jacobi(S, Sx, V, q, M, c > 0, red, tid, slot);
+      // w = XTY q
+      double nn = 0.0;
+      for (int64_t k = tid; k < K; k += kOpFold) {
+        const double* gk = g + k * M;
+        double v = 0.0;
+        for (int m = 0; m < M; ++m) v += gk[m] * q[m];
+        wt[k] = v;
+        nn += v * v;
+      }
+      nrm = sqrt(ikpls2_fold_sum(nn, red, slot));
+      for (int64_t k = tid; k < K; k += kOpFold) wt[k] = wt[k] / nrm;
+      ikpls2_fold_sync(slot);
+      // r = w - sum_j (p_j . w) r_j
+      // p_j . w, kOpDots j at a time: each thread's share of the rows, then
+      // the warps' partials (part: kOpFoldWarps x 32) summed in order
+      for (int j0 = 0; j0 < c; j0 += 32) {
+        const int nj = c - j0 < 32 ? c - j0 : 32;
+        for (int jj = 0; jj < nj; jj += kOpDots) {
+          double s[kOpDots];
+#pragma unroll
+          for (int u = 0; u < kOpDots; ++u) s[u] = 0.0;
+          for (int64_t k0 = tid; k0 < K; k0 += kOpFold * kOpRows) {
+            double pv[kOpDots][kOpRows];
+#pragma unroll
+            for (int u = 0; u < kOpDots; ++u) {
+#pragma unroll
+              for (int i = 0; i < kOpRows; ++i) {
+                const int64_t k = k0 + i * kOpFold;
+                pv[u][i] = jj + u < nj && k < K
+                               ? __ldcs(P + (j0 + jj + u) * K + k)
+                               : 0.0;
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < kOpRows; ++i) {
+              const int64_t k = k0 + i * kOpFold;
+              if (k < K) {
+                const double wk = wt[k];
+#pragma unroll
+                for (int u = 0; u < kOpDots; ++u) s[u] += pv[u][i] * wk;
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kOpDots; ++u) {
+            const double v = warp_sum(s[u]);
+            if (lane == 0 && jj + u < nj) part[warp * 32 + jj + u] = v;
+          }
+        }
+        ikpls2_fold_sync(slot);
+        if (tid < nj) {
+          double v = 0.0;
+          for (int w8 = 0; w8 < kOpFoldWarps; ++w8) v += part[w8 * 32 + tid];
+          d[j0 + tid] = v;
+        }
+        ikpls2_fold_sync(slot);
+      }
+      for (int64_t k0 = tid; k0 < K; k0 += kOpFold * kOpRows) {
+        double vr[kOpRows];
+#pragma unroll
+        for (int i = 0; i < kOpRows; ++i) {
+          const int64_t k = k0 + i * kOpFold;
+          vr[i] = k < K ? wt[k] : 0.0;
+        }
+        for (int j = 0; j < c; j += kOpDots) {
+          double rv[kOpDots][kOpRows];
+#pragma unroll
+          for (int u = 0; u < kOpDots; ++u) {
+#pragma unroll
+            for (int i = 0; i < kOpRows; ++i) {
+              const int64_t k = k0 + i * kOpFold;
+              rv[u][i] = j + u < c && k < K ? __ldcs(R + (j + u) * K + k)
+                                            : 0.0;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kOpDots; ++u) {
+            if (j + u < c) {
+              const double du = d[j + u];
+#pragma unroll
+              for (int i = 0; i < kOpRows; ++i) vr[i] -= du * rv[u][i];
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kOpRows; ++i) {
+          const int64_t k = k0 + i * kOpFold;
+          if (k < K) r[k] = vr[i];
+        }
+      }
+      for (int64_t k = tid; k < K; k += kOpFold) {
+        const double v = r[k];
+        const double r1 = r1v[k];
+        const double dr = r1 * v;
+        for (int b = 0; b < kOpCluster; ++b)
+          cluster.map_shared_rank(B, b)[k * kOpGroup + col] = dr;
+        za += (x[k] * r1) * v;
+        if (cx) zb += (mx[k] * r1) * v;
+        zz += xt[k] * v;
+      }
+      ikpls2_fold_sum3(za, zb, zz, red, slot);
+    } else {
+      // a slot past F: its column is 0 (written each component, as the
+      // product's partials may have used the first rows of B)
+      for (int64_t k = tid; k < K; k += kOpFold) {
+        for (int b = 0; b < kOpCluster; ++b)
+          cluster.map_shared_rank(B, b)[k * kOpGroup + col] = 0.0;
+      }
+    }
+    cluster.sync();  // every block holds the cluster's eight r1 (.) r
+    ikpls2_product(a, B, sh, cluster, rank);
+    cluster.sync();  // every fold holds its T = XTX (r1 (.) r)
+    if (!live) continue;
+    const double wi = sc[0], sw = sc[1];
+    // t = r1 (.) T - u (v . r) - p (q . r)
+    double tr = 0.0;
+    for (int64_t k = tid; k < K; k += kOpFold) {
+      const double r1 = r1v[k];
+      const double xk = x[k];
+      const double u = (a.wts ? xk * wi : xk) * r1;
+      double t = r1 * wt[k] - u * za;
+      if (center) t = t - (sw * (mx[k] * r1)) * zb;
+      wt[k] = t;
+      tr += t * r[k];
+    }
+    tt = ikpls2_fold_sum(tr, red, slot);
+    for (int64_t k = tid; k < K; k += kOpFold) {
+      const double pk = wt[k] / tt;
+      wt[k] = pk;
+      __stcs(P + c * K + k, pk);
+      __stcs(R + c * K + k, r[k]);
+    }
+    for (int m = tid; m < M; m += kOpFold) {
+      double s = 0.0;
+      for (int j = 0; j < M; ++j) s += S0[m * M + j] * q[j];
+      const double qm = s / (nrm * tt);
+      qa[m] = qm;
+      const double yhm = yh[m] + zz * qm;
+      yh[m] = yhm;
+      double pred = yhm;
+      if (scy) pred = pred * sy[m];
+      if (cy) pred = pred + my[m];
+      const double e = yr[m] - pred;
+      press[c * M + m] = a.wts ? wi * (e * e) : e * e;
+    }
+    ikpls2_fold_sync(slot);
+  }
+}
+
 }  // namespace
 
 // Every fold's IKPLS #2 solve and weighted PRESS: F blocks of kThreads.
@@ -411,4 +1271,99 @@ extern "C" int cvm_ikpls2_f64(
   ikpls2_kernel<<<static_cast<unsigned>(F), kThreads, shmem,
                   static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The operator kernel's shared memory, in doubles: B, then kOpSlots folds'
+// own, each with kOpStage doubles of staging or what is left (at least
+// 4 kOpFold: the Gram tiles' k-parts at M <= 16).
+void op_layout(int64_t K, int64_t M, int64_t* k8, int64_t* nb,
+               int64_t* slot, int64_t* stage) {
+  *k8 = (K + 7) / 8 * 8;
+  *nb = kOpGroup * *k8 > kOpMinB ? kOpGroup * *k8 : kOpMinB;
+  const int64_t base = 2 * K + 3 * M * M + 6 * M + kOpFold;
+  int64_t left = (kOpShmem / 8 - *nb) / kOpSlots - base;
+  left = left < kOpStage ? left : kOpStage;
+  *stage = left > 4 * kOpFold ? left : 4 * kOpFold;
+  *slot = base + *stage;
+}
+
+size_t op_shmem(int64_t K, int64_t M) {
+  int64_t k8, nb, slot, stage;
+  op_layout(K, M, &k8, &nb, &slot, &stage);
+  return sizeof(double) * (nb + kOpSlots * slot);
+}
+
+}  // namespace
+
+// Every one-row fold's IKPLS #2 solve and weighted PRESS with no fold matrix
+// formed: F folds in blocks of kOpSlots, rounded up to clusters of
+// kOpCluster blocks. Returns a cudaError_t (0 on success).
+extern "C" int cvm_ikpls2_op_f64(
+    const double* xtx, const double* xty, const double* X, const double* Y,
+    const double* wts, const double* sum_x, const double* sum_sq_x,
+    const double* sum_y, const double* sum_sq_y, const double* sum_w,
+    const int64_t* nnz, const int64_t* rows, double* g, double* pr,
+    double* vec, double* aux, double* press, int64_t F, int64_t N, int64_t K,
+    int64_t M, int64_t A, int64_t ld_xtx, int64_t ld_xty, int64_t ld_x,
+    int64_t ld_y, int64_t ld_w, int64_t ddof, double resolution, int flags,
+    int device, void* stream) {
+  if (F <= 0 || A <= 0) return 0;
+  if (K < 1 || M < 1 || M > kMaxM || F > 0x7ffffff0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t shmem = op_shmem(K, M);
+  if (shmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(ikpls2_op_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int64_t k8, nb, slot, stage;
+  op_layout(K, M, &k8, &nb, &slot, &stage);
+  if (shmem > kOpShmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t rs = ((K + kOpCluster - 1) / kOpCluster + 15) / 16 * 16;
+  OpArgs a{xtx,  xty,    X,      Y,      wts,  sum_x, sum_sq_x, sum_y,
+           sum_sq_y, sum_w, nnz, rows,   g,    pr,    vec,      aux,
+           press, F,     N,      K,      M,    A,     ld_xtx,   ld_xty,
+           ld_x, ld_y,   ld_w,   ddof,   resolution, flags, k8, rs,
+           nb,   slot,   stage};
+  const int64_t blocks =
+      (F + kOpGroup - 1) / kOpGroup * kOpCluster;
+  ikpls2_op_kernel<<<static_cast<unsigned>(blocks), kOpThreads, shmem,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of the operator kernel the card holds at once for
+// (K, M); 0, and a cudaError_t in *err_out, on failure.
+extern "C" int cvm_ikpls2_op_clusters(int64_t K, int64_t M, int* err_out,
+                                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  const size_t shmem = op_shmem(K, M);
+  if (err == cudaSuccess && shmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(ikpls2_op_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shmem));
+  }
+  int n = 0;
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kOpCluster * 1024, 1, 1);
+    cfg.blockDim = dim3(kOpThreads, 1, 1);
+    cfg.dynamicSmemBytes = shmem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kOpCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, ikpls2_op_kernel, &cfg);
+  }
+  *err_out = static_cast<int>(err);
+  return err == cudaSuccess ? n : 0;
 }

@@ -10,13 +10,24 @@ Improved Kernel PLS Algorithm #2 (Dayal & MacGregor, J. Chemometrics
 validation rows are predicted with 1..A components, and each component
 count is scored, so that the user can choose A.
 
-:func:`cross_validate_pls` runs through the reduce sweep's bodies
+:func:`cross_validate_pls` takes one of two routes, by what the input
+shows (:func:`operator_route`). A leave-one-out batch (one unmasked row a
+fold) of a float64 state with K at most ``ops.pls.MAX_OP_K``, under
+``impl="auto"`` or ``"cuda"``, forms no fold matrix: its own loop of
+chunks of ``batch_size`` folds, the rows copied to the state's device once
+a call, and one :func:`solve_operator` a chunk, i.e. one
+``ops.pls.ikpls2_operator`` (the kernel ``cvm_ikpls2_op_f64`` on the card,
+its twin on the CPU), which applies each fold's training ``XTX`` as the
+fitted total plus the fold's rank-one corrections. Every other bucket
+(K-fold, masked, float32, ``impl="torch"``, K over the limit) runs through
+the reduce sweep's bodies
 (:func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce` with a
 chunk consumer: the hoisted LOOCV loop, the small-fold and v3 loops, the
-generic per-chunk body, masked batches); :func:`solve` is the consumer,
-one ``ops.pls.ikpls2`` call a chunk: the hand-written kernel on the card,
-its plain twin on the CPU. There is no float32 kernel: a float32 state on
-the card needs ``impl="torch"``, which runs the twin there.
+generic per-chunk body, masked batches) on formed fold matrices;
+:func:`solve` is that consumer, one ``ops.pls.ikpls2`` call a chunk: the
+hand-written kernel on the card, its plain twin on the CPU. There is no
+float32 kernel: a float32 state on the card needs ``impl="torch"``, which
+runs the twin there.
 """
 
 from __future__ import annotations
@@ -30,11 +41,11 @@ from ..config import CVConfig
 from ..core.batch import host_folds, host_mask
 from ..core.state import FitState
 from ..ops import pls as _pls
-from ..ops.loocv import IMPLS
-from ..utils.profiling import PLS, PLS_SOLVE, spanned
+from ..ops.loocv import IMPLS, check_rows
+from ..utils.profiling import PLS, PLS_SOLVE, spanned, to_device
 from .sweep import ValidationRows, cross_validate_reduce
 
-__all__ = ["cross_validate_pls", "solve"]
+__all__ = ["cross_validate_pls", "operator_route", "solve", "solve_operator"]
 
 
 @spanned(PLS_SOLVE)
@@ -85,11 +96,12 @@ def cross_validate_pls(
     (:func:`solve`). ``n_components`` must be at least 1 and at most K and
     the training rows of every fold (N less its validation rows).
 
-    ``impl``: ``"auto"`` takes the sweep's hoisted bodies and the
-    ``ikpls2`` kernel on the card (the twins on the CPU), ``"cuda"`` the
-    same and requires CUDA tensors, ``"torch"`` the generic body and every
-    twin. The kernel is float64 only: a float32 state runs on the CPU, or
-    on the card with ``impl="torch"``, and raises otherwise.
+    ``impl``: ``"auto"`` takes the operator route for leave-one-out
+    batches (:func:`operator_route`), else the sweep's hoisted bodies, and
+    the kernels on the card (the twins on the CPU), ``"cuda"`` the same and
+    requires CUDA tensors, ``"torch"`` the generic body and every twin. The
+    kernels are float64 only: a float32 state runs on the CPU, or on the
+    card with ``impl="torch"``, and raises otherwise.
     A fold whose component is degenerate (``t^T t`` or ``||XTY q||`` of
     0) reads NaN from that component on; ``ikpls`` stops the fit there.
     """
@@ -115,9 +127,61 @@ def cross_validate_pls(
             f"rows)] = [1, {min(state.K, n_train)}] (K={state.K}, the "
             f"fewest training rows {n_train}).")
 
+    if operator_route(config, state, idx, mask, impl):
+        return _operator_sweep(config, state, idx, n_components=n_components,
+                               batch_size=batch_size, impl=impl)
+
     def consume(mats, stats, rows):
         return solve(config, mats, stats, rows, n_components=n_components,
                      impl=impl)
 
     return cross_validate_reduce(config, state, idx, mask, chunk_fn=consume,
                                  batch_size=batch_size, impl=impl)
+
+
+def operator_route(config: CVConfig, state: FitState, idx: np.ndarray,
+                   mask, impl: str) -> bool:
+    """Whether :func:`cross_validate_pls` takes the operator route for the
+    host folds ``idx`` (P, L) and ``mask``: ``impl`` ``"auto"`` or
+    ``"cuda"``, a float64 config, one unmasked row a fold (LOOCV) and K at
+    most ``ops.pls.MAX_OP_K``. Every other bucket runs on formed fold
+    matrices through the reduce sweep."""
+    return (impl in ("auto", "cuda") and config.torch_dtype == torch.float64
+            and idx.shape[1] == 1 and mask is None
+            and state.K <= _pls.MAX_OP_K)
+
+
+@spanned(PLS_SOLVE)
+def solve_operator(config: CVConfig, state: FitState, rows: torch.Tensor, *,
+                   n_components: int, impl: str = "auto") -> torch.Tensor:
+    """One chunk of one-row folds -> (F, A, M) weighted PRESS, as
+    :func:`solve` scores them, from the fitted state alone:
+    ``ops.pls.ikpls2_operator`` applies each fold's training ``XTX`` as
+    the fitted total and the fold's rank-one corrections, so no fold
+    matrix is formed. ``rows`` is the chunk's (F,) int64 row indices on
+    the state's device, checked."""
+    sums = (state.sum_X, state.sum_sq_X, state.sum_Y, state.sum_sq_Y,
+            state.sum_w, state.num_nonzero_w)
+    return _pls.ikpls2_operator(
+        state.XTX, state.XTY, state.X, state.Y, state.weights, sums, rows,
+        n_components=n_components, center_X=config.center_X,
+        center_Y=config.center_Y, scale_X=config.scale_X,
+        scale_Y=config.scale_Y, ddof=config.ddof,
+        resolution=config.resolution, impl=impl)
+
+
+def _operator_sweep(config, state, idx, *, n_components, batch_size, impl):
+    """The operator route: the rows copied to the state's device once, then
+    :func:`solve_operator` over chunks of at most ``batch_size`` folds,
+    equalised as the reduce sweep equalises them (no padding)."""
+    n_folds = idx.shape[0]
+    rows = check_rows(idx[:, 0], state.N)
+    if state.device.type == "cuda":
+        rows = rows.pin_memory()
+    rows = to_device(rows, state.device, non_blocking=True)
+    n_chunks = -(-n_folds // min(batch_size, n_folds))
+    bs = -(-n_folds // n_chunks)
+    return torch.cat([
+        solve_operator(config, state, rows[c0:c0 + bs],
+                       n_components=n_components, impl=impl)
+        for c0 in range(0, n_folds, bs)])

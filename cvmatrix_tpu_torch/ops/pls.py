@@ -35,8 +35,21 @@ float32 kernel: float32 CUDA operands raise under ``"auto"`` and
 ``"cuda"``, and run the twin only under ``"torch"``. The kernel's library
 is built and loaded at its first launch only.
 
-Counters: :func:`launch_counts` (kernel launches) and
-:func:`fold_components` (F x A of every solve, kernel or twin).
+One-row (LOOCV) folds need no formed matrix: :func:`ikpls2_operator` reads
+the fitted ``XTX`` and ``XTY``, the fitted rows and the fit's sums, and the
+folds' row indices, and applies each fold's training ``XTX`` as the fitted
+total plus the fold's rank-one corrections, ``XTX_f r = r1 (.) (XTX (r1
+(.) r)) - u (v . r) - p (q . r)`` (the LOOCV kernel's vectors,
+``ops/loocv.loocv_reference``), with the fold's statistics from the fit's
+sums less its row. Kernel: ``cvm_ikpls2_op_f64`` (``csrc/pls.cu``),
+float64, M at most :data:`MAX_M`, K at most :data:`MAX_OP_K`, any A: a
+cluster of two blocks holds eight folds and multiplies the shared total by
+their eight ``r1 (.) r`` on the FP64 tensor cores each component; twin
+:func:`ikpls2_operator_reference`, dispatched as :func:`ikpls2`.
+
+Counters: :func:`launch_counts` (kernel launches, ``ikpls2`` and
+``ikpls2_op``) and :func:`fold_components` (F x A of every solve, kernel or
+twin, by route).
 """
 
 from __future__ import annotations
@@ -48,16 +61,22 @@ import torch
 
 from .fold_downdate import _fn, _run, _use_kernel
 from .loocv import _ptr
+from .loocv import side_mean_std as _side_mean_std
 from .precision import highest_precision
 
-__all__ = ["MAX_M", "MAX_SWEEPS", "fold_components", "ikpls2",
-           "ikpls2_reference", "jacobi_dominant", "round_robin_pairs",
+__all__ = ["MAX_M", "MAX_OP_K", "MAX_SWEEPS", "fold_components", "ikpls2",
+           "ikpls2_operator", "ikpls2_operator_reference", "ikpls2_reference",
+           "jacobi_dominant", "max_active_clusters", "round_robin_pairs",
            "launch_counts", "reset_launch_counts"]
 
 # Widest response the kernel takes (one warp's lanes over the responses)
 # and the widest fold product (its three K-vectors in shared memory).
 MAX_M = 32
 MAX_K = 8192
+# Widest K of the operator kernel: a block keeps its cluster's eight
+# (r1 (.) r) vectors and four folds' vectors and M x M matrices in shared
+# memory, 219 KB at K=768, M=32 (see csrc/pls.cu).
+MAX_OP_K = 768
 # Jacobi sweeps at most; one sweep rotates every pair once.
 MAX_SWEEPS = 30
 
@@ -87,10 +106,15 @@ def round_robin_pairs(m: int):
     return rounds
 
 
-def jacobi_dominant(S: torch.Tensor,
-                    max_sweeps: int = MAX_SWEEPS) -> torch.Tensor:
+def jacobi_dominant(S: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
+                    basis: Optional[torch.Tensor] = None):
     """The eigenvector of the largest eigenvalue of each symmetric (F, M, M)
-    ``S`` -> (F, M), by the kernel's cyclic Jacobi.
+    ``S`` -> (F, M), by the kernels' cyclic Jacobi.
+
+    With ``basis``, an (F, M, M) orthogonal matrix ``V0`` (the operator
+    kernel's warm start: the last component's eigenvectors), the sweeps
+    start from ``V0^T S V0`` with ``V = V0``, and the result is ``(vector,
+    V)``, ``V`` the eigenvectors found, for the next warm start.
 
     Each rotation of pair (p, q): ``theta = (S_qq - S_pp) / (2 S_pq)``,
     ``t = sign(theta) / (|theta| + sqrt(theta^2 + 1))`` (0 where ``S_pq``
@@ -102,9 +126,13 @@ def jacobi_dominant(S: torch.Tensor,
     vector is the column of the largest diagonal entry (the first of equal
     ones)."""
     f_folds, m, _ = S.shape
-    S = S.clone()
-    V = torch.eye(m, dtype=S.dtype, device=S.device).expand(
-        f_folds, m, m).clone()
+    if basis is None:
+        S = S.clone()
+        V = torch.eye(m, dtype=S.dtype, device=S.device).expand(
+            f_folds, m, m).clone()
+    else:
+        S = (basis.mT @ S) @ basis
+        V = basis.clone()
     eps = torch.finfo(S.dtype).eps
     norm2 = (S * S).sum(dim=(1, 2))
     offdiag = ~torch.eye(m, dtype=torch.bool, device=S.device)
@@ -142,7 +170,8 @@ def jacobi_dominant(S: torch.Tensor,
         S = torch.where(keep, S0, S)
         V = torch.where(keep, V0, V)
     top = torch.diagonal(S, dim1=1, dim2=2).argmax(dim=1)
-    return V[torch.arange(f_folds, device=S.device), :, top]
+    vec = V[torch.arange(f_folds, device=S.device), :, top]
+    return vec if basis is None else (vec, V)
 
 
 @highest_precision()
@@ -203,8 +232,9 @@ def ikpls2_reference(xtx, xty, X_val, Y_val, w_val, mask, stats, *,
 
 
 def _strided(t: Optional[torch.Tensor], on: bool):
-    """``(tensor, fold stride)`` of a (F, R, W) operand whose rows are
-    contiguous, made so where they are not; ``(None, 0)`` where off."""
+    """``(tensor, stride of the first axis)`` of an operand ((F, R, W) or
+    (R, W)) whose rows are contiguous, made so where they are not; ``(None,
+    0)`` where off."""
     if t is None or not on:
         return None, 0
     if t.stride(-1) != 1:
@@ -284,20 +314,247 @@ def ikpls2(xtx, xty, X_val, Y_val, w_val, mask, stats, *, n_components: int,
     return press
 
 
+def _fold_statistics(X, Y, weights, sums, rows, *, center_X, center_Y,
+                     scale_X, scale_Y, ddof, resolution):
+    """The one-row folds ``rows`` (F,): each fold's validation row and
+    training statistics from the fit's sums less that row, as the LOOCV
+    kernels' vector phase computes them (``ops.loocv.side_mean_std``, the
+    scalars of ``core/batch._fold_scalar_stream``) -> ``(x, y, wv, sw, mX,
+    sX, mY, sY)``: (F, K), (F, M), (F,) or ``None`` unweighted, (F,), (F,
+    K) twice, (F, M) twice. A mean is 0 where no flag needs it and a std 1
+    where its side is not scaled."""
+    sum_X, sum_sq_X, sum_Y, sum_sq_Y, sum_w, nnz = sums
+    x, y = X[rows], Y[rows]
+    wv = None if weights is None else weights[rows, 0]
+    xw, yw = (x, y) if wv is None else (x * wv[:, None], y * wv[:, None])
+    center = center_X or center_Y
+    sw = x.new_zeros((rows.shape[0],))
+    scal = x.new_zeros((rows.shape[0], 3))
+    if center or scale_X or scale_Y:
+        if wv is not None:
+            sw = sum_w - wv
+            nnz_t = (nnz - (wv != 0).to(nnz.dtype)).to(x.dtype)
+        else:
+            sw = sw + (X.shape[0] - 1)
+            nnz_t = sw
+        divisor = (nnz_t - ddof) * sw / nnz_t
+        scal = torch.stack([sw, 1.0 / sw, 1.0 / divisor], dim=1)
+
+    def side(w_rows, u_rows, s, sq, need_mean, need_std):
+        g = w_rows.new_zeros((2, w_rows.shape[1]))
+        if need_mean or need_std:
+            g[0] = s[0]
+        if need_std:
+            g[1] = sq[0]
+        return _side_mean_std(w_rows, w_rows * u_rows if need_std else None,
+                              g, scal, need_mean=need_mean,
+                              resolution=resolution)
+
+    mX, sX = side(xw, x, sum_X, sum_sq_X, center or scale_X, scale_X)
+    mY, sY = side(yw, y, sum_Y, sum_sq_Y, center or scale_Y, scale_Y)
+    return x, y, wv, sw, mX, sX, mY, sY
+
+
+@highest_precision()
+def ikpls2_operator_reference(xtx, xty, X, Y, weights, sums, rows, *,
+                              n_components: int, center_X: bool,
+                              center_Y: bool, scale_X: bool, scale_Y: bool,
+                              ddof: int, resolution: float) -> torch.Tensor:
+    """Plain-torch twin of the operator kernel -> (F, A, M) weighted PRESS
+    of the one-row folds ``rows`` (F,), no fold matrix formed.
+
+    ``xtx`` (K, K) and ``xty`` (K, M) are the fitted totals, ``X`` (N, K),
+    ``Y`` (N, M) and ``weights`` (N, 1) or ``None`` the fitted rows, and
+    ``sums`` the fit's ``(sum_X, sum_sq_X, sum_Y, sum_sq_Y, sum_w,
+    num_nonzero_w)`` (``None`` where no flag needs one). A fold's training
+    products are the LOOCV kernel's (``ops.loocv.loocv_reference``): with
+    ``r1 = 1 / sX``, ``r2 = 1 / sY``, ``u = xw r1``, ``v = x r1``, ``p = sw
+    mX r1`` (0 uncentred) and ``q = mX r1`` (0 unless ``center_X``),
+    ``XTX_f = xtx (.) (r1 r1^T) - u v^T - p q^T``, and ``XTY_f`` likewise
+    with the Y side. Each component runs as :func:`ikpls2_reference` does,
+    except three steps: ``t = XTX_f r = r1 (.) (xtx (r1 (.) r)) - u (v . r)
+    - p (q . r)``; ``q_a = S q / (||XTY q|| tt)`` with ``S = XTY^T XTY``
+    (``= XTY^T r / tt`` in exact arithmetic: the deflated ``XTY`` is
+    orthogonal to every earlier ``r``); and Jacobi warm-started from the
+    last component's eigenvectors (:func:`jacobi_dominant` with
+    ``basis``), in whose basis the deflated ``S`` differs from a diagonal
+    matrix only in one row and column."""
+    x, y, wv, sw, mX, sX, mY, sY = _fold_statistics(
+        X, Y, weights, sums, rows, center_X=center_X, center_Y=center_Y,
+        scale_X=scale_X, scale_Y=scale_Y, ddof=ddof, resolution=resolution)
+    center = center_X or center_Y
+    f_folds, k = x.shape
+    m = y.shape[1]
+    A = n_components
+    r1, r2 = 1.0 / sX, 1.0 / sY
+    xw = x if wv is None else x * wv[:, None]
+    u, v = xw * r1, x * r1
+    mr = mX * r1
+    p = sw[:, None] * mr if center else torch.zeros_like(mr)
+    q = mr if center_X else torch.zeros_like(mr)
+    vy = y * r2
+    qy = mY * r2 if center else torch.zeros_like(mY)
+    G = (xty * (r1[:, :, None] * r2[:, None, :]) - u[:, :, None]
+         * vy[:, None, :] - p[:, :, None] * qy[:, None, :])
+    xs = x
+    if center_X:
+        xs = xs - mX
+    if scale_X:
+        xs = xs / sX
+    Pm = x.new_zeros((f_folds, A, k))
+    Rm = x.new_zeros((f_folds, A, k))
+    yhat = y.new_zeros(y.shape)
+    press = x.new_empty((f_folds, A, m))
+    V = torch.eye(m, dtype=x.dtype, device=x.device).expand(
+        f_folds, m, m)
+    for a in range(A):
+        S = G.mT @ G
+        qe, V = jacobi_dominant(S, basis=V)
+        w = (G @ qe[:, :, None])[:, :, 0]
+        nrm = torch.linalg.vector_norm(w, dim=1, keepdim=True)
+        w = w / nrm
+        r = w
+        if a:
+            d = (Pm[:, :a] @ w[:, :, None])[:, :, 0]
+            for j in range(a):
+                r = r - d[:, j:j + 1] * Rm[:, j]
+        t = (r1 * ((r1 * r) @ xtx.mT) - u * (v * r).sum(1, keepdim=True)
+             - p * (q * r).sum(1, keepdim=True))
+        tt = (t * r).sum(dim=1)[:, None]
+        pa = t / tt
+        qn = (S @ qe[:, :, None])[:, :, 0] / (nrm * tt)
+        G = G - (pa[:, :, None] * qn[:, None, :]) * tt[:, :, None]
+        Pm[:, a], Rm[:, a] = pa, r
+        z = (xs * r).sum(dim=1, keepdim=True)
+        yhat = yhat + z * qn
+        pred = yhat
+        if scale_Y:
+            pred = pred * sY
+        if center_Y:
+            pred = pred + mY
+        e2 = (y - pred) ** 2
+        press[:, a] = e2 if wv is None else wv[:, None] * e2
+    return press
+
+
+def ikpls2_operator(xtx, xty, X, Y, weights, sums, rows, *,
+                    n_components: int, center_X: bool, center_Y: bool,
+                    scale_X: bool, scale_Y: bool, ddof: int,
+                    resolution: float, impl: str = "auto") -> torch.Tensor:
+    """Every one-row fold's IKPLS #2 solve and score, no fold matrix
+    formed -> (F, A, M) weighted PRESS.
+
+    Operands as :func:`ikpls2_operator_reference`; on the kernel's path
+    (``cvm_ikpls2_op_f64``) every one is float64 on one CUDA device, with
+    ``rows`` int64 in [0, N) (not checked here), M at most :data:`MAX_M`
+    and K at most :data:`MAX_OP_K`. Dispatch as :func:`ikpls2`."""
+    k, m = xty.shape
+    f_folds = rows.shape[0]
+    A = int(n_components)
+    if A < 1:
+        raise ValueError(f"n_components must be at least 1, got {A}")
+    flags = dict(center_X=center_X, center_Y=center_Y, scale_X=scale_X,
+                 scale_Y=scale_Y)
+    device = xty.device
+    launch = _use_kernel("ikpls2_op", impl, device)
+    if launch and xty.dtype != torch.float64:
+        raise ValueError(f"ikpls2_op has no kernel for {xty.dtype}; pass "
+                         "impl='torch' to run its plain twin")
+    ikpls2_operator.fold_components += f_folds * A
+    if not launch:
+        return ikpls2_operator_reference(
+            xtx, xty, X, Y, weights, sums, rows, n_components=A, ddof=ddof,
+            resolution=resolution, **flags)
+    if m > MAX_M or k > MAX_OP_K:
+        raise ValueError(
+            f"ikpls2_op's kernel takes M <= {MAX_M} and K <= {MAX_OP_K} "
+            f"(M={m}, K={k}); run impl='torch'")
+    n = X.shape[0]
+    if (tuple(xtx.shape) != (k, k) or tuple(X.shape) != (n, k)
+            or tuple(Y.shape) != (n, m)
+            or (weights is not None and tuple(weights.shape) != (n, 1))):
+        raise ValueError(
+            f"ikpls2_op: xtx {tuple(xtx.shape)}, xty {tuple(xty.shape)}, X "
+            f"{tuple(X.shape)}, Y {tuple(Y.shape)} do not match (K, K), (K, "
+            "M), (N, K), (N, M), weights (N, 1)")
+    xtx, xty, X, Y = (_strided(t, True)[0] for t in (xtx, xty, X, Y))
+    sums = [None if s is None else s.reshape(-1) for s in sums]
+    nnz = sums[5]
+    for t in [xtx, xty, X, Y, weights, *sums[:5]]:
+        if t is not None and (t.device != device
+                              or t.dtype != torch.float64):
+            raise ValueError(f"ikpls2_op operands must all be float64 on "
+                             f"{device}.")
+    if rows.device != device or rows.dtype != torch.int64 or (
+            nnz is not None and (nnz.device != device
+                                 or nnz.dtype != torch.int64)):
+        raise ValueError(f"ikpls2_op: rows and num_nonzero_w must be int64 "
+                         f"on {device}.")
+    rows = rows.contiguous()
+    g = torch.empty((f_folds, k, m), dtype=torch.float64, device=device)
+    pr = torch.empty((f_folds, 2, A, k), dtype=torch.float64, device=device)
+    vec = torch.empty((f_folds, 3, k), dtype=torch.float64, device=device)
+    aux = torch.empty((f_folds, m * m + A), dtype=torch.float64,
+                      device=device)
+    press = torch.empty((f_folds, A, m), dtype=torch.float64, device=device)
+    fn = _fn("pls", "cvm_ikpls2_op_f64", 17, 11,
+             (ctypes.c_double, ctypes.c_int))
+    bits = sum(b for nm, b in _FLAG_BITS.items() if flags[nm])
+    _run("ikpls2_op", fn, _ptr(xtx), _ptr(xty), _ptr(X), _ptr(Y),
+         _ptr(weights), *(_ptr(s) for s in sums), _ptr(rows), _ptr(g),
+         _ptr(pr), _ptr(vec), _ptr(aux), _ptr(press), f_folds, n, k, m, A,
+         xtx.stride(0), xty.stride(0), X.stride(0), Y.stride(0),
+         0 if weights is None else weights.stride(0), int(ddof),
+         float(resolution), bits, device=device)
+    ikpls2_operator.launches += 1
+    return press
+
+
+def max_active_clusters(k: int, m: int, device=None) -> int:
+    """How many clusters of the operator kernel (eight folds each) the card
+    holds at once for K = ``k`` and M = ``m``: a chunk of more folds than
+    eight times that runs in more than one wave. Builds the kernel's
+    library; raises on a CUDA error."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    from . import _build
+
+    fn = _build.load_library("pls").cvm_ikpls2_op_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    err = ctypes.c_int(0)
+    n = fn(int(k), int(m), ctypes.byref(err), device.index or 0)
+    if err.value:
+        raise RuntimeError(f"ikpls2_op occupancy: cudaError {err.value}")
+    return n
+
+
 def reset_launch_counts() -> None:
     ikpls2.launches = 0
     ikpls2.fold_components = 0
+    ikpls2_operator.launches = 0
+    ikpls2_operator.fold_components = 0
 
 
 def launch_counts() -> dict:
-    """``{"ikpls2": launches}`` since the last :func:`reset_launch_counts`."""
-    return {"ikpls2": ikpls2.launches}
+    """``{"ikpls2": launches, "ikpls2_op": launches}`` since the last
+    :func:`reset_launch_counts`: the kernel on formed fold matrices and the
+    operator kernel."""
+    return {"ikpls2": ikpls2.launches, "ikpls2_op": ikpls2_operator.launches}
 
 
-def fold_components() -> int:
-    """The fold-components solved since the last :func:`reset_launch_counts`:
-    F x A a solve, the twin's included."""
-    return ikpls2.fold_components
+def fold_components(route: Optional[str] = None) -> int:
+    """The fold-components solved since the last :func:`reset_launch_counts`,
+    F x A a solve, the twins' included: of the route ``"operator"``
+    (:func:`ikpls2_operator`) or ``"matrices"`` (:func:`ikpls2`, on formed
+    fold matrices), or of both where ``route`` is ``None``."""
+    counts = {"operator": ikpls2_operator.fold_components,
+              "matrices": ikpls2.fold_components}
+    if route is None:
+        return sum(counts.values())
+    if route not in counts:
+        raise ValueError(f"Unknown route: {route!r} (operator|matrices).")
+    return counts[route]
 
 
 reset_launch_counts()

@@ -35,11 +35,13 @@ name:
 - ``cvmatrix_tpu_torch.models.pls.<entry>``: each ``cross_validate_pls``
   call;
 - ``cvmatrix_tpu_torch.models.pls.solve``: one chunk's IKPLS #2 solve and
-  score (``models.pls.solve``: the ``ikpls2`` kernel or its twin).
+  score (``models.pls.solve``: the ``ikpls2`` kernel or its twin, on formed
+  fold matrices; ``models.pls.solve_operator``: ``ikpls2_op`` or its twin,
+  on leave-one-out folds with none formed).
 
 No span nests inside another of its name, and none changes a result. The
-fold-components that ``models.pls.solve`` solves (F x A a chunk) are
-counted by ``ops.pls.fold_components()``.
+fold-components that the solves solve (F x A a chunk) are counted by route
+by ``ops.pls.fold_components(route)``.
 """
 
 from __future__ import annotations

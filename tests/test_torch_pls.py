@@ -18,9 +18,21 @@ Tolerances, and why:
   rounding. The same reference computed in float32 misses it by over
   three decades (``test_float32_misses_the_tolerance``).
 
-The CPU runs the twin (``ops.pls.ikpls2_reference``); the cases marked
-``cuda`` run the kernel and skip without a card. This file imports no JAX;
-on a card, ``python -m pytest --noconftest -q tests/test_torch_pls.py``.
+- the operator route's twin against the twin on formed fold matrices,
+  PRESS to 1e-11 of the fold's largest (``OP_TOL``): both start from the
+  same fitted totals and differ in the order of their sums (the product
+  with the total against the formed matrix, ``S q`` against ``XTY^T r``)
+  and in Jacobi's start (warm against cold), about 1e-13 apart at these
+  sizes; the operator kernel against its twin, 1e-12 on the card, where
+  the tensor cores' sums take another order again.
+
+Leave-one-out batches of a float64 state take the operator route
+(``models.pls.operator_route``); K-fold, masked, float32 and
+``impl="torch"`` batches the formed matrices. The CPU runs the twins
+(``ops.pls.ikpls2_operator_reference``, ``ops.pls.ikpls2_reference``); the
+cases marked ``cuda`` run the kernels and skip without a card. This file
+imports no JAX; on a card, ``python -m pytest --noconftest -q
+tests/test_torch_pls.py``.
 """
 
 import itertools
@@ -47,6 +59,7 @@ from .pls_reference import (
 
 ROOT = Path(__file__).resolve().parents[1]
 PRESS_TOL = 1e-9
+OP_TOL = 1e-11
 N, K, A = 30, 5, 3
 FLAGS = list(itertools.product([True, False], repeat=4))
 
@@ -152,6 +165,172 @@ def test_twin_matches_reference(flags, weighted, m, scheme, ddof):
     assert _gap(got, ref) <= PRESS_TOL
 
 
+# ---- the operator route: no fold matrix formed ------------------------- #
+
+def _operator_and_formed(flags, weighted, m, ddof, n_components=A, data=None,
+                         dev="cpu"):
+    """Every leave-one-out fold of ``_data`` through the operator twin and
+    through the twin on formed fold matrices, and the reference."""
+    X, Y, w = _data(m) if data is None else data
+    if not weighted:
+        w = None
+    cfg = T.CVConfig(*flags, ddof=ddof)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx, _, val = _folds("loocv", n=X.shape[0])
+    op = T.cross_validate_pls(cfg, st, idx, n_components=n_components,
+                              batch_size=8)
+    formed = TS.cross_validate_reduce(
+        cfg, st, idx, chunk_fn=lambda mats, stats, rows: TP.solve(
+            cfg, mats, stats, rows, n_components=n_components,
+            impl="torch"), batch_size=8, impl="torch")[:len(val)]
+    return op, formed, _reference(X, Y, w, val, flags, ddof,
+                                  n_components=n_components)
+
+
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_operator_twin_matches_formed_twin(flags, weighted, m, ddof):
+    """The operator route's twin against the twin on formed matrices and
+    the reference, every flag set; the folds of weight 0 read 0."""
+    op, formed, ref = _operator_and_formed(flags, weighted, m, ddof)
+    assert op.shape == formed.shape == ref.shape == (N, A, m)
+    assert _gap(op, formed) <= OP_TOL
+    assert _gap(op, ref) <= PRESS_TOL
+    if weighted:
+        assert torch.equal(op[::7], torch.zeros_like(op[::7]))
+
+
+@pytest.mark.parametrize("m", [1, 3])
+def test_operator_twin_every_component(m):
+    """A = K components, the most the training rows allow here."""
+    op, formed, ref = _operator_and_formed((True,) * 4, True, m, 1,
+                                           n_components=K)
+    assert op.shape == (N, K, m)
+    assert _gap(op, formed) <= OP_TOL
+    assert _gap(op, ref) <= PRESS_TOL
+
+
+def test_operator_twin_wider_and_longer():
+    """K = 12, M = 4, A = 8 on 40 rows: more components than responses."""
+    rng = np.random.default_rng(7)
+    X = rng.uniform(size=(40, 12))
+    Y = X @ rng.normal(size=(12, 4)) + 0.1 * rng.normal(size=(40, 4))
+    w = rng.uniform(0.2, 1.5, size=40)
+    op, formed, ref = _operator_and_formed((True,) * 4, True, 4, 1,
+                                           n_components=8, data=(X, Y, w))
+    assert _gap(op, formed) <= OP_TOL
+    assert _gap(op, ref) <= PRESS_TOL
+
+
+@pytest.mark.parametrize("route", ["operator", "formed"])
+def test_degenerate_component_reads_nan(route):
+    """Y of zeros and no centring: XTY is 0, so the first component is
+    degenerate and every component reads NaN, on both routes."""
+    X, _, w = _data(1)
+    cfg = T.CVConfig(False, False, False, False)
+    st = T.fit(cfg, X, np.zeros((N, 1)), w, device="cpu")
+    idx = np.arange(N)[:, None]
+    got = T.cross_validate_pls(cfg, st, idx, n_components=3,
+                               impl="auto" if route == "operator" else "torch")
+    assert got.shape == (N, 3, 1) and bool(torch.isnan(got).all())
+
+
+@pytest.mark.parametrize("case, operator", [
+    ("loocv", True), ("loocv_torch", False), ("loocv_float32", False),
+    ("loocv_masked", False), ("kfold", False), ("small", False),
+    ("masked", False), ("loocv_wide", False)])
+def test_route_gate(monkeypatch, case, operator):
+    """Leave-one-out float64 takes the operator route under "auto"; a
+    mask, more rows a fold, float32, ``impl="torch"`` or K over
+    ``ops.pls.MAX_OP_K`` take the formed matrices."""
+    ran = []
+    real_op, real_sweep = TP._operator_sweep, TP.cross_validate_reduce
+    monkeypatch.setattr(TP, "_operator_sweep", lambda *a, **k: ran.append(
+        "operator") or real_op(*a, **k))
+    monkeypatch.setattr(TP, "cross_validate_reduce", lambda *a, **k: ran.append(
+        "formed") or real_sweep(*a, **k))
+    if case == "loocv_wide":
+        monkeypatch.setattr(OP, "MAX_OP_K", K - 1)
+    dtype = np.float32 if case == "loocv_float32" else np.float64
+    cfg, st = _state(dtype=dtype)
+    scheme = case if case in ("kfold", "small", "masked") else "loocv"
+    idx, mask, _ = _folds(scheme)
+    if case == "loocv_masked":
+        mask = np.ones(idx.shape)
+    impl = "torch" if case == "loocv_torch" else "auto"
+    T.cross_validate_pls(cfg, st, idx, mask, n_components=2, impl=impl)
+    assert ran == ["operator" if operator else "formed"]
+    assert TP.operator_route(cfg, st, idx, mask, impl) is operator
+
+
+def test_fold_components_by_route():
+    cfg, st = _state()
+    OP.reset_launch_counts()
+    T.cross_validate_pls(cfg, st, np.arange(N)[:, None], n_components=2)
+    idx, _, _ = _folds("kfold")
+    T.cross_validate_pls(cfg, st, idx, n_components=2, batch_size=3)
+    assert OP.fold_components("operator") == N * 2
+    assert OP.fold_components("matrices") == 3 * 2
+    assert OP.fold_components() == N * 2 + 3 * 2
+    with pytest.raises(ValueError, match="Unknown route"):
+        OP.fold_components("both")
+
+
+def test_warm_jacobi_matches_cold():
+    """Jacobi started from an orthogonal basis finds the same dominant
+    eigenvector, up to sign, and returns the eigenvectors it found: from
+    those, no sweep is needed."""
+    rng = np.random.default_rng(9)
+    for m in (2, 5, 10):
+        G = torch.as_tensor(rng.normal(size=(6, 30, m)))
+        S = G.mT @ G
+        basis = torch.linalg.qr(torch.as_tensor(rng.normal(size=(6, m, m))))[0]
+        cold = OP.jacobi_dominant(S)
+        warm, V = OP.jacobi_dominant(S, basis=basis)
+        sign = torch.sign((warm * cold).sum(1, keepdim=True))
+        assert float((warm * sign - cold).abs().max()) <= 1e-12, m
+        again, V2 = OP.jacobi_dominant(S, max_sweeps=0, basis=V)
+        assert torch.equal(again, warm) and torch.equal(V2, V)
+
+
+def test_operator_wrapper_checks():
+    cfg, st = _state()
+    sums = (st.sum_X, st.sum_sq_X, st.sum_Y, st.sum_sq_Y, st.sum_w,
+            st.num_nonzero_w)
+    kw = dict(center_X=True, center_Y=True, scale_X=True, scale_Y=True,
+              ddof=1, resolution=cfg.resolution)
+    rows = torch.arange(4)
+    with pytest.raises(ValueError, match="n_components"):
+        OP.ikpls2_operator(st.XTX, st.XTY, st.X, st.Y, st.weights, sums,
+                           rows, n_components=0, **kw)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        OP.ikpls2_operator(st.XTX, st.XTY, st.X, st.Y, st.weights, sums,
+                           rows, n_components=2, impl="cuda", **kw)
+    got = OP.ikpls2_operator(st.XTX, st.XTY, st.X, st.Y, st.weights, sums,
+                             rows, n_components=2, **kw)
+    ref = OP.ikpls2_operator_reference(st.XTX, st.XTY, st.X, st.Y,
+                                       st.weights, sums, rows,
+                                       n_components=2, **kw)
+    assert torch.equal(got, ref)
+
+
+def _run_formed(dev, scheme, impl, m=3):
+    """The formed-matrix route as ``cross_validate_pls`` runs it for the
+    buckets it does not send to the operator: the reduce sweep with
+    :func:`models.pls.solve` as its chunk consumer."""
+    X, Y, w = _data(m)
+    cfg = T.CVConfig(ddof=1)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    idx, mask, val = _folds(scheme)
+    got = TS.cross_validate_reduce(
+        cfg, st, idx, mask, chunk_fn=lambda mats, stats, rows: TP.solve(
+            cfg, mats, stats, rows, n_components=A, impl=impl),
+        batch_size=4, impl=impl)[:len(val)]
+    return got, _reference(X, Y, w, val, (True,) * 4, 1)
+
+
 @pytest.mark.parametrize("body, scheme, impl", [
     ("_loocv_reduce_loop", "loocv", "auto"),
     ("_v3_reduce_loop", "kfold", "auto"),
@@ -161,8 +340,8 @@ def test_twin_matches_reference(flags, weighted, m, scheme, ddof):
     (None, "masked", "torch"),
 ])
 def test_every_sweep_body(monkeypatch, body, scheme, impl):
-    """Each of the sweep's bodies hands the consumer its chunks; ``None``
-    is the generic per-chunk body."""
+    """Each of the sweep's bodies hands the PLS consumer its chunks (the
+    formed-matrix route); ``None`` is the generic per-chunk body."""
     ran = []
     for name in ("_loocv_reduce_loop", "_smallfold_reduce_loop",
                  "_v3_reduce_loop"):
@@ -170,7 +349,7 @@ def test_every_sweep_body(monkeypatch, body, scheme, impl):
             ran.append(_name)
             return _fn(*a, **kw)
         monkeypatch.setattr(TS, name, spy)
-    got, ref = _run("cpu", (True,) * 4, True, 3, scheme, 1, impl=impl)
+    got, ref = _run_formed("cpu", scheme, impl)
     assert ran == ([] if body is None else [body])
     assert _gap(got, ref) <= PRESS_TOL
 
@@ -275,6 +454,8 @@ def test_exports_and_counter():
     T.cross_validate_pls(cfg, st, np.arange(N)[:, None], n_components=2,
                          batch_size=7)  # 5 chunks of 6: 30 folds, 2 each
     assert OP.fold_components() == 60
+    assert OP.fold_components("operator") == 60
+    assert OP.fold_components("matrices") == 0
     assert ops.launch_counts() == {}  # the twin launches nothing
     ops.reset_launch_counts()
     assert OP.fold_components() == 0
@@ -292,13 +473,27 @@ def _span_counts(fn):
 
 
 def test_spans_a_call_and_a_chunk():
+    """Leave-one-out takes the operator route: a solve span a chunk and no
+    reduce sweep."""
     cfg, st = _state()
     counts = _span_counts(lambda: T.cross_validate_pls(
         cfg, st, np.arange(N)[:, None], n_components=2, batch_size=7))
     assert counts[P.PLS + "cross_validate_pls"] == 1
     assert counts[P.PLS_SOLVE] == 5
-    assert counts[P.SWEEP + "cross_validate_reduce"] == 1
+    assert P.SWEEP + "cross_validate_reduce" not in counts
     assert P.REDUCE_FN not in counts
+
+
+def test_spans_of_the_formed_route():
+    """K-fold takes the reduce sweep: its span once, a solve span a
+    chunk."""
+    cfg, st = _state()
+    idx, _, _ = _folds("small")
+    counts = _span_counts(lambda: T.cross_validate_pls(
+        cfg, st, idx, n_components=2, batch_size=4))
+    assert counts[P.PLS + "cross_validate_pls"] == 1
+    assert counts[P.PLS_SOLVE] == 3
+    assert counts[P.SWEEP + "cross_validate_reduce"] == 1
 
 
 @pytest.mark.parametrize("scheme, impl", [
@@ -399,10 +594,16 @@ def dev():
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("flags", FLAGS)
 def test_kernel_matches_reference(dev, flags, weighted, m, scheme, ddof):
+    """Leave-one-out runs the operator kernel, the other schemes the kernel
+    on formed matrices, one launch a chunk of 4."""
     OP.reset_launch_counts()
     got, ref = _run(dev, flags, weighted, m, scheme, ddof)
     assert got.device.type == "cuda"
-    assert OP.ikpls2.launches == -(-len(ref) // 4)
+    chunks = -(-len(ref) // 4)
+    if scheme == "loocv":
+        assert (OP.ikpls2_operator.launches, OP.ikpls2.launches) == (chunks, 0)
+    else:
+        assert (OP.ikpls2_operator.launches, OP.ikpls2.launches) == (0, chunks)
     assert _gap(got, ref) <= PRESS_TOL
 
 
@@ -482,3 +683,68 @@ def test_reduce_without_a_consumer_launches_no_pls(dev):
                              batch_size=64)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"fused_loocv": 5, "fused_loocv_stats": 5}
+
+
+# ---- on the card: the operator kernel ------------------------------------ #
+
+def _operator_case(dev, n, k, m, A, rows, seed=0):
+    """The operator kernel and its twin, both on the card, on the folds
+    ``rows`` of uniform data (weighted, every flag on, ddof 1)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, k))
+    Y = rng.uniform(size=(n, m))
+    w = rng.uniform(size=n)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device=dev)
+    sums = (st.sum_X, st.sum_sq_X, st.sum_Y, st.sum_sq_Y, st.sum_w,
+            st.num_nonzero_w)
+    kw = dict(n_components=A, center_X=True, center_Y=True, scale_X=True,
+              scale_Y=True, ddof=1, resolution=cfg.resolution)
+    r = torch.as_tensor(rows, device=dev)
+    got = OP.ikpls2_operator(st.XTX, st.XTY, st.X, st.Y, st.weights, sums,
+                             r, impl="cuda", **kw)
+    ref = OP.ikpls2_operator_reference(st.XTX, st.XTY, st.X, st.Y,
+                                       st.weights, sums, r, **kw)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, k, m, A, rows", [
+    (100_000, 500, 10, 20, range(0, 511)),  # the cell: first chunk
+    (100_000, 500, 10, 20, range(195 * 511, 100_000)),  # and last (355)
+    (4_000, 500, 10, 20, range(13)),  # 13 folds: a group of 8 and 5
+    (4_000, 37, 3, 5, range(100)),    # K no multiple of the MMA's 8
+    (4_000, 200, 1, 10, range(64)),   # M = 1
+    (4_000, 200, 32, 10, range(64)),  # M = 32
+], ids=["cell_first", "cell_last", "folds_13", "k_37", "m_1", "m_32"])
+def test_operator_kernel_matches_twin(dev, n, k, m, A, rows):
+    """Every fold's PRESS within 1e-12 of its largest."""
+    got, ref = _operator_case(dev, n, k, m, A, list(rows))
+    assert got.shape == ref.shape == (len(rows), A, m)
+    assert bool(torch.isfinite(got).all())
+    scale = ref.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(((got - ref).abs() / scale).max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_cell_shape_launches_only_the_operator_kernel(dev):
+    """N = 100,000 leave-one-out at K = 500, M = 10, A = 20 in chunks of
+    512: 196 launches of ikpls2_op and no other kernel of the port, and one
+    wave of clusters a chunk."""
+    from cvmatrix_tpu_torch import ops
+
+    rng = np.random.default_rng(3)
+    n = 100_000
+    cfg = T.CVConfig()
+    st = T.fit(cfg, rng.uniform(size=(n, 500)), rng.uniform(size=(n, 10)),
+               rng.uniform(size=n), device=dev)
+    ops.reset_launch_counts()
+    press = T.cross_validate_pls(cfg, st, np.arange(n)[:, None],
+                                 n_components=20, batch_size=512)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"ikpls2_op": 196}
+    assert OP.fold_components("operator") == n * 20
+    assert OP.fold_components("matrices") == 0
+    assert press.shape == (n, 20, 10) and bool(torch.isfinite(press).all())
+    assert 8 * OP.max_active_clusters(500, 10, dev) >= 511
