@@ -18,6 +18,11 @@ route in float32, as the JAX package's f32 engine does. Padding survives
 only inside the gates, so that both packages send the same fold batch to
 the same kernel.
 
+Every entry runs its route through one fold plan (``_plan``): the route's
+operands built once for a batch of folds by the builders above, then run
+a chunk of folds at a time. The batched entries run a plan's one chunk,
+the sweeps (``models.sweep``) and the mesh layer many.
+
 Fold rows are range-checked once per call of an entry
 (``ops.loocv.check_rows``): on the host where they arrive as host data,
 with one device sync where the operand builders (``prepare_*``) are handed
@@ -40,7 +45,7 @@ do at trace time.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -914,7 +919,6 @@ class OzakiSources(NamedTuple):
 OzakiSources.PER_FOLD = ("rows", "mask", "sxv", "yvec", "scal")
 
 
-@spanned(SOURCES)
 def prepare_ozaki_sources(
     config: CVConfig,
     state: FitState,
@@ -932,6 +936,19 @@ def prepare_ozaki_sources(
     scalars are computed here, per fold; the kernel derives the X-side
     squared sums, means and stds itself.
     """
+    return _ozaki_sources_and_stats(config, state, idx_batch, mask_batch,
+                                    return_XTX, return_XTY,
+                                    with_stats=False)[0]
+
+
+@spanned(SOURCES)
+def _ozaki_sources_and_stats(config, state, idx_batch, mask_batch,
+                             return_XTX, return_XTY, *, with_stats):
+    """``(OzakiSources, stats)``: :func:`prepare_ozaki_sources`' sources
+    and, ``with_stats``, the folds' ``(X_mean, X_std, Y_mean, Y_std)`` by
+    :func:`_stat_flags` (else ``None``). One :func:`_summed_stats` call
+    gives both the statistics and the sources' Y side: it sums each side
+    by itself, so the numbers are those of a call a side."""
     if not return_XTX:
         raise ValueError("the v3 route requires return_XTX=True; check "
                          "route_kernel before preparing sources")
@@ -939,6 +956,24 @@ def prepare_ozaki_sources(
         raise ValueError("Response variables `Y` are not provided.")
     rows, mask = _rows_mask(config, state, idx_batch, mask_batch)
     xw = state.X if state.weights is None else state.WX
+    stats = None
+    if with_stats:
+        flags = _stat_flags(config, True, return_XTY)
+        # the sources' Y side needs the Y mean wherever a Y statistic is
+        summed = _summed_stats(config, state, rows, mask, **dict(
+            flags, return_Y_mean=flags["return_Y_mean"]
+            or flags["return_Y_std"]))
+        stats = (*summed[:2], summed[2] if flags["return_Y_mean"] else None,
+                 summed[3])
+
+        def y_stats():
+            return summed[2:4]
+    else:
+        def y_stats():
+            return _summed_stats(
+                config, state, rows, mask, return_X_mean=False,
+                return_X_std=False, return_Y_mean=True,
+                return_Y_std=config.scale_Y)[2:4]
     return _ozaki_sources(
         config, state, xw, state.X, state.Y, rows, mask, return_XTY,
         # Per-fold row sums without an (F, L, K) gather. Fits v3's folds
@@ -947,11 +982,8 @@ def prepare_ozaki_sources(
         # 3 folds of 33,334 rows (K=500, NVIDIA H100 80GB HBM3, 700 W).
         lambda: torch.nn.functional.embedding_bag(
             rows, xw, per_sample_weights=mask, mode="sum"),
-        lambda: _summed_stats(
-            config, state, rows, mask, return_X_mean=False,
-            return_X_std=False, return_Y_mean=True,
-            return_Y_std=config.scale_Y)[2:4],
-        lambda: _fold_scalar_stream(config, state, rows, mask))
+        y_stats,
+        lambda: _fold_scalar_stream(config, state, rows, mask)), stats
 
 
 def _ozaki_sources(config, state, xw, xu, yu, rows, mask, return_XTY,
@@ -1201,6 +1233,201 @@ def _f32_kernel_path(config, state, rows, mask, *, total, return_XTX,
 
 
 # --------------------------------------------------------------------------- #
+# Fold plans: a route's operands built once, run a chunk at a time            #
+# --------------------------------------------------------------------------- #
+
+
+class ValidationRows(NamedTuple):
+    """A chunk's validation rows on the state's device, as a chunk consumer
+    of ``models.sweep.cross_validate_reduce`` gets them: ``X`` (F, L, K) and
+    ``Y`` (F, L, M) (``None`` without Y) unweighted, ``w`` (F, L) the rows'
+    weights (``None`` unweighted) and ``mask`` (F, L) the fold mask in the
+    config dtype (``None`` unmasked)."""
+
+    X: torch.Tensor
+    Y: Optional[torch.Tensor]
+    w: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor]
+
+
+def _validation_rows(state: FitState, rows: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> ValidationRows:
+    """The rows ``rows`` (F, L), on the state's device and checked, gathered
+    from the state: one gather of X, of Y and of the weights."""
+    return ValidationRows(
+        state.X[rows], None if state.Y is None else state.Y[rows],
+        None if state.weights is None else state.weights[rows, 0], mask)
+
+
+def _slice(t, start: int, size: int):
+    return None if t is None else t[start:start + size]
+
+
+def _slice_stats(stats, start: int, size: int):
+    return None if stats is None else tuple(_slice(s, start, size)
+                                            for s in stats)
+
+
+def _copied_rows(config, state, idx, mask):
+    """``(c0, size) -> ValidationRows`` of the folds ``idx[c0:c0 + size]``,
+    gathered by rows (and the mask) copied to the state's device at the
+    first call: once a sweep, and never in a sweep that asks for none."""
+    held = []
+
+    def chunk(c0, size):
+        if not held:
+            with span(SOURCES):
+                held.append(_rows_mask(config, state, idx, mask))
+        rows, mask_d = held[0]
+        return _validation_rows(state, rows[c0:c0 + size],
+                                _slice(mask_d, c0, size))
+    return chunk
+
+
+def _host_rows(idx, n: int, device, *, pin: bool = True) -> torch.Tensor:
+    """(F,) int64 fold rows on the host, checked against [0, n) and, where
+    ``pin`` and ``device`` is a card, pinned: a sweep's copies of them, a
+    chunk at a time, then run asynchronously. The caller copies them."""
+    rows = _loocv.check_rows(idx, n)
+    if pin and torch.device(device).type == "cuda":
+        return rows.pin_memory()
+    return rows
+
+
+def _hoist_fits(nbytes: float) -> bool:
+    """The reduce sweep's gate on building a route's operands for every
+    fold: the policy's ``hoist_reduce`` and the JAX package's budget."""
+    return _hoist_reduce_enabled() and nbytes <= _HOIST_BUDGET_BYTES
+
+
+class _Plan(NamedTuple):
+    """A route's operands for a batch of folds, built by :func:`_plan`.
+
+    ``run(c0, size, out=None)`` -> ``(mats, stats)`` of the folds ``c0:c0 +
+    size``: ``mats`` as :func:`training_matrices_batched` returns them
+    (views of ``out`` where given), ``stats`` their ``(X_mean, X_std,
+    Y_mean, Y_std)`` (``None`` where the plan was built without them).
+    ``rows(c0, size)`` -> their :class:`ValidationRows` (``None`` on
+    gathered blocks)."""
+
+    run: Callable
+    rows: Optional[Callable]
+
+
+def _plan(config, state, route, idx, mask, *, return_XTX, return_XTY, impl,
+          with_stats=True, blocks_stats=None, n_rows_total=None, total=None,
+          sweep=False, hoist=False) -> Optional[_Plan]:
+    """The operands of :func:`route_kernel`'s ``route`` for the (F, L) host
+    folds ``idx`` and their ``mask``, built once by the route's builders,
+    and how a chunk of them runs: the package's one switch on the route
+    after :func:`route_kernel`.
+
+    ``blocks_stats=(blocks, stats5)`` takes gathered blocks and their
+    :func:`stats_from_blocks` instead (the mesh path). ``with_stats=False``
+    (a materialising sweep) computes no statistic the route does not need.
+    ``n_rows_total``: the global row count where ``state`` is one rank's
+    row shard (the LOOCV sources). ``total``: the large-fold routes' [XTX |
+    XTY], built here where ``None``. ``sweep``: the plan serves a sweep's
+    chunks, so the LOOCV routes pin their host rows. ``hoist``: the reduce
+    sweep's gate, ``None`` where the JAX package builds no operands for
+    every fold (the large-fold routes; the packed and v3 routes off
+    ``hoist_reduce`` or over the budget of its memory estimates).
+    """
+    stats = None
+    if route.startswith("loocv"):
+        if blocks_stats is None:
+            rows = _host_rows(idx[:, 0], state.N, state.device, pin=sweep)
+            src = prepare_loocv_sources(config, state, rows,
+                                        return_XTX=return_XTX,
+                                        return_XTY=return_XTY,
+                                        n_rows_total=n_rows_total)
+        else:
+            src = loocv_sources_from_blocks(config, state, blocks_stats[0],
+                                            return_XTY=return_XTY)
+            # host rows: checked on the host, no device sync
+            rows = torch.arange(src.scal.shape[0])
+            stats = blocks_stats[1][:4]
+        stored = with_stats and stats is None  # by the kernel
+
+        def chunk(c0, size, out):
+            res = run_loocv_route(
+                config, src, rows[c0:c0 + size], route,
+                src.scal[c0:c0 + size], return_XTY=return_XTY, impl=impl,
+                out=out, return_stats=stored)
+            return res if stored else (res, _slice_stats(stats, c0, size))
+
+        def rows_of(c0, size):
+            return _validation_rows(state, src.rows[c0:c0 + size], None)
+    elif route in ("packed", "packed_f32"):
+        if hoist and not _hoist_fits(_hoisted_operand_bytes(
+                state, *idx.shape, return_XTX, return_XTY)):
+            return None
+        ops, stats = prepare_fold_operands(
+            config, state, idx, mask, return_XTX=return_XTX,
+            return_XTY=return_XTY, blocks_stats=blocks_stats)
+
+        def chunk(c0, size, out):
+            return (downdate_from_operands(slice_operands(ops, c0, size),
+                                           impl=impl, out=out),
+                    _slice_stats(stats, c0, size))
+        rows_of = _copied_rows(config, state, idx, mask)
+    elif route in ("v3", "v3_sym"):
+        if hoist and not _hoist_fits(_v3_hoist_bytes(state, *idx.shape)):
+            return None
+        if blocks_stats is None:
+            src, stats = _ozaki_sources_and_stats(
+                config, state, idx, mask, return_XTX, return_XTY,
+                with_stats=with_stats)
+        else:
+            src = ozaki_sources_from_blocks(config, state, *blocks_stats,
+                                            return_XTY=return_XTY)
+            stats = blocks_stats[1][:4]
+
+        def chunk(c0, size, out):
+            return (ozaki_v3_from_sources(config,
+                                          slice_operands(src, c0, size),
+                                          return_XTY=return_XTY, impl=impl,
+                                          out=out),
+                    _slice_stats(stats, c0, size))
+
+        def rows_of(c0, size):
+            return _validation_rows(state, src.rows[c0:c0 + size],
+                                    _slice(src.mask, c0, size))
+    else:
+        if hoist:
+            return None
+        large = (_f32_kernel_path if route == "downdate_f32"
+                 else _large_fold_path)
+        rows = mask_d = None
+        if blocks_stats is None:
+            with span(SOURCES):
+                rows, mask_d = _rows_mask(config, state, idx, mask)
+                if total is None:
+                    total = _total(state, return_XTX, return_XTY)
+        else:
+            total = _total(state, return_XTX, return_XTY)
+
+        def chunk(c0, size, out):
+            blocks = None if blocks_stats is None else (
+                blocks_stats[0]._make(_slice(t, c0, size)
+                                      for t in blocks_stats[0]),
+                _slice_stats(blocks_stats[1], c0, size))
+            return large(config, state, _slice(rows, c0, size),
+                         _slice(mask_d, c0, size), total=total,
+                         return_XTX=return_XTX, return_XTY=return_XTY,
+                         impl=impl, out=out, blocks_stats=blocks)
+
+        def rows_of(c0, size):
+            return _validation_rows(state, rows[c0:c0 + size],
+                                    _slice(mask_d, c0, size))
+
+    def run(c0, size, out=None):
+        mats, chunk_stats = chunk(c0, size, out)
+        return _split(mats, state.K, return_XTX, return_XTY), chunk_stats
+    return _Plan(run, rows_of if blocks_stats is None else None)
+
+
+# --------------------------------------------------------------------------- #
 # The fold-batch engine                                                       #
 # --------------------------------------------------------------------------- #
 
@@ -1258,44 +1485,10 @@ def training_matrices_batched(
     mask_np = host_mask(mask_batch)
     route = route_kernel(config, state, idx.shape[1], return_XTX, return_XTY,
                          mask_np is not None, n_folds=idx.shape[0])
-    flags = _stat_flags(config, return_XTX, return_XTY)
     with span(ROUTE + route):
-        if route.startswith("loocv"):
-            # The LOOCV routes check their host rows themselves; the
-            # kernel stores the statistics.
-            src = prepare_loocv_sources(config, state, idx[:, 0],
-                                        return_XTX=return_XTX,
-                                        return_XTY=return_XTY)
-            out, stats = run_loocv_route(config, src, idx[:, 0], route,
-                                         return_XTY=return_XTY, impl=impl,
-                                         return_stats=True)
-            return _split(out, state.K, return_XTX, return_XTY), stats
-        # Host folds go to the operand builders, which check them on the
-        # host.
-        if route in ("packed", "packed_f32"):
-            ops, stats = prepare_fold_operands(config, state, idx, mask_np,
-                                               return_XTX=return_XTX,
-                                               return_XTY=return_XTY)
-            out = downdate_from_operands(ops, impl=impl)
-        elif route in ("v3", "v3_sym"):
-            src = prepare_ozaki_sources(config, state, idx, mask_np,
-                                        return_XTX=return_XTX,
-                                        return_XTY=return_XTY)
-            out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
-                                        impl=impl)
-            stats = _summed_stats(config, state, src.rows, src.mask,
-                                  **flags)[:4]
-        else:
-            with span(SOURCES):
-                rows, mask = _rows_mask(config, state, idx, mask_np)
-                if total is None:
-                    total = _total(state, return_XTX, return_XTY)
-            large = (_f32_kernel_path if route == "downdate_f32"
-                     else _large_fold_path)
-            out, stats = large(config, state, rows, mask, total=total,
-                               return_XTX=return_XTX, return_XTY=return_XTY,
-                               impl=impl)
-        return _split(out, state.K, return_XTX, return_XTY), stats
+        return _plan(config, state, route, idx, mask_np,
+                     return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
+                     total=total).run(0, idx.shape[0])
 
 
 def batched_matrices_from_blocks(
@@ -1337,27 +1530,6 @@ def batched_matrices_from_blocks(
     f_folds, n_l = blocks.Xv_w.shape[:2]
     route = route_kernel(config, state, n_l, return_XTX, return_XTY,
                          blocks.mask is not None, n_folds=f_folds)
-    if route.startswith("loocv"):
-        src = loocv_sources_from_blocks(config, state, blocks,
-                                        return_XTY=return_XTY)
-        # host rows: checked on the host, no device sync
-        out = run_loocv_route(config, src, torch.arange(f_folds), route,
-                              return_XTY=return_XTY, impl=impl)
-    elif route in ("packed", "packed_f32"):
-        ops, _ = prepare_fold_operands(
-            config, state, None, return_XTX=return_XTX,
-            return_XTY=return_XTY, blocks_stats=(blocks, stats5))
-        out = downdate_from_operands(ops, impl=impl)
-    elif route in ("v3", "v3_sym"):
-        src = ozaki_sources_from_blocks(config, state, blocks, stats5,
-                                        return_XTY=return_XTY)
-        out = ozaki_v3_from_sources(config, src, return_XTY=return_XTY,
-                                    impl=impl)
-    else:
-        large = (_f32_kernel_path if route == "downdate_f32"
-                 else _large_fold_path)
-        out, _ = large(config, state, None, None,
-                       total=_total(state, return_XTX, return_XTY),
-                       return_XTX=return_XTX, return_XTY=return_XTY,
-                       impl=impl, blocks_stats=(blocks, stats5))
-    return _split(out, state.K, return_XTX, return_XTY), stats5[:4]
+    return _plan(config, state, route, None, None, return_XTX=return_XTX,
+                 return_XTY=return_XTY, impl=impl,
+                 blocks_stats=(blocks, stats5)).run(0, f_folds)

@@ -22,7 +22,7 @@ fitted total plus the fold's rank-one corrections. Every other bucket
 (K-fold, masked, float32, ``impl="torch"``, K over the limit) runs through
 the reduce sweep's bodies
 (:func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce` with a
-chunk consumer: the hoisted LOOCV loop, the small-fold and v3 loops, the
+chunk consumer: the hoisted body's LOOCV, packed and v3 fold plans, the
 generic per-chunk body, masked batches) on formed fold matrices;
 :func:`solve` is that consumer, one ``ops.pls.ikpls2`` call a chunk: the
 hand-written kernel on the card, its plain twin on the CPU. There is no
@@ -38,12 +38,12 @@ import numpy as np
 import torch
 
 from ..config import CVConfig
-from ..core.batch import host_folds, host_mask
+from ..core.batch import _host_rows, host_folds, host_mask
 from ..core.state import FitState
 from ..ops import pls as _pls
-from ..ops.loocv import IMPLS, check_rows
+from ..ops.loocv import IMPLS
 from ..utils.profiling import PLS, PLS_SOLVE, spanned, to_device
-from .sweep import ValidationRows, cross_validate_reduce
+from .sweep import ValidationRows, chunking, cross_validate_reduce
 
 __all__ = ["cross_validate_pls", "operator_route", "solve", "solve_operator"]
 
@@ -175,12 +175,9 @@ def _operator_sweep(config, state, idx, *, n_components, batch_size, impl):
     :func:`solve_operator` over chunks of at most ``batch_size`` folds,
     equalised as the reduce sweep equalises them (no padding)."""
     n_folds = idx.shape[0]
-    rows = check_rows(idx[:, 0], state.N)
-    if state.device.type == "cuda":
-        rows = rows.pin_memory()
-    rows = to_device(rows, state.device, non_blocking=True)
-    n_chunks = -(-n_folds // min(batch_size, n_folds))
-    bs = -(-n_folds // n_chunks)
+    rows = to_device(_host_rows(idx[:, 0], state.N, state.device),
+                     state.device, non_blocking=True)
+    bs, _ = chunking(n_folds, state.K, state.K + state.M, batch_size)
     return torch.cat([
         solve_operator(config, state, rows[c0:c0 + bs],
                        n_components=n_components, impl=impl)

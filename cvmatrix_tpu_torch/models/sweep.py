@@ -17,9 +17,10 @@ dtypes) and v3 routes build their operands once for all folds and slice
 them per chunk; the large-fold routes (Ozaki-df64, ``bmm`` plus epilogue,
 and the float32 engine's ``fused_downdate``) build ``[XTX | XTY]`` once
 and gather and reduce chunk by chunk (hoisting L-row blocks for every fold
-would hold the whole dataset twice). A float32 sweep computes and writes
-float32; the chunk rule budgets 8 bytes per element in either dtype, as
-the JAX package's does.
+would hold the whole dataset twice): either way ``core.batch``'s fold
+plan, built once a sweep and run a chunk at a time. A float32 sweep
+computes and writes float32; the chunk rule budgets 8 bytes per element in
+either dtype, as the JAX package's does.
 
 ``cross_validate`` yields each chunk's per-fold engine results;
 ``cross_validate_reduce`` maps a user reduction over every fold's matrices
@@ -27,14 +28,15 @@ chunk by chunk and keeps only the reductions, or hands each chunk whole to
 a chunk consumer with the chunk's validation rows (the port's own:
 ``models.pls`` fits a PLS model a fold through it). Where the JAX package
 compiles one ``lax.scan`` program, the port runs a Python loop of eager
-chunks with the same four bodies (the hoisted LOOCV, packed and v3 loops,
-and the generic per-chunk body) and the same gates, except that the
-hoisted loops run on any device: on the CPU they run the kernels' twins.
+chunks with the same bodies and gates: the hoisted body (one fold plan of
+the LOOCV, packed or v3 route for every fold, then the kernel a chunk) and
+the generic per-chunk body, except that the hoisted body runs on any
+device: on the CPU it runs the kernels' twins.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Hashable, Iterator, NamedTuple, Optional, Tuple
+from typing import Dict, Hashable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,25 +44,11 @@ import torch.utils._pytree as pytree
 
 from ..config import CVConfig
 from ..core import batch as _batch
-from ..core.batch import (
-    _f32_kernel_path,
-    _large_fold_path,
-    _rows_mask,
-    downdate_from_operands,
-    host_folds,
-    host_mask,
-    ozaki_v3_from_sources,
-    prepare_fold_operands,
-    prepare_loocv_sources,
-    prepare_ozaki_sources,
-    route_kernel,
-    run_loocv_route,
-    slice_operands,
-)
+from ..core.batch import ValidationRows, host_folds, host_mask, route_kernel
 from ..core.fit import fit
 from ..core.fold import training_matrices
 from ..core.state import FitState
-from ..ops.loocv import IMPLS, check_rows
+from ..ops.loocv import IMPLS
 from ..utils.profiling import REDUCE_FN, SOURCES, SWEEP, span, spanned
 from .partitioner import Partitioner
 
@@ -71,7 +59,10 @@ __all__ = ["ValidationRows", "chunking", "cross_validate",
 
 def chunking(n_folds: int, k: int, c: int, batch_size: Optional[int] = None,
              hbm_budget_bytes: float = 4e9) -> Tuple[int, int]:
-    """``(bs, n_chunks)``: the JAX package's chunk rule for (K, C) outputs."""
+    """``(bs, n_chunks)``: the JAX package's chunk rule for (K, C) outputs
+    (``k`` and ``c`` read only without a ``batch_size``). The chunks are
+    equalised: padding to a multiple of a near-n chunk size can almost
+    double a sweep (n=1000, bs=953 -> padded to 1906)."""
     if batch_size is None:
         per_fold = 2 * 8 * max(k * c, 1)
         batch_size = max(1, min(2000, int(hbm_budget_bytes / per_fold)))
@@ -168,45 +159,11 @@ def materialize_sweep(
                          return_XTY, mask is not None, n_folds=bs)
     buf = torch.empty((bs, k, (k if return_XTX else 0) + m),
                       dtype=config.torch_dtype, device=device)
-    if route.startswith("loocv"):
-        rows = check_rows(idx[:, 0], state.N)
-        if device.type == "cuda":
-            rows = rows.pin_memory()  # asynchronous per-chunk copies
-        src = prepare_loocv_sources(config, state, rows,
-                                    return_XTX=return_XTX,
-                                    return_XTY=return_XTY)
-        for c in range(n_chunks):
-            sl = slice(c * bs, (c + 1) * bs)
-            run_loocv_route(config, src, rows[sl], route, src.scal[sl],
-                            return_XTY=return_XTY, impl=impl, out=buf)
-    elif route in ("packed", "packed_f32"):
-        # Host folds: checked on the host once, then moved whole.
-        ops, _ = prepare_fold_operands(config, state, idx, mask,
-                                       return_XTX=return_XTX,
-                                       return_XTY=return_XTY)
-        for c in range(n_chunks):
-            downdate_from_operands(slice_operands(ops, c * bs, bs),
-                                   impl=impl, out=buf)
-    elif route in ("v3", "v3_sym"):
-        src = prepare_ozaki_sources(config, state, idx, mask,
-                                    return_XTX=return_XTX,
-                                    return_XTY=return_XTY)
-        for c in range(n_chunks):
-            ozaki_v3_from_sources(config, slice_operands(src, c * bs, bs),
-                                  return_XTY=return_XTY, impl=impl, out=buf)
-    else:
-        large = (_f32_kernel_path if route == "downdate_f32"
-                 else _large_fold_path)
-        with span(SOURCES):
-            rows, mask_d = _rows_mask(config, state, idx, mask)
-            # [XTX | XTY] once for every chunk (3.2 GB at K = 20,000)
-            total = _batch._total(state, return_XTX, return_XTY)
-        for c in range(n_chunks):
-            sl = slice(c * bs, (c + 1) * bs)
-            large(config, state, rows[sl],
-                  None if mask_d is None else mask_d[sl],
-                  return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
-                  out=buf, total=total)
+    plan = _batch._plan(config, state, route, idx, mask,
+                        return_XTX=return_XTX, return_XTY=return_XTY,
+                        impl=impl, with_stats=False, sweep=True)
+    for c0 in range(0, n_chunks * bs, bs):
+        plan.run(c0, bs, out=buf)
     if return_XTX and return_XTY:
         return buf[0, 0, 0] + buf[0, 0, k]
     return buf[0, 0, 0]
@@ -331,63 +288,11 @@ def _vmap_reduce(reduce_fn, mats, stats):
         and a.untyped_storage().data_ptr() in held else a, res)
 
 
-class ValidationRows(NamedTuple):
-    """A chunk's validation rows on the state's device, as a chunk consumer
-    of :func:`cross_validate_reduce` gets them: ``X`` (F, L, K) and ``Y``
-    (F, L, M) (``None`` without Y) unweighted, ``w`` (F, L) the rows'
-    weights (``None`` unweighted) and ``mask`` (F, L) the fold mask in the
-    config dtype (``None`` unmasked)."""
-
-    X: torch.Tensor
-    Y: Optional[torch.Tensor]
-    w: Optional[torch.Tensor]
-    mask: Optional[torch.Tensor]
-
-
-def _validation_rows(state: FitState, rows: torch.Tensor,
-                     mask: Optional[torch.Tensor]) -> ValidationRows:
-    """The rows ``rows`` (F, L), on the state's device and checked, gathered
-    from the state: one gather of X, of Y and of the weights."""
-    return ValidationRows(
-        state.X[rows], None if state.Y is None else state.Y[rows],
-        None if state.weights is None else state.weights[rows, 0], mask)
-
-
 def _reducer(reduce_fn):
     """``reduce_fn`` as the reduce bodies' chunk consumer ``consume(mats,
     stats, rows)``: mapped over the chunk's folds; it never calls ``rows``,
     so no validation row is gathered."""
     return lambda mats, stats, rows: _vmap_reduce(reduce_fn, mats, stats)
-
-
-def _copied_rows(config, state, idx, mask):
-    """``(c0, size) -> ValidationRows`` of the folds ``idx[c0:c0 + size]``,
-    gathered by rows (and the mask) copied to the state's device at the
-    first call: once a sweep, and never in a sweep that asks for none."""
-    held = []
-
-    def chunk(c0, size):
-        if not held:
-            with span(SOURCES):
-                held.append(_rows_mask(config, state, idx, mask))
-        rows, mask_d = held[0]
-        return _validation_rows(state, rows[c0:c0 + size],
-                                _slice(mask_d, c0, size))
-    return chunk
-
-
-def _split_mats(out, k: int, return_XTX: bool, return_XTY: bool):
-    if return_XTX and return_XTY:
-        return out[:, :, :k], out[:, :, k:]
-    return out
-
-
-def _slice(t, start: int, size: int):
-    return None if t is None else t[start:start + size]
-
-
-def _slice_stats(stats, start: int, size: int):
-    return tuple(_slice(s, start, size) for s in stats)
 
 
 @spanned(SWEEP + "cross_validate_reduce")
@@ -434,7 +339,7 @@ def cross_validate_reduce(
     of F, which are stacked and trimmed as the reductions are. Without it
     the sweep gathers no rows.
 
-    ``impl``: ``"auto"`` takes the JAX package's hoisted loops where its
+    ``impl``: ``"auto"`` takes the JAX package's hoisted body where its
     gates allow (kernels on CUDA, twins on the CPU), ``"cuda"`` the same
     and requires CUDA tensors, ``"torch"`` the generic per-chunk body with
     the twins (the JAX ``"xla"``). ``donate_state`` is accepted for
@@ -463,11 +368,8 @@ def cross_validate_reduce(
     idx = host_folds(idx_batch, state.N)
     mask = host_mask(mask_batch)
     n_folds = idx.shape[0]
-    bs = min(batch_size, n_folds)
-    # Equalise chunk sizes: padding to a multiple of a near-n chunk size
-    # can almost double the sweep (n=1000, bs=953 -> padded to 1906).
-    n_chunks = -(-n_folds // bs)
-    bs = -(-n_folds // n_chunks)
+    bs, _ = chunking(n_folds, state.K, (state.K if return_XTX else 0)
+                     + ((state.M or 0) if return_XTY else 0), batch_size)
     idx, mask = _pad_folds(idx, mask, bs)
     chunks = _reduce_sweep_impl(config, state, idx, mask, bs, consume,
                                 return_XTX, return_XTY, impl)
@@ -487,132 +389,43 @@ def _stack_chunks(chunks):
 def _reduce_sweep_impl(config, state, idx, mask, bs, consume, return_XTX,
                        return_XTY, impl):
     """The per-chunk outputs of ``consume(mats, stats, rows)`` over the
-    padded (n_chunks * bs, L) batch, by the first of the JAX package's four
+    padded (n_chunks * bs, L) batch, by the first of the JAX package's
     bodies whose gate holds; ``rows()`` gathers the chunk's
     :class:`ValidationRows`, only where it is called."""
-    is_f64 = _batch._is_f64(config)
     n_total, n_l = idx.shape
-    hoist = impl in ("auto", "cuda")
-    # LOOCV: the sources once for every fold, then the LOOCV kernel per
-    # chunk (JAX sweep.py:224-235).
-    if (hoist and mask is None and n_l == 1 and return_XTX
-            and _batch.loocv_single_tile_ok(config, state, return_XTX,
-                                            return_XTY)):
-        return _loocv_reduce_loop(config, state, idx, bs, consume,
-                                  return_XTY, impl)
-    # Small folds: the packed operands once for every fold (:243-259).
-    threshold = (_batch.large_fold_threshold(config, state, return_XTX,
-                                             return_XTY)
-                 if is_f64 else _batch.LARGE_FOLD_ROWS)
-    if (hoist and _batch._hoist_reduce_enabled() and n_l < threshold
-            and _batch._hoisted_operand_bytes(
-                state, n_total, n_l, return_XTX, return_XTY)
-            <= _batch._HOIST_BUDGET_BYTES):
-        return _smallfold_reduce_loop(config, state, idx, mask, bs,
-                                      consume, return_XTX, return_XTY,
-                                      impl)
-    # Mid-band: the v3 sources and statistics once for every fold
-    # (:267-281).
-    if (hoist and _batch._hoist_reduce_enabled() and is_f64 and return_XTX
-            and n_l >= threshold
-            and _batch.ozaki_v3_ok(config, state, return_XTX, return_XTY,
-                                   n_l)
-            and _batch._v3_hoist_bytes(state, n_total, n_l)
-            <= _batch._HOIST_BUDGET_BYTES):
-        return _v3_reduce_loop(config, state, idx, mask, bs, consume,
-                               return_XTY, impl)
+    route = route_kernel(config, state, n_l, return_XTX, return_XTY,
+                         mask is not None, n_folds=bs)
+    # Hoisted body: the route's fold plan once for every fold (JAX
+    # sweep.py:224-281), where the plan builder's gate holds.
+    if impl in ("auto", "cuda"):
+        plan = _batch._plan(config, state, route, idx, mask,
+                            return_XTX=return_XTX, return_XTY=return_XTY,
+                            impl=impl, sweep=True, hoist=True)
+        if plan is not None:
+            return _run_chunks(plan, n_total, bs, consume)
     # Generic body: every chunk through training_matrices_batched, with
     # [XTX | XTY] built once for every chunk (3.2 GB at K = 20,000).
     with span(SOURCES):
         total = _batch._total(state, return_XTX, return_XTY)
-    rows_of = _copied_rows(config, state, idx, mask)
+    rows_of = _batch._copied_rows(config, state, idx, mask)
     out = []
     for c0 in range(0, n_total, bs):
         mats, stats = _batch.training_matrices_batched(
-            config, state, idx[c0:c0 + bs],
-            None if mask is None else mask[c0:c0 + bs],
+            config, state, idx[c0:c0 + bs], _batch._slice(mask, c0, bs),
             return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
             total=total)
         out.append(consume(mats, stats, lambda: rows_of(c0, bs)))
     return out
 
 
-def _loocv_reduce_loop(config, state, idx, bs, consume, return_XTY,
-                       impl, n_rows_total=None):
-    """Hoisted-source LOOCV reduce sweep (JAX ``sweep.py:314``): one
-    :func:`prepare_loocv_sources` for every fold, then per chunk the LOOCV
-    kernel (symmetric under ``sym_loocv``, two folds per block under the
-    x2 knob when the chunk is even: no bump here), which also stores the
-    chunk's statistics, and ``consume`` (rows gathered by the sources'
-    device rows; :func:`_reduce_sweep_impl`). ``n_rows_total``: the global
-    row count where ``state`` is one rank's row shard (the mesh path)."""
-    rows = check_rows(idx[:, 0], state.N)
-    if state.device.type == "cuda":
-        rows = rows.pin_memory()  # asynchronous per-chunk copies
-    src = prepare_loocv_sources(config, state, rows, return_XTX=True,
-                                return_XTY=return_XTY,
-                                n_rows_total=n_rows_total)
-    route = route_kernel(config, state, 1, True, return_XTY, False,
-                         n_folds=bs)
+def _run_chunks(plan, n_folds: int, bs: int, consume) -> list:
+    """The hoisted body's loop, the mesh layer's too: ``consume(mats, stats,
+    rows)`` of each chunk of ``bs`` folds (the last may be short) that the
+    fold plan ``plan`` runs over ``n_folds`` folds."""
     out = []
-    for c0 in range(0, rows.shape[0], bs):
-        mats, stats = run_loocv_route(
-            config, src, rows[c0:c0 + bs], route, src.scal[c0:c0 + bs],
-            return_XTY=return_XTY, impl=impl, return_stats=True)
-        out.append(consume(
-            _split_mats(mats, state.K, True, return_XTY), stats,
-            lambda: _validation_rows(state, src.rows[c0:c0 + bs], None)))
+    for c0 in range(0, n_folds, bs):
+        mats, stats = plan.run(c0, bs)
+        out.append(consume(mats, stats, lambda: plan.rows(c0, bs)))
         # freed before the next chunk allocates its own
         del mats, stats
-    return out
-
-
-def _smallfold_reduce_loop(config, state, idx, mask, bs, consume,
-                           return_XTX, return_XTY, impl, blocks_stats=None):
-    """Hoisted-prep small-fold reduce sweep (JAX ``sweep.py:453``):
-    :func:`prepare_fold_operands` once for every fold (of ``idx``/``mask``,
-    or of gathered ``blocks_stats``: the mesh path), then per chunk the
-    packed kernel on sliced operands and ``consume`` over sliced
-    statistics (rows copied to the device once, where it asks for them)."""
-    ops, stats = prepare_fold_operands(config, state, idx, mask,
-                                       return_XTX=return_XTX,
-                                       return_XTY=return_XTY,
-                                       blocks_stats=blocks_stats)
-    rows_of = _copied_rows(config, state, idx, mask)
-    out = []
-    for c0 in range(0, ops.u.shape[0], bs):
-        mats = downdate_from_operands(slice_operands(ops, c0, bs), impl=impl)
-        out.append(consume(
-            _split_mats(mats, state.K, return_XTX, return_XTY),
-            _slice_stats(stats, c0, bs), lambda: rows_of(c0, bs)))
-    return out
-
-
-def _v3_reduce_loop(config, state, idx, mask, bs, consume, return_XTY,
-                    impl, blocks_stats=None):
-    """Hoisted-source mid-band reduce sweep (JAX ``sweep.py:390``):
-    :func:`prepare_ozaki_sources` and the statistics once for every fold
-    (or :func:`~cvmatrix_tpu_torch.core.batch.ozaki_sources_from_blocks`
-    of gathered ``blocks_stats``: the mesh path), then per chunk the v3
-    kernel (symmetric under ``sym_loocv``) on sliced sources and
-    ``consume`` (rows gathered by the sources' device rows)."""
-    if blocks_stats is None:
-        src = prepare_ozaki_sources(config, state, idx, mask,
-                                    return_XTX=True, return_XTY=return_XTY)
-        stats = _batch._summed_stats(
-            config, state, src.rows, src.mask,
-            **_batch._stat_flags(config, True, return_XTY))[:4]
-    else:
-        src = _batch.ozaki_sources_from_blocks(
-            config, state, *blocks_stats, return_XTY=return_XTY)
-        stats = blocks_stats[1][:4]
-    out = []
-    for c0 in range(0, src.rows.shape[0], bs):
-        mats = ozaki_v3_from_sources(config, slice_operands(src, c0, bs),
-                                     return_XTY=return_XTY, impl=impl)
-        out.append(consume(
-            _split_mats(mats, state.K, True, return_XTY),
-            _slice_stats(stats, c0, bs),
-            lambda: _validation_rows(state, src.rows[c0:c0 + bs],
-                                     _slice(src.mask, c0, bs))))
     return out

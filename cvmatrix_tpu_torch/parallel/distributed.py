@@ -487,13 +487,13 @@ def sharded_cross_validate_reduce(
 
     1. LOOCV in natural order (``idx[i] == [i]``, at least half the padded
        rows, unmasked, one tile): every rank already holds the validation
-       rows of its folds, so no rows move; each rank prepares the LOOCV
-       sources of its rows once, with the global row count, and runs the
-       port's LOOCV reduce loop on them.
-    2. Folds under the small-fold threshold (the packed route): one gather
-       for the whole fold list, then the packed operands once and the
-       port's small-fold reduce loop on this rank's block of folds.
-    3. v3-sized float64 folds: the same with the v3 sources.
+       rows of its folds, so no rows move; each rank builds the LOOCV fold
+       plan of its rows once, with the global row count, and runs the
+       sweep's chunk loop on it.
+    2. Folds under the small-fold threshold (the packed route, one-row
+       folds included): one gather for the whole fold list, then the packed
+       fold plan once and the sweep's chunk loop on this rank's folds.
+    3. v3-sized float64 folds: the same with the v3 route.
     4. Otherwise chunks of equal size, a multiple of the world size: a
        gather, :func:`~cvmatrix_tpu_torch.core.batch.
        batched_matrices_from_blocks` and the reduction per chunk.
@@ -530,18 +530,21 @@ def sharded_cross_validate_reduce(
         if n_l < threshold and _batch._hoisted_operand_bytes(
                 g, f_dev, n_l, return_XTX, return_XTY
         ) <= _batch._HOIST_BUDGET_BYTES:
+            # one-row folds too: the JAX layer sends them to packed here
             return _sharded_hoisted_reduce(
                 config, state, mesh, idx, mask, reduce_fn,
-                batch_size // n_dev, "smallfold", return_XTX=return_XTX,
-                return_XTY=return_XTY, impl=impl)
+                batch_size // n_dev, "packed" if is_f64 else "packed_f32",
+                return_XTX=return_XTX, return_XTY=return_XTY, impl=impl)
         if (n_l >= threshold and is_f64 and return_XTX
                 and _batch.ozaki_v3_ok(config, g, return_XTX, return_XTY, n_l)
                 and _batch._v3_blocks_hoist_bytes(g, f_dev, n_l)
                 <= _batch._HOIST_BUDGET_BYTES):
             return _sharded_hoisted_reduce(
                 config, state, mesh, idx, mask, reduce_fn,
-                batch_size // n_dev, "v3", return_XTX=return_XTX,
-                return_XTY=return_XTY, impl=impl)
+                batch_size // n_dev,
+                _batch.route_kernel(config, g, n_l, return_XTX, return_XTY,
+                                    mask is not None),
+                return_XTX=return_XTX, return_XTY=return_XTY, impl=impl)
     # Generic body: chunks equalised, each a multiple of the world size.
     bs = max(n_dev, min(batch_size, n_folds) // n_dev * n_dev)
     n_chunks = -(-n_folds // bs)
@@ -572,19 +575,22 @@ def _sharded_loocv_identity_reduce(config, state, mesh, reduce_fn,
     """LOOCV in natural order with no rows moved (JAX ``:737``).
 
     Rank ``d`` holds rows ``[d R, (d + 1) R)``, which are the validation
-    rows of folds ``[d R, (d + 1) R)``: it runs the port's LOOCV reduce
-    loop (:func:`~cvmatrix_tpu_torch.models.sweep._loocv_reduce_loop`:
-    sources once, then per chunk the kernel, the statistics and the
-    reduction, the last chunk a tail) on its rows with the global row
-    count, and the reductions are gathered in rank order, the folds'.
+    rows of folds ``[d R, (d + 1) R)``: it builds the LOOCV fold plan of
+    its rows with the global row count (``core.batch``: the sources once)
+    and runs the sweep's chunk loop on it (per chunk the kernel, the
+    statistics and the reduction, the last chunk a tail), and the
+    reductions are gathered in rank order, the folds'.
     """
     local = state.local
     R = local.N
     bs_local = max(1, min(bs_local_target, R))
-    chunks = _sweep._loocv_reduce_loop(
-        config, local, np.arange(R)[:, None], bs_local,
-        _sweep._reducer(reduce_fn), return_XTY, impl,
-        n_rows_total=state.n_rows)
+    route = _batch.route_kernel(config, local, 1, True, return_XTY, False,
+                                n_folds=bs_local)
+    plan = _batch._plan(config, local, route, np.arange(R)[:, None], None,
+                        return_XTX=True, return_XTY=return_XTY, impl=impl,
+                        n_rows_total=state.n_rows, sweep=True)
+    chunks = _sweep._run_chunks(plan, R, bs_local,
+                                _sweep._reducer(reduce_fn))
     return _tree_map(lambda a: _all_gather(mesh, a)[:n_folds],
                      _sweep._stack_chunks(chunks))
 
@@ -592,35 +598,29 @@ def _sharded_loocv_identity_reduce(config, state, mesh, reduce_fn,
 def _sharded_hoisted_reduce(config, state, mesh, idx, mask, reduce_fn,
                             bs_local_target, route, *, return_XTX,
                             return_XTY, impl):
-    """Hoisted reduce sweep over gathered blocks (JAX ``:900``), ``route``
-    ``"smallfold"`` (packed operands) or ``"v3"``.
+    """Hoisted reduce sweep over gathered blocks (JAX ``:900``) of the
+    packed or v3 ``route``.
 
     Rank ``d`` owns folds ``[d F_loc, (d + 1) F_loc)``. One gather for the
     whole fold list delivers each rank its folds' rows; the statistics and
-    the operands are built once from them, and the port's hoisted reduce
-    loop (:func:`~cvmatrix_tpu_torch.models.sweep._smallfold_reduce_loop`
-    or ``_v3_reduce_loop``) runs over this rank's folds in equal chunks.
+    the route's fold plan are built once from them (``core.batch``), and
+    the sweep's chunk loop runs it over this rank's folds in equal chunks.
     The reductions are gathered in rank order, the folds'.
     """
     _, n_dev = _rank_world(mesh)
     n_folds = idx.shape[0]
-    f_loc = -(-n_folds // n_dev)
-    bs_local = max(1, min(bs_local_target, f_loc))
-    n_chunks = -(-f_loc // bs_local)
-    bs_local = -(-f_loc // n_chunks)
+    bs_local, n_chunks = _sweep.chunking(-(-n_folds // n_dev), state.K, 0,
+                                         max(1, bs_local_target))
     f_loc = n_chunks * bs_local
     idx, mask = _sweep._pad_folds(idx, mask, n_dev * f_loc)
     g = _globals_only(config, state)
     blocks = _fold_blocks(config, state, mesh, idx, mask, return_XTY)
-    blocks_stats = (blocks, stats_from_blocks(config, g, blocks, return_XTX,
-                                              return_XTY))
-    if route == "smallfold":
-        chunks = _sweep._smallfold_reduce_loop(
-            config, g, None, None, bs_local, _sweep._reducer(reduce_fn),
-            return_XTX, return_XTY, impl, blocks_stats=blocks_stats)
-    else:
-        chunks = _sweep._v3_reduce_loop(
-            config, g, None, None, bs_local, _sweep._reducer(reduce_fn),
-            return_XTY, impl, blocks_stats=blocks_stats)
+    plan = _batch._plan(
+        config, g, route, None, None, return_XTX=return_XTX,
+        return_XTY=return_XTY, impl=impl, blocks_stats=(
+            blocks, stats_from_blocks(config, g, blocks, return_XTX,
+                                      return_XTY)))
+    chunks = _sweep._run_chunks(plan, f_loc, bs_local,
+                                _sweep._reducer(reduce_fn))
     return _tree_map(lambda a: _all_gather(mesh, a)[:n_folds],
                      _sweep._stack_chunks(chunks))

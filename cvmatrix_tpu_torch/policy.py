@@ -44,7 +44,7 @@ class RoutingPolicy:
         is kept to route as the JAX package does.
     hoist_reduce
         Build the reduce sweeps' operands once for all folds (the packed and
-        v3 loops); off, every chunk runs the generic per-chunk body.
+        v3 routes' hoisted body); off, every chunk runs the generic body.
     """
 
     sym_loocv: bool = False

@@ -241,7 +241,10 @@ def _worker(rank: int, world: int, port: int, out_dir: str) -> None:
         setattr(D, name, wrapped)
 
     spy("_sharded_loocv_identity_reduce", lambda a: "identity")
-    spy("_sharded_hoisted_reduce", lambda a: a[7])
+    # the route the hoisted body's fold plan takes, by the JAX layer's name
+    # for its body: "v3", or "smallfold" for the packed routes
+    spy("_sharded_hoisted_reduce",
+        lambda a: "v3" if a[7].startswith("v3") else "smallfold")
     kernel_routes = []
     route_kernel = TB.route_kernel
 

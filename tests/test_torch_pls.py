@@ -45,6 +45,7 @@ import pytest
 import torch
 
 import cvmatrix_tpu_torch as T
+from cvmatrix_tpu_torch.core import batch as TB
 from cvmatrix_tpu_torch.models import pls as TP
 from cvmatrix_tpu_torch.models import sweep as TS
 from cvmatrix_tpu_torch.ops import pls as OP
@@ -332,25 +333,31 @@ def _run_formed(dev, scheme, impl, m=3):
 
 
 @pytest.mark.parametrize("body, scheme, impl", [
-    ("_loocv_reduce_loop", "loocv", "auto"),
-    ("_v3_reduce_loop", "kfold", "auto"),
-    ("_smallfold_reduce_loop", "small", "auto"),
-    ("_smallfold_reduce_loop", "masked", "auto"),
+    ("loocv", "loocv", "auto"),
+    ("v3", "kfold", "auto"),
+    ("packed", "small", "auto"),
+    ("packed", "masked", "auto"),
     (None, "loocv", "torch"),
     (None, "masked", "torch"),
 ])
 def test_every_sweep_body(monkeypatch, body, scheme, impl):
     """Each of the sweep's bodies hands the PLS consumer its chunks (the
-    formed-matrix route); ``None`` is the generic per-chunk body."""
-    ran = []
-    for name in ("_loocv_reduce_loop", "_smallfold_reduce_loop",
-                 "_v3_reduce_loop"):
-        def spy(*a, _name=name, _fn=getattr(TS, name), **kw):
-            ran.append(_name)
-            return _fn(*a, **kw)
-        monkeypatch.setattr(TS, name, spy)
+    formed-matrix route): ``body`` is the route of the hoisted body's one
+    fold plan; ``None`` is the generic per-chunk body, a plan a chunk."""
+    built = []
+
+    def spy(config, state, route, *a, _fn=TB._plan, **kw):
+        plan = _fn(config, state, route, *a, **kw)
+        if plan is not None:
+            built.append(route)
+        return plan
+    monkeypatch.setattr(TB, "_plan", spy)
     got, ref = _run_formed("cpu", scheme, impl)
-    assert ran == ([] if body is None else [body])
+    if body is None:
+        n_folds = _folds(scheme)[0].shape[0]
+        assert len(built) == -(-n_folds // 4) and len(set(built)) == 1
+    else:
+        assert built == [body]
     assert _gap(got, ref) <= PRESS_TOL
 
 
@@ -523,12 +530,13 @@ def test_reduce_without_a_consumer_is_unchanged(monkeypatch, scheme, impl):
     def fail(*a, **k):
         raise AssertionError("gathered validation rows without a consumer")
 
-    monkeypatch.setattr(TS, "_validation_rows", fail)
-    real_rows_mask = TS._rows_mask
+    monkeypatch.setattr(TB, "_validation_rows", fail)
     calls = []
-    monkeypatch.setattr(TS, "_rows_mask",
-                        lambda *a, **k: calls.append(1) or real_rows_mask(
-                            *a, **k))
+
+    def copied_rows(*a, _fn=TB._copied_rows, **k):
+        rows_of = _fn(*a, **k)
+        return lambda *b: calls.append(1) or rows_of(*b)
+    monkeypatch.setattr(TB, "_copied_rows", copied_rows)
     out2, names2 = ops_of(lambda: TS.cross_validate_reduce(
         cfg, st, idx, mask, reduce_fn=fn, batch_size=4, impl=impl))
     assert names2 == names and torch.equal(out, out2)

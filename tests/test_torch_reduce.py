@@ -1,7 +1,7 @@
 """The port's reduce sweeps against the JAX package's on the CPU.
 
 ``cross_validate_reduce`` is held against the JAX function of the same name
-for each of its four bodies (the hoisted LOOCV, packed and v3 loops, and
+for each of its bodies (the hoisted LOOCV, packed and v3 fold plans, and
 the generic per-chunk body), which the port runs on the CPU with the
 kernels' twins: LOOCV, L=4, L=10 and L=100, a large-fold batch, masked
 padded batches, XTX alone, XTY alone, float32, ``hoist_reduce`` off,
@@ -25,6 +25,7 @@ from numpy.testing import assert_allclose
 import cvmatrix_tpu as J
 import cvmatrix_tpu_torch as T
 from cvmatrix_tpu.models import sweep as JS
+from cvmatrix_tpu_torch.core import batch as TB
 from cvmatrix_tpu_torch.models import sweep as TS
 
 N = 300
@@ -47,16 +48,26 @@ def _restore_policies():
 
 
 @pytest.fixture
-def loops(monkeypatch):
-    """The names of the hoisted loops that ran (none: the generic body)."""
-    ran = []
-    for name in ("_loocv_reduce_loop", "_smallfold_reduce_loop",
-                 "_v3_reduce_loop"):
-        def spy(*a, _name=name, _fn=getattr(TS, name), **kw):
-            ran.append(_name)
-            return _fn(*a, **kw)
-        monkeypatch.setattr(TS, name, spy)
-    return ran
+def plans(monkeypatch):
+    """The routes of the fold plans built (``core.batch._plan``): one for
+    every fold in a hoisted body, one a chunk in the generic body."""
+    built = []
+
+    def spy(config, state, route, *a, _fn=TB._plan, **kw):
+        plan = _fn(config, state, route, *a, **kw)
+        if plan is not None:
+            built.append(route)
+        return plan
+    monkeypatch.setattr(TB, "_plan", spy)
+    return built
+
+
+def built_as(plans, expect, n_folds, batch_size):
+    """``plans`` are those of the case's body: ``expect = (route,
+    hoisted)``."""
+    route, hoisted = expect
+    chunks = 1 if hoisted else -(-n_folds // min(batch_size, n_folds))
+    assert plans == [route] * chunks
 
 
 def _pick(mats):
@@ -108,47 +119,49 @@ def _masked():
     return idx, mask
 
 
-# name: (K, fold batch, mask, knobs, extra kwargs, dtype, mode, loop)
+# name: (K, fold batch, mask, knobs, extra kwargs, dtype, mode, (route of
+# the fold plans, whether the body is hoisted))
 CASES = {
     "loocv": (6, np.arange(N)[:, None], None, {}, {}, np.float64, "auto",
-              "_loocv_reduce_loop"),
+              ("loocv", True)),
     "loocv_df64x2": (6, np.arange(N)[:, None], None, dict(df64x2=True), {},
-                     np.float64, "auto", "_loocv_reduce_loop"),
+                     np.float64, "auto", ("loocv_x2", True)),
     "loocv_sym": (130, np.arange(N)[:, None], None, dict(sym_loocv=True), {},
-                  np.float64, "auto", "_loocv_reduce_loop"),
+                  np.float64, "auto", ("loocv_sym", True)),
     "loocv_xtx_only": (6, np.arange(N)[:, None], None, {},
                        dict(return_XTY=False), np.float64, "auto",
-                       "_loocv_reduce_loop"),
+                       ("loocv", True)),
     "packed_l4": (6, np.arange(N).reshape(75, 4), None, {}, {}, np.float64,
-                  "auto", "_smallfold_reduce_loop"),
+                  "auto", ("packed", True)),
     "packed_xty_only": (6, np.arange(N).reshape(75, 4), None, {},
                         dict(return_XTX=False), np.float64, "auto",
-                        "_smallfold_reduce_loop"),
+                        ("packed", True)),
     "v3_l10": (6, np.arange(N).reshape(30, 10), None, {}, {}, np.float64,
-               "auto", "_v3_reduce_loop"),
+               "auto", ("v3", True)),
     "v3_l100": (6, np.arange(N).reshape(3, 100), None, {}, {}, np.float64,
-                "auto", "_v3_reduce_loop"),
+                "auto", ("v3", True)),
     "v3_sym_l10": (130, np.arange(N).reshape(30, 10), None,
                    dict(sym_loocv=True), {}, np.float64, "auto",
-                   "_v3_reduce_loop"),
+                   ("v3_sym", True)),
     "v3_masked": (6, "padded", None, {}, {}, np.float64, "auto",
-                  "_v3_reduce_loop"),
+                  ("v3", True)),
     "v3_hoist_off": (6, np.arange(N).reshape(30, 10), None,
-                     dict(hoist_reduce=False), {}, np.float64, "auto", None),
+                     dict(hoist_reduce=False), {}, np.float64, "auto",
+                     ("v3", False)),
     "large_fold_generic": (6, np.arange(280).reshape(7, 40), None, {}, {},
-                           np.float64, "native", None),
+                           np.float64, "native", ("epilogue", False)),
     "f32_loocv": (6, np.arange(N)[:, None], None, dict(f32x2=True), {},
-                  np.float32, "auto", "_loocv_reduce_loop"),
+                  np.float32, "auto", ("loocv_x2", True)),
     "f32_packed_l4": (6, np.arange(N).reshape(75, 4), None, {}, {},
-                      np.float32, "auto", "_smallfold_reduce_loop"),
+                      np.float32, "auto", ("packed_f32", True)),
     "f32_masked_generic": (6, "padded", None, {}, {}, np.float32, "auto",
-                           None),
+                           ("downdate_f32", False)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_cross_validate_reduce_matches_jax(case, loops):
-    k, idx, mask, knobs, kw, dtype, mode, loop = CASES[case]
+def test_cross_validate_reduce_matches_jax(case, plans):
+    k, idx, mask, knobs, kw, dtype, mode, expect = CASES[case]
     if isinstance(idx, str):
         idx, mask = _masked()
     jcfg, js, cfg, st = both(k, dtype, mode)
@@ -156,7 +169,7 @@ def test_cross_validate_reduce_matches_jax(case, loops):
     J.set_routing(**knobs)
     got = TS.cross_validate_reduce(cfg, st, idx, mask, reduce_fn=trace_t,
                                    batch_size=16, **kw)
-    assert loops == ([loop] if loop else [])
+    built_as(plans, expect, idx.shape[0], 16)
     ref = JS.cross_validate_reduce(jcfg, js, idx, mask, reduce_fn=trace_j,
                                    batch_size=16, **kw)
     assert got[0].dtype == (torch.float64 if dtype == np.float64
@@ -256,12 +269,12 @@ def view_t(mats, stats):
 
 @pytest.mark.parametrize("case", ["loocv", "packed_l4", "v3_l10",
                                   "large_fold_generic"])
-def test_view_reductions_hold_no_chunk(case, loops, monkeypatch):
+def test_view_reductions_hold_no_chunk(case, plans, monkeypatch):
     """Each body's per-chunk reductions own their storage: a view of the
     chunk's matrices (``xty[:, 0]``) would hold the whole (F, K, C) output
     alive until the sweep ends (31 GB above the fit at K=20,000); the
     results equal the per-fold engine's."""
-    k, idx, _, knobs, _, dtype, mode, loop = CASES[case]
+    k, idx, _, knobs, _, dtype, mode, expect = CASES[case]
     _, _, cfg, st = both(k, dtype, mode)
     chunks = []
 
@@ -272,7 +285,7 @@ def test_view_reductions_hold_no_chunk(case, loops, monkeypatch):
     monkeypatch.setattr(TS, "_stack_chunks", spy)
     got = TS.cross_validate_reduce(cfg, st, idx, reduce_fn=view_t,
                                    batch_size=7)
-    assert loops == ([loop] if loop else [])
+    built_as(plans, expect, idx.shape[0], 7)
     assert len(chunks) == -(-idx.shape[0] // 7)
     for leaf in (a for c in chunks for a in c.values()):
         assert leaf.untyped_storage().nbytes() == (leaf.numel()
@@ -293,12 +306,12 @@ def stats_view_t(mats, stats):
 
 @pytest.mark.parametrize("case", ["loocv", "loocv_sym", "packed_l4",
                                   "v3_l10", "large_fold_generic"])
-def test_stats_view_reductions_hold_no_buffer(case, loops, monkeypatch):
+def test_stats_view_reductions_hold_no_buffer(case, plans, monkeypatch):
     """Each body's per-chunk reductions of statistics own their storage: a
     view of the chunk's statistics would hold the buffer they came in (on
-    the LOOCV loop the (F, 2, C) one the kernel stores them in) alive until
+    the LOOCV plan the (F, 2, C) one the kernel stores them in) alive until
     the sweep ends; the results equal the per-fold engine's."""
-    k, idx, _, knobs, _, dtype, mode, loop = CASES[case]
+    k, idx, _, knobs, _, dtype, mode, expect = CASES[case]
     T.set_routing(**knobs)
     _, _, cfg, st = both(k, dtype, mode)
     chunks = []
@@ -310,7 +323,7 @@ def test_stats_view_reductions_hold_no_buffer(case, loops, monkeypatch):
     monkeypatch.setattr(TS, "_stack_chunks", spy)
     got = TS.cross_validate_reduce(cfg, st, idx, reduce_fn=stats_view_t,
                                    batch_size=7)
-    assert loops == ([loop] if loop else [])
+    built_as(plans, expect, idx.shape[0], 7)
     assert len(chunks) == -(-idx.shape[0] // 7)
     for leaf in (a for c in chunks for a in c.values()):
         assert leaf.untyped_storage().nbytes() == (leaf.numel()

@@ -70,10 +70,10 @@ ROUTE_SPANS = {
     # _rows_mask's rows; prepare_fold_operands; stats_from_blocks
     "packed": (1, 1, 1),
     "packed_f32": (1, 1, 1),
-    # _rows_mask's rows; prepare_ozaki_sources; its Y-side _summed_stats
-    # and the entry's
-    "v3": (1, 1, 2),
-    "v3_sym": (1, 1, 2),
+    # _rows_mask's rows; the v3 sources; one _summed_stats for the
+    # statistics and the sources' Y side
+    "v3": (1, 1, 1),
+    "v3_sym": (1, 1, 1),
     # the call's rows, mask and total; _summed_stats (fused) or
     # stats_from_blocks (gathered)
     "ozaki_df64": (1, 1, 1),
@@ -127,7 +127,7 @@ def _colsum(mats, stats):
 
 def _reduce_case(kind):
     """``cross_validate_reduce`` through each body: the hoisted LOOCV,
-    packed and v3 loops and the generic one (``impl="torch"``)."""
+    packed and v3 plans and the generic one (``impl="torch"``)."""
     n_l, impl, bs = {"loocv": (1, "auto", 7), "packed": (4, "auto", 4),
                      "v3": (12, "auto", 3), "generic": (4, "torch", 4)}[kind]
     cfg, st = _state()
@@ -142,7 +142,8 @@ def _reduce_case(kind):
     elif kind == "packed":
         want.update({P.SOURCES: 1, P.H2D: 1, P.STATS: 1})
     elif kind == "v3":
-        want.update({P.SOURCES: 1, P.H2D: 1, P.STATS: 2})
+        # one _summed_stats for the statistics and the sources' Y side
+        want.update({P.SOURCES: 1, P.H2D: 1, P.STATS: 1})
     else:
         # the total once, then training_matrices_batched per chunk
         want.update({P.SOURCES: 1 + chunks, P.H2D: chunks,
@@ -155,8 +156,8 @@ def _reduce_case(kind):
 
 
 def _materialize_case(kind):
-    """``materialize_sweep`` through its hoisted LOOCV, packed and v3 loops
-    and its large-fold one, in chunks of 4 folds."""
+    """``materialize_sweep`` through its LOOCV, packed, v3 and large-fold
+    plans, in chunks of 4 folds."""
     n_l, n_folds, mode = {"loocv": (1, 10, "auto"), "packed": (4, 10, "auto"),
                           "v3": (12, 9, "auto"),
                           "epilogue": (40, 3, "native")}[kind]
