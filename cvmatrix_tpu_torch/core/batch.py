@@ -26,10 +26,14 @@ the sweeps (``models.sweep``) and the mesh layer many.
 Fold rows are range-checked once per call of an entry
 (``ops.loocv.check_rows``): on the host where they arrive as host data,
 with one device sync where the operand builders (``prepare_*``) are handed
-CUDA rows. The LOOCV sources keep the rows they checked, and
-:func:`smallfold_from_sources` checks only CUDA rows that are not slices of
-them. The kernel routes skip the per-fold validity raises (the JAX
-package's ``check=False``), so no route synchronises the device per chunk.
+CUDA rows. Host rows and masks reach the device once a call, each through
+one pinned, non-blocking copy (``utils.profiling.to_device``), so that no
+call waits for the card and the host builds the next chunk while the last
+one's kernel runs. The LOOCV sources keep the rows they checked, on the
+device: the LOOCV kernels and :func:`smallfold_from_sources` take slices of
+them unchecked, and check only other CUDA rows. The kernel routes skip the
+per-fold validity raises (the JAX package's ``check=False``), so no route
+synchronises the device per chunk.
 The batched entries
 (:func:`training_matrices_batched` and the sweeps) take fold indices in
 [-N, N) and wrap the negative ones on the host, as NumPy indexing, the
@@ -279,7 +283,8 @@ def prepare_loocv_sources(
     if return_XTY and state.Y is None:
         raise ValueError("Response variables `Y` are not provided.")
     # a copy, so that no later write to the caller's tensor reaches rows
-    # that count as checked
+    # that count as checked (on a card the pinned copy, which waits for no
+    # stream)
     rows = to_device(_loocv.check_rows(idx, state.N), state.device,
                      copy=True)
     rows = rows.reshape(f_folds, n_l)
@@ -382,13 +387,6 @@ def _loocv_stats(config: CVConfig, stats: torch.Tensor, k: int,
             y[:, 1:2] if flags["return_Y_std"] else None)
 
 
-def _views(rows: torch.Tensor, checked: Optional[torch.Tensor]) -> bool:
-    """Whether ``rows`` is a view of the ``checked`` tensor's storage."""
-    return checked is not None and rows.device == checked.device and (
-        rows.untyped_storage().data_ptr()
-        == checked.untyped_storage().data_ptr())
-
-
 def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
                            scal_slice=None, mask_slice=None, *, n_l: int,
                            return_XTY: bool, has_mask: bool,
@@ -409,7 +407,8 @@ def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
     """
     rows = torch.as_tensor(rows)
     # host rows are checked by the wrapper, views of src.rows were checked
-    if rows.device.type != "cpu" and not _views(rows, src.rows):
+    if rows.device.type != "cpu" and not _loocv.shares_storage(rows,
+                                                               src.rows):
         _loocv.check_rows(rows, src.xw.shape[0])
     if rows.numel() % n_l:
         raise ValueError(
@@ -1284,16 +1283,6 @@ def _copied_rows(config, state, idx, mask):
     return chunk
 
 
-def _host_rows(idx, n: int, device, *, pin: bool = True) -> torch.Tensor:
-    """(F,) int64 fold rows on the host, checked against [0, n) and, where
-    ``pin`` and ``device`` is a card, pinned: a sweep's copies of them, a
-    chunk at a time, then run asynchronously. The caller copies them."""
-    rows = _loocv.check_rows(idx, n)
-    if pin and torch.device(device).type == "cuda":
-        return rows.pin_memory()
-    return rows
-
-
 def _hoist_fits(nbytes: float) -> bool:
     """The reduce sweep's gate on building a route's operands for every
     fold: the policy's ``hoist_reduce`` and the JAX package's budget."""
@@ -1316,7 +1305,7 @@ class _Plan(NamedTuple):
 
 def _plan(config, state, route, idx, mask, *, return_XTX, return_XTY, impl,
           with_stats=True, blocks_stats=None, n_rows_total=None, total=None,
-          sweep=False, hoist=False) -> Optional[_Plan]:
+          hoist=False) -> Optional[_Plan]:
     """The operands of :func:`route_kernel`'s ``route`` for the (F, L) host
     folds ``idx`` and their ``mask``, built once by the route's builders,
     and how a chunk of them runs: the package's one switch on the route
@@ -1327,8 +1316,7 @@ def _plan(config, state, route, idx, mask, *, return_XTX, return_XTY, impl,
     (a materialising sweep) computes no statistic the route does not need.
     ``n_rows_total``: the global row count where ``state`` is one rank's
     row shard (the LOOCV sources). ``total``: the large-fold routes' [XTX |
-    XTY], built here where ``None``. ``sweep``: the plan serves a sweep's
-    chunks, so the LOOCV routes pin their host rows. ``hoist``: the reduce
+    XTY], built here where ``None``. ``hoist``: the reduce
     sweep's gate, ``None`` where the JAX package builds no operands for
     every fold (the large-fold routes; the packed and v3 routes off
     ``hoist_reduce`` or over the budget of its memory estimates).
@@ -1336,22 +1324,20 @@ def _plan(config, state, route, idx, mask, *, return_XTX, return_XTY, impl,
     stats = None
     if route.startswith("loocv"):
         if blocks_stats is None:
-            rows = _host_rows(idx[:, 0], state.N, state.device, pin=sweep)
-            src = prepare_loocv_sources(config, state, rows,
+            src = prepare_loocv_sources(config, state, idx[:, 0],
                                         return_XTX=return_XTX,
                                         return_XTY=return_XTY,
                                         n_rows_total=n_rows_total)
         else:
             src = loocv_sources_from_blocks(config, state, blocks_stats[0],
                                             return_XTY=return_XTY)
-            # host rows: checked on the host, no device sync
-            rows = torch.arange(src.scal.shape[0])
             stats = blocks_stats[1][:4]
         stored = with_stats and stats is None  # by the kernel
 
         def chunk(c0, size, out):
+            # the sources' rows, on the device and checked: no copy, no sync
             res = run_loocv_route(
-                config, src, rows[c0:c0 + size], route,
+                config, src, src.rows[c0:c0 + size], route,
                 src.scal[c0:c0 + size], return_XTY=return_XTY, impl=impl,
                 out=out, return_stats=stored)
             return res if stored else (res, _slice_stats(stats, c0, size))

@@ -38,10 +38,10 @@ import numpy as np
 import torch
 
 from ..config import CVConfig
-from ..core.batch import _host_rows, host_folds, host_mask
+from ..core.batch import host_folds, host_mask
 from ..core.state import FitState
 from ..ops import pls as _pls
-from ..ops.loocv import IMPLS
+from ..ops.loocv import IMPLS, check_rows
 from ..utils.profiling import PLS, PLS_SOLVE, spanned, to_device
 from .sweep import ValidationRows, chunking, cross_validate_reduce
 
@@ -175,8 +175,7 @@ def _operator_sweep(config, state, idx, *, n_components, batch_size, impl):
     :func:`solve_operator` over chunks of at most ``batch_size`` folds,
     equalised as the reduce sweep equalises them (no padding)."""
     n_folds = idx.shape[0]
-    rows = to_device(_host_rows(idx[:, 0], state.N, state.device),
-                     state.device, non_blocking=True)
+    rows = to_device(check_rows(idx[:, 0], state.N), state.device)
     bs, _ = chunking(n_folds, state.K, state.K + state.M, batch_size)
     return torch.cat([
         solve_operator(config, state, rows[c0:c0 + bs],

@@ -161,7 +161,7 @@ def materialize_sweep(
                       dtype=config.torch_dtype, device=device)
     plan = _batch._plan(config, state, route, idx, mask,
                         return_XTX=return_XTX, return_XTY=return_XTY,
-                        impl=impl, with_stats=False, sweep=True)
+                        impl=impl, with_stats=False)
     for c0 in range(0, n_chunks * bs, bs):
         plan.run(c0, bs, out=buf)
     if return_XTX and return_XTY:
@@ -400,7 +400,7 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, consume, return_XTX,
     if impl in ("auto", "cuda"):
         plan = _batch._plan(config, state, route, idx, mask,
                             return_XTX=return_XTX, return_XTY=return_XTY,
-                            impl=impl, sweep=True, hoist=True)
+                            impl=impl, hoist=True)
         if plan is not None:
             return _run_chunks(plan, n_total, bs, consume)
     # Generic body: every chunk through training_matrices_batched, with

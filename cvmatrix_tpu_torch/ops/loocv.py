@@ -41,7 +41,8 @@ from ..utils.profiling import to_device
 
 __all__ = ["side_mean_std", "side_stats", "loocv_vectors", "loocv_reference",
            "loocv_sym_reference", "mirror_x_block", "fused_loocv",
-           "check_rows", "launch_counts", "reset_launch_counts", "IMPLS"]
+           "check_rows", "shares_storage", "launch_counts",
+           "reset_launch_counts", "IMPLS"]
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -75,6 +76,17 @@ def check_rows(rows, n: int) -> torch.Tensor:
                 f"fold rows outside [0, {n}) (min {lo}, max {hi})."
             )
     return rows
+
+
+def shares_storage(rows, checked) -> bool:
+    """Whether ``rows`` is a tensor view of the ``checked`` tensor's
+    storage, of its dtype: rows checked already (``LoocvSources.rows`` and
+    slices of it), which the kernel routes take without checking them
+    again, so that no chunk syncs the device."""
+    return (isinstance(rows, torch.Tensor) and checked is not None
+            and rows.device == checked.device and rows.dtype == checked.dtype
+            and rows.untyped_storage().data_ptr()
+            == checked.untyped_storage().data_ptr())
 
 
 def side_mean_std(sums, sq, g, scal, *, need_mean: bool, resolution: float
@@ -229,17 +241,22 @@ def _launch(name, src, rows, scal, out, stats, flags: int,
 
 def _dispatch(name, src, rows, scal, impl, out, flags, dtypes):
     """Check the operands of a LOOCV kernel; returns ``(rows, out, bits)``
-    for a launch, or ``(rows, None, None)`` where the twin runs."""
+    for a launch, or ``(rows, None, None)`` where the twin runs. Rows that
+    are views of ``src.rows`` pass as they are; other rows are checked and
+    moved to the sources' device."""
     if impl not in IMPLS:
         raise ValueError(f"Unknown impl: {impl!r} (auto|cuda|torch).")
     device = src.xw.device
-    rows = check_rows(rows, src.xw.shape[0])
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(
             f"impl='cuda' needs CUDA tensors; the sources are on {device}."
         )
+    if shares_storage(rows, src.rows):
+        rows = rows.reshape(-1)
+    else:
+        rows = to_device(check_rows(rows, src.xw.shape[0]), device)
     if impl == "torch" or (impl == "auto" and device.type == "cpu"):
-        return to_device(rows, device), None, None
+        return rows, None, None
     if device.type != "cuda":
         raise ValueError(f"{name} has no kernel for device {device}.")
     dtype = src.xw.dtype
@@ -273,7 +290,7 @@ def _dispatch(name, src, rows, scal, impl, out, flags, dtypes):
         raise ValueError(f"out must be a contiguous {dtype} ({f_folds}, {k}, "
                          f"{c}) tensor on {device}.")
     bits = sum(b for n, b in _FLAG_BITS.items() if flags[n])
-    return to_device(rows, device, non_blocking=True), out, bits
+    return rows, out, bits
 
 
 def fused_loocv(src, rows, scal: torch.Tensor, *, center_xtx: bool,

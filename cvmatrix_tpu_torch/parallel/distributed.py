@@ -588,7 +588,7 @@ def _sharded_loocv_identity_reduce(config, state, mesh, reduce_fn,
                                 n_folds=bs_local)
     plan = _batch._plan(config, local, route, np.arange(R)[:, None], None,
                         return_XTX=True, return_XTY=return_XTY, impl=impl,
-                        n_rows_total=state.n_rows, sweep=True)
+                        n_rows_total=state.n_rows)
     chunks = _sweep._run_chunks(plan, R, bs_local,
                                 _sweep._reducer(reduce_fn))
     return _tree_map(lambda a: _all_gather(mesh, a)[:n_folds],

@@ -26,8 +26,8 @@ name:
   ``_summed_stats`` and ``stats_from_blocks`` (none on the LOOCV routes,
   whose kernel stores the statistics);
 - ``cvmatrix_tpu_torch.h2d``: each copy of fold rows or a fold mask from
-  the host to the state's device (:func:`to_device`), the wait for the
-  stream that a blocking copy pays included;
+  the host to the state's device (:func:`to_device`): on a card a pin and
+  a non-blocking copy, which waits for no stream;
 - ``cvmatrix_tpu_torch.models.sweep.<entry>``: each
   ``cross_validate_reduce`` and ``materialize_sweep`` call;
 - ``cvmatrix_tpu_torch.models.sweep.reduce_fn``: the user's reduction over
@@ -41,7 +41,8 @@ name:
 
 No span nests inside another of its name, and none changes a result. The
 fold-components that the solves solve (F x A a chunk) are counted by route
-by ``ops.pls.fold_components(route)``.
+by ``ops.pls.fold_components(route)``, and the copies :func:`to_device`
+makes by kind by :func:`h2d_counts`.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ import torch
 import torch.utils._pytree as pytree
 
 __all__ = ["trace", "device_fence", "Stopwatch", "span", "spanned",
-           "to_device"]
+           "to_device", "h2d_counts", "reset_h2d_counts"]
 
 PREFIX = "cvmatrix_tpu_torch."
 FIT = PREFIX + "core.fit"
@@ -91,14 +92,44 @@ def spanned(name: str):
     return wrap
 
 
-def to_device(t: torch.Tensor, device, **kwargs) -> torch.Tensor:
-    """``t.to(device, **kwargs)``, in an ``h2d`` span where ``t`` is on the
-    host: the port moves fold rows and masks to the state's device through
-    it."""
-    if t.is_cpu and torch.autograd._profiler_enabled():
-        with span(H2D):
-            return t.to(device, **kwargs)
-    return t.to(device, **kwargs)
+def to_device(t: torch.Tensor, device, *, copy: bool = False
+              ) -> torch.Tensor:
+    """``t`` on ``device``, in an ``h2d`` span where ``t`` is on the host:
+    the port moves fold rows and masks to the state's device through it.
+
+    A host tensor bound for a card is copied into pinned host memory, then
+    to the card without blocking: the host waits for no stream, the caching
+    host allocator holds the pinned block until the copy has run, and a
+    later write to ``t`` cannot reach what was copied (``copy`` is implied).
+    Elsewhere it is ``t.to(device, copy=copy)``. Every call on a host tensor
+    counts one copy in :func:`h2d_counts`, as ``"non_blocking"``: the host
+    waits for no device.
+    """
+    if not t.is_cpu:
+        return t.to(device, copy=copy)
+    _H2D_COUNTS["non_blocking"] += 1
+    with span(H2D):
+        if torch.device(device).type == "cpu":
+            return t.to(device, copy=copy)
+        # not t.pin_memory(): that returns a pinned t itself, uncopied
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return pinned.copy_(t).to(device, non_blocking=True)
+
+
+_H2D_COUNTS = {"blocking": 0, "non_blocking": 0}
+
+
+def h2d_counts() -> dict:
+    """``{kind: copies}`` of the host tensors :func:`to_device` has copied
+    since :func:`reset_h2d_counts` (or the import): ``"non_blocking"``, and
+    ``"blocking"``, a copy after which the host waits for the device's
+    stream, of which the port makes none (the tests hold it at 0)."""
+    return dict(_H2D_COUNTS)
+
+
+def reset_h2d_counts() -> None:
+    for kind in _H2D_COUNTS:
+        _H2D_COUNTS[kind] = 0
 
 
 @contextlib.contextmanager

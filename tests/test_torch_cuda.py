@@ -11,6 +11,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 import cvmatrix_tpu_torch as T
 from cvmatrix_tpu_torch.core import batch as TB
@@ -953,11 +954,11 @@ def test_slice_rows_kernel_edges(dev, k, row_major):
 
 
 def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
-    """Two profiled LOOCV chunks at K=500 (980 folds each): each LOOCV
-    kernel starts on the card after its chunk's route span starts, and the
-    second chunk's blocking copy of its sources' rows, issued after the
-    first kernel's launch, waits for it: that ``h2d`` span starts before
-    the first kernel ends and ends after it."""
+    """Two profiled LOOCV chunks at K=500, the first of 8,000 folds (a
+    kernel of about 7 ms), the second of 980: each LOOCV kernel starts on
+    the card after its chunk's route span starts, each chunk copies its
+    rows once, and the second chunk's copy, which waits for no stream,
+    ends while the first chunk's kernel still runs."""
     import json
 
     from cvmatrix_tpu_torch.utils import profiling as P
@@ -969,8 +970,9 @@ def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
     cfg = T.CVConfig(True, True, True, True, ddof=1)
     st = T.fit(cfg, X, Y, w)
     perm = rng.permutation(n)
-    chunks = perm[:980, None], perm[980:1960, None]
-    TB.training_matrices_batched(cfg, st, chunks[0])  # loads the kernel
+    chunks = perm[:8000, None], perm[8000:8980, None]
+    for idx in chunks:  # loads the kernel, caches the outputs' memory
+        TB.training_matrices_batched(cfg, st, idx)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -992,11 +994,79 @@ def test_spans_share_the_clock_with_the_loocv_kernel(dev, tmp_path):
     route = spans("user_annotation", lambda s: s == P.ROUTE + "loocv")
     h2d = spans("user_annotation", lambda s: s == P.H2D)
     kernel = spans("kernel", lambda s: "loocv_tile_kernel" in s)
-    # two copies a chunk: the sources' rows and the kernel wrapper's
-    assert len(route) == 2 and len(kernel) == 2 and len(h2d) == 4
+    # one copy a chunk: the sources' rows, which the kernel reads
+    assert len(route) == 2 and len(kernel) == 2 and len(h2d) == 2
     assert all(r0 <= k0 for (r0, _), (k0, _) in zip(route, kernel))
-    (c0, c1), k1 = h2d[2], kernel[0][1]
-    assert c0 < k1 <= c1
+    assert h2d[1][1] < kernel[0][1]
+
+
+def _route_case(dev, route, masked=False):
+    """``(cfg, state, idx, mask)`` on the card whose batch takes ``route``
+    of the cells' routes: one-row LOOCV folds, 12-row v3 folds, or 40-row
+    folds on the epilogue (``matmul_mode="native"``)."""
+    X, Y, w = _data(30)
+    n_l, mode = {"loocv": (1, "auto"), "v3": (12, "auto"),
+                 "epilogue": (40, "native")}[route]
+    cfg = T.CVConfig(True, True, True, True, ddof=1, matmul_mode=mode)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    n_folds = N // n_l
+    idx = np.random.default_rng(31).permutation(N)[:n_folds * n_l].reshape(
+        n_folds, n_l)
+    mask = None
+    if masked:
+        mask = np.ones((n_folds, n_l))
+        mask[:, -1] = 0.0
+    assert TB.route_kernel(cfg, st, n_l, True, True, masked,
+                           n_folds=n_folds) == route
+    return cfg, st, idx, mask
+
+
+@pytest.mark.parametrize("route,masked", [
+    ("loocv", False), ("v3", False), ("v3", True), ("epilogue", False),
+    ("epilogue", True)])
+def test_batched_entry_makes_no_sync(dev, route, masked):
+    """After a warm-up, ``training_matrices_batched`` on host rows (and a
+    host mask) makes no synchronising CUDA call on the routes the cells
+    run: under ``set_sync_debug_mode("error")`` a blocking copy, an
+    ``item()`` or a stream synchronisation would raise."""
+    cfg, st, idx, mask = _route_case(dev, route, masked)
+    TB.training_matrices_batched(cfg, st, idx, mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            TB.training_matrices_batched(cfg, st, idx, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+@pytest.mark.parametrize("route", ["loocv", "v3", "epilogue"])
+def test_batched_entry_copies_the_callers_rows(dev, route, pinned):
+    """The caller's rows (and mask), overwritten as soon as the call
+    returns while the card is still busy with earlier work, do not reach
+    the outputs: each call copies them before it returns, also where the
+    caller's memory is pinned already."""
+    cfg, st, idx, mask = _route_case(dev, route, masked=route != "loocv")
+    want = TB.training_matrices_batched(cfg, st, idx, mask)
+    torch.cuda.synchronize()
+    rows = torch.from_numpy(idx.copy())
+    held = None if mask is None else torch.from_numpy(mask.copy())
+    if pinned:
+        rows = rows.pin_memory()
+        held = None if held is None else held.pin_memory()
+    big = torch.rand((4096, 4096), dtype=torch.float64, device=dev)
+    for _ in range(8):  # keeps the card busy while the host runs on
+        big = big @ big
+        big /= big.abs().max()
+    got = TB.training_matrices_batched(cfg, st, rows, held)
+    rows.copy_(rows.flip(0))
+    if held is not None:
+        held.fill_(1.0)
+    torch.cuda.synchronize()
+    for a, b in zip(pytree.tree_leaves(want), pytree.tree_leaves(got)):
+        assert torch.equal(a, b)
 
 
 # ---- the training statistics the LOOCV kernels store ---------------------- #

@@ -8,7 +8,9 @@ the outputs are bitwise those of a run without a profiler; and with no
 profiler recording, no ``record_function`` is entered. The batched entry
 goes through every route the CPU twins reach, one call a case (one chunk:
 one route span), with the same span counts as on the card: the twins take
-no copy of rows that are on the state's device already.
+no copy of rows that are on the state's device already. Every copy of fold
+rows or a mask is one ``to_device`` call that blocks on nothing
+(``h2d_counts``), as many as the ``h2d`` spans.
 """
 
 import collections
@@ -62,11 +64,11 @@ def _folds(n_folds, n_l, n=N, masked=False):
 # per route of training_matrices_batched, one call: (h2d, sources, stats)
 # with every centre/scale flag on and weights; a mask adds one h2d
 ROUTE_SPANS = {
-    # prepare_loocv_sources' rows, the kernel wrapper's rows; sources; no
+    # prepare_loocv_sources' rows (the kernel runs on them); sources; no
     # statistics span (the kernel stores them)
-    "loocv": (2, 1, 0),
-    "loocv_x2": (2, 1, 0),
-    "loocv_sym": (2, 1, 0),
+    "loocv": (1, 1, 0),
+    "loocv_x2": (1, 1, 0),
+    "loocv_sym": (1, 1, 0),
     # _rows_mask's rows; prepare_fold_operands; stats_from_blocks
     "packed": (1, 1, 1),
     "packed_f32": (1, 1, 1),
@@ -136,9 +138,9 @@ def _reduce_case(kind):
     chunks = -(-n_folds // min(bs, n_folds))
     want = {P.SWEEP + "cross_validate_reduce": 1, P.REDUCE_FN: chunks}
     if kind == "loocv":
-        # sources once; per chunk the kernel's rows (the kernel stores the
-        # statistics: no statistics span)
-        want.update({P.SOURCES: 1, P.H2D: 1 + chunks})
+        # sources and their rows once, which every chunk's kernel reads (the
+        # kernel stores the statistics: no statistics span)
+        want.update({P.SOURCES: 1, P.H2D: 1})
     elif kind == "packed":
         want.update({P.SOURCES: 1, P.H2D: 1, P.STATS: 1})
     elif kind == "v3":
@@ -164,16 +166,13 @@ def _materialize_case(kind):
     cfg, st = _state(mode=mode)
     idx, _ = _folds(n_folds, n_l)
     chunks = -(-n_folds // 4)
-    want = {P.SWEEP + "materialize_sweep": 1, P.SOURCES: 1}
-    if kind == "loocv":
-        want.update({P.H2D: 1 + chunks})
-    elif kind == "packed":
-        want.update({P.H2D: 1, P.STATS: 1})
-    elif kind == "v3":
-        # the Y side's statistics inside prepare_ozaki_sources
-        want.update({P.H2D: 1, P.STATS: 1})
-    else:
-        want.update({P.H2D: 1, P.STATS: chunks})
+    # one copy of the rows: the LOOCV sources' or the call's
+    want = {P.SWEEP + "materialize_sweep": 1, P.SOURCES: 1, P.H2D: 1}
+    if kind in ("packed", "v3"):
+        # v3: the Y side's statistics inside prepare_ozaki_sources
+        want[P.STATS] = 1
+    elif kind == "epilogue":
+        want[P.STATS] = chunks
 
     def run():
         return TS.materialize_sweep(cfg, st, idx, batch_size=4)
@@ -282,6 +281,32 @@ def test_no_record_function_without_a_profiler(name, monkeypatch,
     assert P.span(P.H2D) is P.span(P.STATS)
 
 
+def _pls_case(kind):
+    """``cross_validate_pls``: the operator route's rows copied once, or
+    the reduce sweep's packed plan and its validation rows, one copy
+    each."""
+    n_l, copies = {"loocv": (1, 1), "kfold": (4, 2)}[kind]
+    cfg, st = _state()
+    idx, _ = _folds(12, n_l)
+
+    def run():
+        return T.cross_validate_pls(cfg, st, idx, n_components=2,
+                                    batch_size=5)
+    return run, {P.H2D: copies}
+
+
+@pytest.mark.parametrize("name", CASES + ["pls-loocv", "pls-kfold"])
+def test_h2d_copies_never_block(name, policy_restored):
+    """Every copy of fold rows or a mask an entry makes goes through
+    ``to_device``, as many as its ``h2d`` spans, and none blocks."""
+    kind, _, rest = name.partition("-")
+    run, want = _pls_case(rest) if kind == "pls" else _case(name)
+    P.reset_h2d_counts()
+    run()
+    assert P.h2d_counts() == {"blocking": 0,
+                              "non_blocking": want.get(P.H2D, 0)}
+
+
 def test_route_spans_name_every_route():
     """The route spans' names are the routes of ``TPU_KERNELS``: the
     batched cases above reach each one."""
@@ -289,8 +314,8 @@ def test_route_spans_name_every_route():
 
 
 def test_to_device_spans_host_tensors_only(tmp_path):
-    """``to_device`` opens its span where the tensor is on the host, and
-    returns what ``Tensor.to`` returns."""
+    """``to_device`` opens its span and counts a copy where the tensor is
+    on the host, and returns what ``Tensor.to`` returns."""
     t = torch.arange(5)
 
     def run():
@@ -298,7 +323,9 @@ def test_to_device_spans_host_tensors_only(tmp_path):
         b = P.to_device(torch.zeros(2, device="meta"), "meta")
         return a, b
 
+    P.reset_h2d_counts()
     (a, b), spans = _program_spans(run, tmp_path)
     assert [n for _, _, n in spans] == [P.H2D]
+    assert P.h2d_counts() == {"blocking": 0, "non_blocking": 1}
     assert torch.equal(a, t) and a.data_ptr() != t.data_ptr()
     assert b.device.type == "meta"
