@@ -214,7 +214,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
     a chunk all on the operator route, the two chunks' folds within 1e-12
     of the kernel's own, and folds 0 and N-1 within 1e-9 of
     ``tests/pls_reference.py`` on the card.
-24. Prints the kernels' JSON line (sixteen kernels, each with its bound and
+24. Wide-K PLS cross-validation at the shape of the cell
+    ``ikpls_widek_n5k.kfold10`` (phase 18's data: N=5,000, K=20,000, M=1,
+    P=10 in chunks of 2, A=20, weighted, every flag on, ddof 1). The first
+    chunk's formed matrices, as the reduce sweep's consumer gets them,
+    through ``models.pls.solve`` (``ikpls2`` sends K over ``MAX_K`` to
+    ``ikpls2_wide``): 2 A + 2 ``ikpls2_wide`` launches a solve and no other
+    kernel, the same bits twice, within 1e-10 of the twin's PRESS (of each
+    fold's largest); timed in turns with the twin. Then
+    ``cross_validate_pls`` over every fold: 2 A + 2 ``ikpls2_wide``
+    launches a chunk and no other PLS kernel, P x A fold-components all on
+    the wide route, the first chunk within 1e-12 of the kernels' own, and
+    folds 0 and P-1 within 1e-9 of ``tests/pls_reference.py`` on the card.
+25. Prints the kernels' JSON line (seventeen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
     path, each one's ``mesh_launches`` in phase 19 (a),
@@ -257,6 +269,12 @@ ORACLE_RTOL = 1e-10
 PLS_A = 20
 PLS_BATCH = 512
 PLS_ORACLE_RTOL = 1e-9
+# Phase 24: the wide route's chunk of folds at the cell
+# ikpls_widek_n5k.kfold10 (WIDEK, 5 chunks of 2), and its kernels against
+# the twin on one formed chunk, relative to each fold's largest PRESS (the
+# bound of the card tests, tests/test_torch_pls.py).
+PLS_WIDE_BATCH = 2
+PLS_WIDE_TWIN_RTOL = 1e-10
 # P -> the wrapper whose kernel the K-fold main path must launch
 KFOLD_P = ((25_000, "fold_packed"), (10_000, "fold_v3"), (1_000, "fold_v3"),
            (100, "fold_ozaki_df64"), (10, "fold_epilogue"),
@@ -302,6 +320,7 @@ KERNEL_SOURCES = {
     # the port's own: no TPU kernel stands behind it
     "ikpls2": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
     "ikpls2_op": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
+    "ikpls2_wide": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -3087,20 +3106,127 @@ def main() -> int:
         f"[{card}]")
     del st_p, press, pls_kernel
 
-    # ---- 24. result ---------------------------------------------------------
+    # ---- 24. wide-K PLS cross-validation at the cell's shape ----------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    nw, kw, mw, pw = WIDEK
+    rng = np.random.default_rng(SEED)  # phase 18's data
+    Xw = rng.random((nw, kw), dtype=np.float64)
+    Yw = rng.random((nw, mw), dtype=np.float64)
+    ww = rng.random(nw)
+    Xwd, Ywd, wwd = (torch.from_numpy(a).to(dev) for a in (Xw, Yw, ww))
+    del Xw, Yw, ww
+    st_q = fit(cfg_p, Xwd, Ywd, wwd, copy=False)
+    idx_q = np.arange(nw).reshape(-1, pw).T.copy()  # fold p: rows p, p + P, ..
+    n_q = -(-pw // PLS_WIDE_BATCH)
+    n_lq = idx_q.shape[1]
+    per_chunk = 2 * PLS_A + 2
+    held_q = []
+    cross_validate_reduce(
+        cfg_p, st_q, idx_q[:PLS_WIDE_BATCH], batch_size=PLS_WIDE_BATCH,
+        chunk_fn=lambda mats, stats, rows: held_q.append(
+            (mats, stats, rows)) or rows.X.new_zeros(rows.X.shape[0]))
+    (mats_q, stats_q, rows_q), = held_q
+
+    def wide_solve(impl):
+        """The first chunk's solve: ``ikpls2`` sends K over ``MAX_K`` to
+        ``ikpls2_wide``'s kernels (or, under "torch", to the twin)."""
+        return TP.solve(cfg_p, mats_q, stats_q, rows_q, n_components=PLS_A,
+                        impl=impl)
+
+    reset_launch_counts(TL, FD, SR, OP)
+    wide_q, again_q = wide_solve("cuda"), wide_solve("cuda")
+    torch.cuda.synchronize()
+    solve_launches = launch_counts(TL, FD, SR, OP)
+    twin_q = wide_solve("torch")
+    torch.cuda.synchronize()
+    want = {"ikpls2_wide": 2 * per_chunk}
+    if {k_: v for k_, v in solve_launches.items() if v} != want:
+        raise AssertionError(f"two wide solves launched {solve_launches}, "
+                             f"expected {want}")
+    rel_q = press_rel(wide_q, twin_q)
+    if not (bool(torch.isfinite(wide_q).all())
+            and torch.equal(wide_q, again_q) and rel_q <= PLS_WIDE_TWIN_RTOL):
+        raise AssertionError(f"ikpls2_wide vs twin: relative {rel_q} > "
+                             f"{PLS_WIDE_TWIN_RTOL:g}, or not finite, or "
+                             "not the same bits twice")
+    wide_err = (wide_q - twin_q).abs().max().item()
+    wide_ms = {"torch": [], "cuda": []}
+    for impl in ("cuda", "torch", "cuda", "torch"):
+        wide_ms[impl].append(cuda_ms(lambda impl=impl: wide_solve(impl),
+                                     3 if impl == "cuda" else 1))
+    least_q = bound(*pls_cost([(PLS_WIDE_BATCH, n_lq)], kw, mw, PLS_A, 8,
+                              True))
+    reads_ms = (PLS_WIDE_BATCH * PLS_A * kw * (kw + mw) * 8
+                / HBM_BYTES_PER_S * 1e3)
+    best_q = min(wide_ms["cuda"])
+    chunk_times["ikpls2_wide"] = (best_q, min(wide_ms["torch"]), *least_q,
+                                  None)
+    log(f"[pls-wide] one chunk of {PLS_WIDE_BATCH} folds (L={n_lq}, "
+        f"K={kw:,}, M={mw}, A={PLS_A}): kernels {wide_ms['cuda']} ms, twin "
+        f"{wide_ms['torch']} ms (in turns); {per_chunk} launches a solve, "
+        f"all ikpls2_wide; against the twin relative {rel_q:.3e}, max abs "
+        f"{wide_err:.3e}; bound {least_q[0]:.4f} ms by {least_q[1]}; "
+        f"reading each fold's [XTX | XTY] {PLS_A} times {reads_ms:.3f} ms "
+        f"({reads_ms / best_q:.1%} of the bandwidth)  [{card}]")
+    del held_q, mats_q, stats_q, rows_q, again_q, twin_q
+
+    torch.cuda.empty_cache()
+    reset_launch_counts(TL, FD, SR, OP)
+    t_q, press_q = wall(lambda: cross_validate_pls(
+        cfg_p, st_q, idx_q, n_components=PLS_A, batch_size=PLS_WIDE_BATCH))
+    wide_launches = launch_counts(TL, FD, SR, OP)
+    if (wide_launches["ikpls2_wide"] != n_q * per_chunk
+            or wide_launches["ikpls2"] or wide_launches["ikpls2_op"]):
+        raise AssertionError(f"cross_validate_pls launched {wide_launches}, "
+                             f"expected {n_q * per_chunk} ikpls2_wide and "
+                             "no other PLS kernel")
+    comps = {r: OP.fold_components(r) for r in ("wide", "matrices",
+                                                 "operator")}
+    if comps != {"wide": pw * PLS_A, "matrices": 0, "operator": 0}:
+        raise AssertionError(f"fold-components {comps}, expected "
+                             f"{pw * PLS_A}, all on the wide route")
+    if tuple(press_q.shape) != (pw, PLS_A, mw):
+        raise AssertionError(f"PRESS shape {tuple(press_q.shape)}")
+    same_q = press_rel(press_q[:PLS_WIDE_BATCH], wide_q)
+    if not same_q <= TWIN_RTOL:
+        raise AssertionError(f"cross_validate_pls vs the kernels on its "
+                             f"first chunk: {same_q} > {TWIN_RTOL:g}")
+    oracle_q = {}
+    for p in (0, pw - 1):
+        ref = fold_press(Xwd, Ywd, wwd, idx_q[p], n_components=PLS_A, ddof=1,
+                         **pls_flags)
+        oracle_q[p] = press_rel(press_q[p:p + 1], ref[None])
+    torch.cuda.synchronize()
+    if not max(oracle_q.values()) <= PLS_ORACLE_RTOL:
+        raise AssertionError(f"wide cross_validate_pls vs "
+                             f"tests/pls_reference.py: {oracle_q} > "
+                             f"{PLS_ORACLE_RTOL:g}")
+    log(f"[pls-wide] cross_validate_pls, N={nw:,}, K={kw:,}, {pw} folds in "
+        f"{n_q} chunks of {PLS_WIDE_BATCH}, A={PLS_A}: {t_q:.4f} s "
+        f"({pw / t_q:.2f} folds/s); launches {wide_launches}; "
+        f"fold-components {comps}; first chunk against the kernels' own "
+        f"{same_q}; folds 0 and {pw - 1} against the reference {oracle_q}; "
+        f"phase 24 in {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    del st_q, press_q, wide_q, Xwd, Ywd, wwd
+
+    # ---- 25. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,
                        "slice_rows": slice_launches,
                        "fold_epilogue_widek": widek_launches,
                        "ikpls2": pls_launches["ikpls2"],
-                       "ikpls2_op": pls_launches["ikpls2_op"]}
+                       "ikpls2_op": pls_launches["ikpls2_op"],
+                       "ikpls2_wide": wide_launches["ikpls2_wide"]}
     fold_err["fused_loocv"] = worst_abs
     fold_err["ikpls2"] = pls_err
     fold_err["ikpls2_op"] = op_err
+    fold_err["ikpls2_wide"] = wide_err
     names = ("fused_loocv", *ROUTE_WRAPPER.values(),
              *ROUTE_WRAPPER_F32.values(), *new_kernels, "fold_smallfold",
-             "slice_rows", "fold_epilogue_widek", "ikpls2", "ikpls2_op")
+             "slice_rows", "fold_epilogue_widek", "ikpls2", "ikpls2_op",
+             "ikpls2_wide")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,10 +1,11 @@
 // IKPLS Algorithm #2 on every fold of a chunk, in float64, for Hopper (sm_90a):
-// two kernels, one on the folds' formed training matrices and one that forms
+// three routes, two on the folds' formed training matrices (one block a fold
+// up to K = 8,192; the whole card on the chunk at any K) and one that forms
 // none (one-row folds).
 //
 // The port's own kernels: the JAX package fits no per-fold model, so no TPU
 // kernel stands behind them. Their plain twins are ops/pls.ikpls2_reference
-// and ops/pls.ikpls2_operator_reference.
+// (both formed routes) and ops/pls.ikpls2_operator_reference.
 //
 // ikpls2_kernel (cvm_ikpls2_f64): one block a fold, one launch a chunk. From
 // the fold's training XTX (K, K) and XTY (K, M) alone (Dayal & MacGregor, J.
@@ -80,6 +81,32 @@
 // 0.8 us (40%), the product (22%: each block reads 1 MB of the total from
 // L2) and the Gram matrix (12%). Limits: float64, M <= 32, K <= 768 (shared
 // memory at M = 32), any A.
+
+// The wide kernels (cvm_ikpls2_wide_f64): the same components and scores on
+// formed fold matrices of any K, for a chunk of few wide folds, where one
+// block a fold would leave most SMs idle and three K-vectors overflow shared
+// memory. 2 A + 2 launches a chunk, in stream order:
+//
+//   ikpls2_wide_prep_kernel: the validation rows' x~ (centred and scaled),
+//     transposed to (K, L) a fold, so that their scores x~ . r are column
+//     sums of the same kind as t = r^T XTX;
+//   ikpls2_wide_step_kernel (c = -1): XTY into g, component 0's w and r;
+//   then a component c = 0 .. A-1:
+//   ikpls2_wide_product_kernel: [t | z] = r^T [XTX | x~^T], split by rows:
+//     a block is 256 rows by 1,024 columns of one fold, each entry read once
+//     with streaming loads (4 rows of 4 columns in flight a thread), its
+//     column sums written to a (S, K + L) scratch a fold, S = K / 256;
+//   ikpls2_wide_step_kernel (c): a cluster of 8 blocks a fold, each a slice
+//     of the K columns and L rows: t and z from the split sums, tt, p, q_c,
+//     the deflation, the prediction and PRESS, then component c + 1's S,
+//     Jacobi (as ikpls2_kernel, every block alike), w and Gram-Schmidt r.
+//     Its sums meet through distributed shared memory (4 cluster syncs a
+//     component), added in rank order: no atomics, the same bits each run.
+//
+// What bounds it: the product reads each fold's XTX once a component,
+// 3.2 GB at K = 20,000, A times; it is HBM-bound (PERF.md). The steps read
+// L2-resident K-vectors on 8 SMs a fold. Limits: float64, M <= 32, any K
+// and A, at most 65,535 folds a chunk.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1237,6 +1264,379 @@ __global__ void __cluster_dims__(kOpCluster, 1, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernels (cvm_ikpls2_wide_f64): formed fold matrices of any K, the
+// whole card on a chunk of folds. See the file's comment.
+
+constexpr int kWideThreads = 256;
+constexpr int kWideCols = 4;                         // product columns a thread
+constexpr int kWideTile = kWideThreads * kWideCols;  // product columns a block
+constexpr int kWideRows = 256;                       // rows of a split
+constexpr int kWideUnroll = 4;                       // rows in flight a thread
+constexpr int kWideCluster = 8;                      // step blocks a fold
+constexpr int kStepThreads = 512;                    // threads a step block
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepLanes = 4;                        // split sums in flight
+constexpr int kWideRed = kMaxM * (kMaxM + 1) / 2 + kMaxM;  // sums a sync
+constexpr int kWideT = 32;                           // transpose tile edge
+// the step kernel's dynamic shared memory, in doubles: the warps' partials,
+// two exchange buffers and the sums, then S and V (M x M), q and q_a
+constexpr int kWideShmem =
+    (kStepWarps + 3) * kWideRed + 2 * kMaxM * kMaxM + 2 * kMaxM;
+
+struct WideArgs {
+  const double* xtx;     // fold f, row i, column j at f*xtx_sf + i*xtx_sr + j
+  const double* xty;     // likewise with xty_sf, xty_sr
+  const double* xv;      // (F, L, K) validation rows of X
+  const double* yv;      // (F, L, M) validation rows of Y
+  const double* wv;      // (F, L) weights, or null
+  const double* mv;      // (F, L) mask, or null
+  const double* x_mean;  // fold f at f*x_mean_sf, K values; null unless used
+  const double* x_std;
+  const double* y_mean;  // M values
+  const double* y_std;
+  double* xst;           // (F, K, L) scratch: the rows' x~, transposed
+  double* part;          // (F, S, C) scratch: the product's split sums
+  double* g;             // (F, M, K) scratch: XTY transposed, deflated
+  double* pr;            // (F, 2, A, K) scratch: p, then r, of each component
+  double* yhat;          // (F, L, M) scratch: the running prediction
+  double* z;             // (F, L) scratch: the rows' scores of a component
+  double* press;         // (F, A, M) output
+  int64_t K, M, L, A;
+  int64_t S, C;          // splits of the K rows; C = K + L product columns
+  int64_t xtx_sf, xtx_sr, xty_sf, xty_sr;
+  int64_t x_mean_sf, x_std_sf, y_mean_sf, y_std_sf;
+  int flags;
+};
+
+// xst[f][k][l]: validation row l's column k centred and scaled as the flags
+// say, transposed so that the product streams the rows' scores beside XTX.
+// A block (kWideT, 8) threads is one kWideT x kWideT tile of one fold.
+__global__ void __launch_bounds__(kWideT * 8)
+    ikpls2_wide_prep_kernel(const WideArgs a) {
+  __shared__ double tile[kWideT][kWideT + 1];
+  const int64_t f = blockIdx.z, K = a.K, L = a.L;
+  const int64_t l0 = static_cast<int64_t>(blockIdx.x) * kWideT;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kWideT;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const double* xm = (a.flags & kCenterX) ? a.x_mean + f * a.x_mean_sf
+                                          : nullptr;
+  const double* xs = (a.flags & kScaleX) ? a.x_std + f * a.x_std_sf : nullptr;
+  const double* xv = a.xv + f * L * K;
+  const int64_t k = k0 + tx;
+  for (int i = ty; i < kWideT; i += 8) {
+    const int64_t l = l0 + i;
+    if (l < L && k < K) {
+      double v = xv[l * K + k];
+      if (xm) v = v - xm[k];
+      if (xs) v = v / xs[k];
+      tile[i][tx] = v;
+    }
+  }
+  __syncthreads();
+  double* xst = a.xst + f * K * L;
+  const int64_t l = l0 + tx;
+  for (int i = ty; i < kWideT; i += 8) {
+    const int64_t kk = k0 + i;
+    if (l < L && kk < K) xst[kk * L + l] = tile[tx][i];
+  }
+}
+
+// part[f][s][j] = sum over the rows i of split s of r_i B[i][j], with B =
+// [XTX_f | xst_f] (K x C) and r = R[c] of fold f: a block is one split's
+// kWideRows rows by kWideTile columns of one fold, each entry read once,
+// kWideUnroll rows of kWideCols columns in flight a thread. Rows are summed
+// in order; no atomics, so the same inputs give the same bits.
+__global__ void __launch_bounds__(kWideThreads)
+    ikpls2_wide_product_kernel(const WideArgs a, const int c) {
+  __shared__ double rs[kWideRows];
+  const int64_t f = blockIdx.z, K = a.K, L = a.L;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.y) * kWideRows;
+  const int n = static_cast<int>(min(static_cast<int64_t>(kWideRows), K - i0));
+  const int64_t tiles_x = (K + kWideTile - 1) / kWideTile;
+  const double* src;
+  int64_t ld, ncol, col0, out0;
+  if (blockIdx.x < tiles_x) {
+    src = a.xtx + f * a.xtx_sf;
+    ld = a.xtx_sr;
+    ncol = K;
+    col0 = static_cast<int64_t>(blockIdx.x) * kWideTile;
+    out0 = col0;
+  } else {
+    src = a.xst + f * K * L;
+    ld = L;
+    ncol = L;
+    col0 = (static_cast<int64_t>(blockIdx.x) - tiles_x) * kWideTile;
+    out0 = K + col0;
+  }
+  const double* r = a.pr + (f * 2 + 1) * a.A * K + c * K + i0;
+  for (int i = threadIdx.x; i < n; i += kWideThreads) rs[i] = r[i];
+  __syncthreads();
+  const int64_t j0 = col0 + threadIdx.x;
+  bool ok[kWideCols];
+#pragma unroll
+  for (int s = 0; s < kWideCols; ++s) ok[s] = j0 + s * kWideThreads < ncol;
+  double acc[kWideCols];
+#pragma unroll
+  for (int s = 0; s < kWideCols; ++s) acc[s] = 0.0;
+  const double* base = src + i0 * ld + j0;
+  int i = 0;
+  for (; i + kWideUnroll <= n; i += kWideUnroll) {
+    double v[kWideUnroll][kWideCols];
+#pragma unroll
+    for (int u = 0; u < kWideUnroll; ++u) {
+#pragma unroll
+      for (int s = 0; s < kWideCols; ++s)
+        v[u][s] = ok[s] ? __ldcs(base + (i + u) * ld + s * kWideThreads) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kWideUnroll; ++u) {
+      const double ri = rs[i + u];
+#pragma unroll
+      for (int s = 0; s < kWideCols; ++s) acc[s] += ri * v[u][s];
+    }
+  }
+  for (; i < n; ++i) {
+    const double ri = rs[i];
+#pragma unroll
+    for (int s = 0; s < kWideCols; ++s)
+      if (ok[s]) acc[s] += ri * __ldcs(base + i * ld + s * kWideThreads);
+  }
+  double* out = a.part + (f * a.S + blockIdx.y) * a.C + out0 + threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < kWideCols; ++s)
+    if (ok[s]) out[s * kWideThreads] = acc[s];
+}
+
+// A thread's part of sum number idx: the warp's sum into wred.
+__device__ __forceinline__ void wide_part(double v, double* wred, int idx) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) wred[(threadIdx.x >> 5) * kWideRed + idx] = v;
+}
+
+// The cluster's sums of the n values every warp has put in wred: the
+// block's sums into buf, then every block's buf, in rank order, into out,
+// the same bits in every block. buf alternates between two buffers from
+// one call to the next, so that no block writes a buffer another may still
+// read.
+__device__ void wide_cluster_sum(cg::cluster_group& cl, const double* wred,
+                                 double* buf, double* out, int n) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kStepThreads) {
+    double s = 0.0;
+    for (int w = 0; w < kStepWarps; ++w) s += wred[w * kWideRed + i];
+    buf[i] = s;
+  }
+  cl.sync();
+  for (int i = threadIdx.x; i < n; i += kStepThreads) {
+    double s = 0.0;
+    for (int b = 0; b < kWideCluster; ++b) s += cl.map_shared_rank(buf, b)[i];
+    out[i] = s;
+  }
+  __syncthreads();
+}
+
+// One component's vector work on every fold of the chunk: a cluster of
+// kWideCluster blocks a fold, each a slice of the K columns and of the L
+// validation rows. c >= 0 finishes component c from the product's split
+// sums (t, tt, p and q_c, the deflation of XTY, the rows' scores and PRESS)
+// and, below A - 1, starts component c + 1 (S, Jacobi, w, Gram-Schmidt: r
+// into R[c + 1], which the next product reads); c = -1 copies XTY into g,
+// zeroes yhat and starts component 0.
+__global__ void __cluster_dims__(kWideCluster, 1, 1)
+    __launch_bounds__(kStepThreads) ikpls2_wide_step_kernel(const WideArgs a,
+                                                            const int c) {
+  extern __shared__ double sh[];
+  __shared__ Rot rot;
+  cg::cluster_group cl = cg::this_cluster();
+  const int64_t rank = cl.block_rank();
+  const int64_t f = blockIdx.x / kWideCluster;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int64_t K = a.K, L = a.L, S = a.S, C = a.C;
+  const int M = static_cast<int>(a.M), A = static_cast<int>(a.A);
+  double* wred = sh;                          // kStepWarps x kWideRed
+  double* bufs[2] = {wred + kStepWarps * kWideRed,
+                     wred + (kStepWarps + 1) * kWideRed};
+  double* sum = wred + (kStepWarps + 2) * kWideRed;
+  double* Sm = sum + kWideRed;                // M x M
+  double* V = Sm + kMaxM * kMaxM;             // M x M
+  double* q = V + kMaxM * kMaxM;              // M: eigenvector
+  double* qa = q + kMaxM;                     // M: q_c
+  int nb = 0;
+
+  const int64_t ks = (K + kWideCluster - 1) / kWideCluster;
+  const int64_t k0 = rank * ks, k1 = min(K, k0 + ks);
+  const int64_t ls = (L + kWideCluster - 1) / kWideCluster;
+  const int64_t l0 = rank * ls, l1 = min(L, l0 + ls);
+  double* g = a.g + f * M * K;
+  double* P = a.pr + f * 2 * A * K;
+  double* R = P + A * K;
+  double* yhat = a.yhat + f * L * M;
+  double* z = a.z + f * L;
+
+  int off = 0;  // where the Gram matrix's sums start
+  if (c < 0) {
+    const double* xty = a.xty + f * a.xty_sf;
+    for (int64_t k = k0 + tid; k < k1; k += kStepThreads)
+      for (int m = 0; m < M; ++m) g[m * K + k] = xty[k * a.xty_sr + m];
+    for (int64_t i = l0 * M + tid; i < l1 * M; i += kStepThreads) yhat[i] = 0.0;
+  } else {
+    // t = r^T XTX from the split sums (into P[c]); tt and XTY^T r
+    double* t = P + c * K;
+    const double* r = R + c * K;
+    const double* part = a.part + f * S * C;
+    // kStepLanes of a thread's columns at once, each summed in split order
+    double ttp = 0.0;
+    for (int64_t kb = k0 + tid; kb < k1; kb += kStepLanes * kStepThreads) {
+      double s[kStepLanes];
+#pragma unroll
+      for (int u = 0; u < kStepLanes; ++u) s[u] = 0.0;
+#pragma unroll 4
+      for (int64_t si = 0; si < S; ++si) {
+        const double* ps = part + si * C;
+#pragma unroll
+        for (int u = 0; u < kStepLanes; ++u) {
+          const int64_t k = kb + u * kStepThreads;
+          if (k < k1) s[u] += ps[k];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStepLanes; ++u) {
+        const int64_t k = kb + u * kStepThreads;
+        if (k < k1) {
+          t[k] = s[u];
+          ttp += s[u] * r[k];
+        }
+      }
+    }
+    wide_part(ttp, wred, 0);
+    for (int m = 0; m < M; ++m) {
+      double v = 0.0;
+      for (int64_t k = k0 + tid; k < k1; k += kStepThreads)
+        v += g[m * K + k] * r[k];
+      wide_part(v, wred, 1 + m);
+    }
+    wide_cluster_sum(cl, wred, bufs[nb++ & 1], sum, M + 1);
+    const double tt = sum[0];
+    if (tid < M) qa[tid] = sum[1 + tid] / tt;
+    __syncthreads();
+
+    // p = t / tt (into P[c]); XTY -= (p q_c^T) tt
+    for (int64_t k = k0 + tid; k < k1; k += kStepThreads) {
+      const double p = t[k] / tt;
+      t[k] = p;
+      for (int m = 0; m < M; ++m) g[m * K + k] = g[m * K + k] - (p * qa[m]) * tt;
+    }
+    // the rows' scores z = x~ . r, the prediction and PRESS
+    for (int64_t l = l0 + tid; l < l1; l += kStepThreads) {
+      double s = 0.0;
+#pragma unroll 8
+      for (int64_t si = 0; si < S; ++si) s += part[si * C + K + l];
+      z[l] = s;
+    }
+    const double* yv = a.yv + f * L * M;
+    const double* wv = a.wv ? a.wv + f * L : nullptr;
+    const double* mv = a.mv ? a.mv + f * L : nullptr;
+    const double* ym = (a.flags & kCenterY) ? a.y_mean + f * a.y_mean_sf
+                                            : nullptr;
+    const double* ys = (a.flags & kScaleY) ? a.y_std + f * a.y_std_sf
+                                           : nullptr;
+    for (int m = 0; m < M; ++m) {
+      double e2 = 0.0;
+      for (int64_t l = l0 + tid; l < l1; l += kStepThreads) {
+        const double yh = yhat[l * M + m] + z[l] * qa[m];
+        yhat[l * M + m] = yh;
+        double pred = yh;
+        if (ys) pred = pred * ys[m];
+        if (ym) pred = pred + ym[m];
+        const double e = yv[l * M + m] - pred;
+        double wl = wv ? wv[l] : 1.0;
+        if (mv) wl = wl * mv[l];
+        e2 += wl * (e * e);
+      }
+      wide_part(e2, wred, m);
+    }
+    off = M;
+  }
+
+  const bool next = c + 1 < A;
+  const int n_sym = M * (M + 1) / 2;
+  if (next) {
+    // S = XTY^T XTY of the deflated XTY
+    for (int pi = 0; pi < n_sym; ++pi) {
+      int i = 0, rem = pi;
+      while (rem >= M - i) {
+        rem -= M - i;
+        ++i;
+      }
+      const int j = i + rem;
+      double v = 0.0;
+      for (int64_t k = k0 + tid; k < k1; k += kStepThreads)
+        v += g[i * K + k] * g[j * K + k];
+      wide_part(v, wred, off + pi);
+    }
+  }
+  wide_cluster_sum(cl, wred, bufs[nb++ & 1], sum, off + (next ? n_sym : 0));
+  if (c >= 0 && rank == 0 && tid < M) a.press[(f * A + c) * M + tid] = sum[tid];
+  if (!next) {
+    cl.sync();  // no block leaves while another reads its shared memory
+    return;
+  }
+  for (int pi = tid; pi < n_sym; pi += kStepThreads) {
+    int i = 0, rem = pi;
+    while (rem >= M - i) {
+      rem -= M - i;
+      ++i;
+    }
+    const int j = i + rem;
+    Sm[i * M + j] = sum[off + pi];
+    Sm[j * M + i] = sum[off + pi];
+  }
+  __syncthreads();
+  if (warp == 0) jacobi_dominant(Sm, V, q, M, &rot);
+  __syncthreads();
+
+  // w = XTY q (unnormalised, into R[c + 1]); ||w|| and p_j . w (j <= c),
+  // at most kWideRed sums a sync; r = w / ||w|| - sum_j (p_j . w / ||w||) r_j
+  double* rn = R + (c + 1) * K;
+  double nn = 0.0;
+  for (int64_t k = k0 + tid; k < k1; k += kStepThreads) {
+    double v = 0.0;
+    for (int m = 0; m < M; ++m) v += g[m * K + k] * q[m];
+    rn[k] = v;
+    nn += v * v;
+  }
+  double nrm = 0.0;
+  int j = 0;
+  for (bool first = true; first || j <= c; first = false) {
+    int n = 0;
+    if (first) wide_part(nn, wred, n++);
+    const int jb = j;
+    for (; j <= c && n < kWideRed; ++j, ++n) {
+      double v = 0.0;
+      for (int64_t k = k0 + tid; k < k1; k += kStepThreads) {
+        double wk = rn[k];
+        if (!first) {
+          wk = 0.0;
+          for (int m = 0; m < M; ++m) wk += g[m * K + k] * q[m];
+        }
+        v += P[j * K + k] * wk;
+      }
+      wide_part(v, wred, n);
+    }
+    wide_cluster_sum(cl, wred, bufs[nb++ & 1], sum, n);
+    const int s0 = first ? 1 : 0;
+    if (first) nrm = sqrt(sum[0]);
+    for (int64_t k = k0 + tid; k < k1; k += kStepThreads) {
+      double rk = first ? rn[k] / nrm : rn[k];
+      for (int jj = jb; jj < j; ++jj)
+        rk = rk - (sum[s0 + jj - jb] / nrm) * R[jj * K + k];
+      rn[k] = rk;
+    }
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+}
+
 }  // namespace
 
 // Every fold's IKPLS #2 solve and weighted PRESS: F blocks of kThreads.
@@ -1366,4 +1766,54 @@ extern "C" int cvm_ikpls2_op_clusters(int64_t K, int64_t M, int* err_out,
   }
   *err_out = static_cast<int>(err);
   return err == cudaSuccess ? n : 0;
+}
+
+// Every fold's IKPLS #2 solve and weighted PRESS on formed fold matrices of
+// any K, the whole card on the chunk: the rows' transpose, component 0's
+// start, then a product and a step a component (2 A + 2 launches, in
+// stream order). Returns a cudaError_t (0 on success).
+extern "C" int cvm_ikpls2_wide_f64(
+    const double* xtx, const double* xty, const double* xv, const double* yv,
+    const double* wv, const double* mv, const double* x_mean,
+    const double* x_std, const double* y_mean, const double* y_std,
+    double* xst, double* part, double* g, double* pr, double* yhat,
+    double* z, double* press, int64_t F, int64_t K, int64_t M, int64_t L,
+    int64_t A, int64_t xtx_sf, int64_t xtx_sr, int64_t xty_sf,
+    int64_t xty_sr, int64_t x_mean_sf, int64_t x_std_sf, int64_t y_mean_sf,
+    int64_t y_std_sf, int flags, int device, void* stream) {
+  if (F <= 0 || A <= 0) return 0;
+  const int64_t S = (K + kWideRows - 1) / kWideRows;
+  const int64_t tiles = (K + kWideTile - 1) / kWideTile +
+                        (L + kWideTile - 1) / kWideTile;
+  if (K < 1 || M < 1 || M > kMaxM || L < 1 || F > 65535 || S > 65535 ||
+      (K + kWideT - 1) / kWideT > 65535 || A > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int shmem = static_cast<int>(sizeof(double) * kWideShmem);
+  err = cudaFuncSetAttribute(ikpls2_wide_step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  WideArgs a{xtx,    xty,    xv,        yv,       wv,        mv,
+             x_mean, x_std,  y_mean,    y_std,    xst,       part,
+             g,      pr,     yhat,      z,        press,     K,
+             M,      L,      A,         S,        K + L,     xtx_sf,
+             xtx_sr, xty_sf, xty_sr,    x_mean_sf, x_std_sf, y_mean_sf,
+             y_std_sf, flags};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 prep((L + kWideT - 1) / kWideT, (K + kWideT - 1) / kWideT, F);
+  ikpls2_wide_prep_kernel<<<prep, dim3(kWideT, 8), 0, st>>>(a);
+  const unsigned steps = static_cast<unsigned>(F * kWideCluster);
+  ikpls2_wide_step_kernel<<<steps, kStepThreads, shmem, st>>>(a, -1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(S),
+                  static_cast<unsigned>(F));
+  for (int c = 0; c < A; ++c) {
+    ikpls2_wide_product_kernel<<<grid, kWideThreads, 0, st>>>(a, c);
+    ikpls2_wide_step_kernel<<<steps, kStepThreads, shmem, st>>>(a, c);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

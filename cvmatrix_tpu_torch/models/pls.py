@@ -10,22 +10,24 @@ Improved Kernel PLS Algorithm #2 (Dayal & MacGregor, J. Chemometrics
 validation rows are predicted with 1..A components, and each component
 count is scored, so that the user can choose A.
 
-:func:`cross_validate_pls` takes one of two routes, by what the input
-shows (:func:`operator_route`). A leave-one-out batch (one unmasked row a
-fold) of a float64 state with K at most ``ops.pls.MAX_OP_K``, under
-``impl="auto"`` or ``"cuda"``, forms no fold matrix: its own loop of
-chunks of ``batch_size`` folds, the rows copied to the state's device once
-a call, and one :func:`solve_operator` a chunk, i.e. one
+:func:`cross_validate_pls` takes one of three routes, by what the input
+shows. A leave-one-out batch (one unmasked row a fold) of a float64 state
+with K at most ``ops.pls.MAX_OP_K``, under ``impl="auto"`` or ``"cuda"``
+(:func:`operator_route`), forms no fold matrix: its own loop of chunks of
+``batch_size`` folds, the rows copied to the state's device once a call,
+and one :func:`solve_operator` a chunk, i.e. one
 ``ops.pls.ikpls2_operator`` (the kernel ``cvm_ikpls2_op_f64`` on the card,
 its twin on the CPU), which applies each fold's training ``XTX`` as the
 fitted total plus the fold's rank-one corrections. Every other bucket
-(K-fold, masked, float32, ``impl="torch"``, K over the limit) runs through
-the reduce sweep's bodies
+(K-fold, masked, float32, ``impl="torch"``, K over the operator's limit)
+runs through the reduce sweep's bodies
 (:func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce` with a
 chunk consumer: the hoisted body's LOOCV, packed and v3 fold plans, the
 generic per-chunk body, masked batches) on formed fold matrices;
-:func:`solve` is that consumer, one ``ops.pls.ikpls2`` call a chunk: the
-hand-written kernel on the card, its plain twin on the CPU. There is no
+:func:`solve` is that consumer, one ``ops.pls.ikpls2`` call a chunk (one
+block a fold), which sends K over ``ops.pls.MAX_K`` to the wide route's
+``ops.pls.ikpls2_wide`` (the whole card on the chunk, K unbounded): the
+hand-written kernels on the card, their plain twin on the CPU. There is no
 float32 kernel: a float32 state on the card needs ``impl="torch"``, which
 runs the twin there.
 """
@@ -60,7 +62,8 @@ def solve(config: CVConfig, mats, stats, rows: ValidationRows, *,
     ``((x - X_mean) / X_std) B_a * Y_std + Y_mean``, each term only where
     its flag is on, with the fold's own training statistics, and
     ``PRESS[a - 1, m]`` the sum over the fold's rows of weight times mask
-    times the squared residual of response ``m``."""
+    times the squared residual of response ``m``. One ``ops.pls.ikpls2``
+    call, which solves K over ``ops.pls.MAX_K`` by ``ops.pls.ikpls2_wide``."""
     xtx, xty = mats
     return _pls.ikpls2(
         xtx, xty, rows.X, rows.Y, rows.w, rows.mask, stats,
@@ -97,8 +100,9 @@ def cross_validate_pls(
     the training rows of every fold (N less its validation rows).
 
     ``impl``: ``"auto"`` takes the operator route for leave-one-out
-    batches (:func:`operator_route`), else the sweep's hoisted bodies, and
-    the kernels on the card (the twins on the CPU), ``"cuda"`` the same and
+    batches (:func:`operator_route`), else the sweep's hoisted bodies and
+    the wide route's solve where K is over ``ops.pls.MAX_K``, and the
+    kernels on the card (the twins on the CPU), ``"cuda"`` the same and
     requires CUDA tensors, ``"torch"`` the generic body and every twin. The
     kernels are float64 only: a float32 state runs on the CPU, or on the
     card with ``impl="torch"``, and raises otherwise.

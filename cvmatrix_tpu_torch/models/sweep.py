@@ -415,6 +415,8 @@ def _reduce_sweep_impl(config, state, idx, mask, bs, consume, return_XTX,
             return_XTX=return_XTX, return_XTY=return_XTY, impl=impl,
             total=total)
         out.append(consume(mats, stats, lambda: rows_of(c0, bs)))
+        # freed before the next chunk allocates its own
+        del mats, stats
     return out
 
 

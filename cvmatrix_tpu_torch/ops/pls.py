@@ -47,32 +47,51 @@ cluster of two blocks holds eight folds and multiplies the shared total by
 their eight ``r1 (.) r`` on the FP64 tensor cores each component; twin
 :func:`ikpls2_operator_reference`, dispatched as :func:`ikpls2`.
 
-Counters: :func:`launch_counts` (kernel launches, ``ikpls2`` and
-``ikpls2_op``) and :func:`fold_components` (F x A of every solve, kernel or
-twin, by route).
+Formed fold matrices wider than :data:`MAX_K` take :func:`ikpls2_wide`,
+to which :func:`ikpls2` sends them: the same components and scores, with
+the whole card on a chunk of folds rather than one block a fold. Each
+component's product ``r^T XTX_f`` is split by rows over many blocks, each
+streaming its rows once with the validation rows' scores beside them, and
+one fused step a component (a cluster of blocks a fold) sums the splits
+and does the vector work: ``tt``, ``p``, ``q_a``, the deflation, the
+PRESS, and the next component's ``w`` and Gram-Schmidt ``r`` (Jacobi as
+:func:`ikpls2` for M > 1). Kernels: ``csrc/pls.cu``
+(``cvm_ikpls2_wide_f64``: 2 A + 2 launches a chunk, every one named
+``ikpls2_wide_*``), float64, M at most :data:`MAX_M`, any K; twin
+:func:`ikpls2_reference`, dispatched as :func:`ikpls2`. It runs in a span
+``cvmatrix_tpu_torch.ops.pls.ikpls2_wide`` (``utils/profiling.py``).
+
+Counters: :func:`launch_counts` (kernel launches, ``ikpls2``, ``ikpls2_op``
+and ``ikpls2_wide``) and :func:`fold_components` (F x A of every solve,
+kernel or twin, by route).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import PLS_WIDE, spanned
 from .fold_downdate import _fn, _run, _use_kernel
 from .loocv import _ptr
 from .loocv import side_mean_std as _side_mean_std
 from .precision import highest_precision
 
-__all__ = ["MAX_M", "MAX_OP_K", "MAX_SWEEPS", "fold_components", "ikpls2",
-           "ikpls2_operator", "ikpls2_operator_reference", "ikpls2_reference",
-           "jacobi_dominant", "max_active_clusters", "round_robin_pairs",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["MAX_K", "MAX_M", "MAX_OP_K", "MAX_SWEEPS", "fold_components",
+           "ikpls2", "ikpls2_operator", "ikpls2_operator_reference",
+           "ikpls2_reference", "ikpls2_wide", "jacobi_dominant",
+           "max_active_clusters", "round_robin_pairs", "launch_counts",
+           "reset_launch_counts"]
 
-# Widest response the kernel takes (one warp's lanes over the responses)
-# and the widest fold product (its three K-vectors in shared memory).
+# Widest response the kernels take (one warp's lanes over the responses)
+# and the widest fold product of ikpls2 (its three K-vectors in shared
+# memory); a wider one takes ikpls2_wide.
 MAX_M = 32
 MAX_K = 8192
+# Rows of a split of ikpls2_wide's product (kWideRows in csrc/pls.cu).
+_WIDE_ROWS = 256
 # Widest K of the operator kernel: a block keeps its cluster's eight
 # (r1 (.) r) vectors and four folds' vectors and M x M matrices in shared
 # memory, 219 KB at K=768, M=32 (see csrc/pls.cu).
@@ -249,8 +268,10 @@ def ikpls2(xtx, xty, X_val, Y_val, w_val, mask, stats, *, n_components: int,
 
     Operands as :func:`ikpls2_reference`; on the kernel's path every one is
     float64 on one CUDA device, ``xtx``/``xty``/statistics with contiguous
-    rows (any fold and row strides), the validation rows contiguous, M at
-    most :data:`MAX_M` and K at most :data:`MAX_K`."""
+    rows (any fold and row strides), the validation rows contiguous and M
+    at most :data:`MAX_M`. K over :data:`MAX_K` is solved by
+    :func:`ikpls2_wide` (its kernels, twin, span and counters), whatever
+    ``impl``."""
     k = xty.shape[1]
     m = xty.shape[2]
     f_folds = xty.shape[0]
@@ -259,6 +280,9 @@ def ikpls2(xtx, xty, X_val, Y_val, w_val, mask, stats, *, n_components: int,
         raise ValueError(f"n_components must be at least 1, got {A}")
     flags = dict(center_X=center_X, center_Y=center_Y, scale_X=scale_X,
                  scale_Y=scale_Y)
+    if k > MAX_K:
+        return ikpls2_wide(xtx, xty, X_val, Y_val, w_val, mask, stats,
+                           n_components=A, impl=impl, **flags)
     device = xty.device
     launch = _use_kernel("ikpls2", impl, device)
     if launch and xty.dtype != torch.float64:
@@ -268,49 +292,131 @@ def ikpls2(xtx, xty, X_val, Y_val, w_val, mask, stats, *, n_components: int,
     if not launch:
         return ikpls2_reference(xtx, xty, X_val, Y_val, w_val, mask, stats,
                                 n_components=A, **flags)
-    if m > MAX_M or k > MAX_K:
-        raise ValueError(
-            f"ikpls2's kernel takes M <= {MAX_M} and K <= {MAX_K} (M={m}, "
-            f"K={k}); run impl='torch'")
-    n_l = X_val.shape[1]
-    if (tuple(xtx.shape) != (f_folds, k, k)
-            or tuple(X_val.shape) != (f_folds, n_l, k)
-            or tuple(Y_val.shape) != (f_folds, n_l, m)):
-        raise ValueError(
-            f"ikpls2: xtx {tuple(xtx.shape)}, xty {tuple(xty.shape)}, X_val "
-            f"{tuple(X_val.shape)} and Y_val {tuple(Y_val.shape)} do not "
-            "match (F, K, K), (F, K, M), (F, L, K), (F, L, M)")
-    xtx, xtx_sf = _strided(xtx, True)
-    xty, xty_sf = _strided(xty, True)
-    X_mean, X_std, Y_mean, Y_std = stats
-    mean_x, mean_x_sf = _strided(X_mean, center_X)
-    std_x, std_x_sf = _strided(X_std, scale_X)
-    mean_y, mean_y_sf = _strided(Y_mean, center_Y)
-    std_y, std_y_sf = _strided(Y_std, scale_Y)
-    dense = [t.contiguous() if t is not None else None
-             for t in (X_val, Y_val, w_val, mask)]
-    for t in [xtx, xty, mean_x, std_x, mean_y, std_y, *dense]:
-        if t is not None and (t.device != device
-                              or t.dtype != torch.float64):
-            raise ValueError(f"ikpls2 operands must all be float64 on "
-                             f"{device}.")
-    for name, t, shape in (("w_val", dense[2], (f_folds, n_l)),
-                           ("mask", dense[3], (f_folds, n_l))):
-        if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"ikpls2: {name} must be {shape}, got "
-                             f"{tuple(t.shape)}")
+    if m > MAX_M:
+        raise ValueError(f"ikpls2's kernel takes M <= {MAX_M} (M={m}); run "
+                         "impl='torch'")
+    ops = _formed_operands("ikpls2", xtx, xty, X_val, Y_val, w_val, mask,
+                           stats, flags)
+    n_l = ops.n_l
     g = torch.empty((f_folds, m, k), dtype=torch.float64, device=device)
     pr = torch.empty((f_folds, 2, A, k), dtype=torch.float64, device=device)
     yhat = torch.empty((f_folds, n_l, m), dtype=torch.float64, device=device)
     press = torch.empty((f_folds, A, m), dtype=torch.float64, device=device)
     fn = _fn("pls", "cvm_ikpls2_f64", 14, 13, (ctypes.c_int,))
-    bits = sum(b for n, b in _FLAG_BITS.items() if flags[n])
-    _run("ikpls2", fn, _ptr(xtx), _ptr(xty), *(_ptr(t) for t in dense),
-         _ptr(mean_x), _ptr(std_x), _ptr(mean_y), _ptr(std_y), _ptr(g),
-         _ptr(pr), _ptr(yhat), _ptr(press), f_folds, k, m, n_l, A,
-         xtx_sf, xtx.stride(1), xty_sf, xty.stride(1), mean_x_sf, std_x_sf,
-         mean_y_sf, std_y_sf, bits, device=device)
+    _run("ikpls2", fn, *ops.ptrs, _ptr(g), _ptr(pr), _ptr(yhat),
+         _ptr(press), f_folds, k, m, n_l, A, *ops.strides, ops.bits,
+         device=device)
     ikpls2.launches += 1
+    return press
+
+
+class _Formed(NamedTuple):
+    """A chunk's operands on formed fold matrices, checked for a kernel:
+    ``tensors`` xtx, xty, the validation rows, weights and mask and the
+    four statistics (``None`` where off; copies where rows were not
+    contiguous, kept alive here until the launch), their ``strides``
+    (xtx's and xty's fold and row strides, then each statistic's fold
+    stride), the flag ``bits`` and ``n_l``, the validation rows a fold."""
+    tensors: tuple
+    strides: tuple
+    bits: int
+    n_l: int
+
+    @property
+    def ptrs(self) -> tuple:
+        return tuple(_ptr(t) for t in self.tensors)
+
+
+def _formed_operands(name, xtx, xty, X_val, Y_val, w_val, mask, stats,
+                     flags) -> _Formed:
+    """Check the operands of :func:`ikpls2` or :func:`ikpls2_wide` for
+    their kernel: every one float64 on xty's device, the shapes (F, K, K),
+    (F, K, M), (F, L, K), (F, L, M) and (F, L)."""
+    f_folds, k, m = xty.shape
+    device = xty.device
+    n_l = X_val.shape[1]
+    if (tuple(xtx.shape) != (f_folds, k, k)
+            or tuple(X_val.shape) != (f_folds, n_l, k)
+            or tuple(Y_val.shape) != (f_folds, n_l, m)):
+        raise ValueError(
+            f"{name}: xtx {tuple(xtx.shape)}, xty {tuple(xty.shape)}, X_val "
+            f"{tuple(X_val.shape)} and Y_val {tuple(Y_val.shape)} do not "
+            "match (F, K, K), (F, K, M), (F, L, K), (F, L, M)")
+    xtx, xtx_sf = _strided(xtx, True)
+    xty, xty_sf = _strided(xty, True)
+    X_mean, X_std, Y_mean, Y_std = stats
+    mean_x, mean_x_sf = _strided(X_mean, flags["center_X"])
+    std_x, std_x_sf = _strided(X_std, flags["scale_X"])
+    mean_y, mean_y_sf = _strided(Y_mean, flags["center_Y"])
+    std_y, std_y_sf = _strided(Y_std, flags["scale_Y"])
+    dense = [t.contiguous() if t is not None else None
+             for t in (X_val, Y_val, w_val, mask)]
+    for t in [xtx, xty, mean_x, std_x, mean_y, std_y, *dense]:
+        if t is not None and (t.device != device
+                              or t.dtype != torch.float64):
+            raise ValueError(f"{name} operands must all be float64 on "
+                             f"{device}.")
+    for nm, t, shape in (("w_val", dense[2], (f_folds, n_l)),
+                         ("mask", dense[3], (f_folds, n_l))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {nm} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    strides = (xtx_sf, xtx.stride(1), xty_sf, xty.stride(1), mean_x_sf,
+               std_x_sf, mean_y_sf, std_y_sf)
+    bits = sum(b for nm, b in _FLAG_BITS.items() if flags[nm])
+    return _Formed((xtx, xty, *dense, mean_x, std_x, mean_y, std_y), strides,
+                   bits, n_l)
+
+
+@spanned(PLS_WIDE)
+def ikpls2_wide(xtx, xty, X_val, Y_val, w_val, mask, stats, *,
+                n_components: int, center_X: bool, center_Y: bool,
+                scale_X: bool, scale_Y: bool,
+                impl: str = "auto") -> torch.Tensor:
+    """Every fold's IKPLS #2 solve and score on formed fold matrices of any
+    K, the whole card on the chunk -> (F, A, M) weighted PRESS.
+
+    Operands and dispatch as :func:`ikpls2` (twin :func:`ikpls2_reference`);
+    on the kernel's path (``cvm_ikpls2_wide_f64``, 2 A + 2 launches) M is
+    at most :data:`MAX_M` and the chunk at most 65,535 folds. Scratch of
+    about F (K L + (K / 256 + 2 A + M) K) values is allocated a call: the
+    validation rows' centred and scaled columns, transposed, and the
+    product's split sums."""
+    f_folds, k, m = xty.shape
+    A = int(n_components)
+    if A < 1:
+        raise ValueError(f"n_components must be at least 1, got {A}")
+    flags = dict(center_X=center_X, center_Y=center_Y, scale_X=scale_X,
+                 scale_Y=scale_Y)
+    device = xty.device
+    launch = _use_kernel("ikpls2_wide", impl, device)
+    if launch and xty.dtype != torch.float64:
+        raise ValueError(f"ikpls2_wide has no kernel for {xty.dtype}; pass "
+                         "impl='torch' to run its plain twin")
+    ikpls2_wide.fold_components += f_folds * A
+    if not launch:
+        return ikpls2_reference(xtx, xty, X_val, Y_val, w_val, mask, stats,
+                                n_components=A, **flags)
+    if m > MAX_M or f_folds > 65535:
+        raise ValueError(
+            f"ikpls2_wide's kernel takes M <= {MAX_M} and at most 65,535 "
+            f"folds a chunk (M={m}, F={f_folds}); run impl='torch'")
+    ops = _formed_operands("ikpls2_wide", xtx, xty, X_val, Y_val, w_val,
+                           mask, stats, flags)
+    n_l = ops.n_l
+    splits = -(-k // _WIDE_ROWS)
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float64, device=device)
+    xst, part = scratch(f_folds, k, n_l), scratch(f_folds, splits, k + n_l)
+    g, pr = scratch(f_folds, m, k), scratch(f_folds, 2, A, k)
+    yhat, z = scratch(f_folds, n_l, m), scratch(f_folds, n_l)
+    press = scratch(f_folds, A, m)
+    fn = _fn("pls", "cvm_ikpls2_wide_f64", 17, 13, (ctypes.c_int,))
+    _run("ikpls2_wide", fn, *ops.ptrs, *(_ptr(t) for t in (
+        xst, part, g, pr, yhat, z, press)), f_folds, k, m, n_l, A,
+         *ops.strides, ops.bits, device=device)
+    ikpls2_wide.launches += 2 * A + 2
     return press
 
 
@@ -529,32 +635,37 @@ def max_active_clusters(k: int, m: int, device=None) -> int:
     return n
 
 
+_ROUTES = {"operator": ikpls2_operator, "matrices": ikpls2,
+           "wide": ikpls2_wide}
+
+
 def reset_launch_counts() -> None:
-    ikpls2.launches = 0
-    ikpls2.fold_components = 0
-    ikpls2_operator.launches = 0
-    ikpls2_operator.fold_components = 0
+    for fn in _ROUTES.values():
+        fn.launches = 0
+        fn.fold_components = 0
 
 
 def launch_counts() -> dict:
-    """``{"ikpls2": launches, "ikpls2_op": launches}`` since the last
-    :func:`reset_launch_counts`: the kernel on formed fold matrices and the
-    operator kernel."""
-    return {"ikpls2": ikpls2.launches, "ikpls2_op": ikpls2_operator.launches}
+    """``{"ikpls2": launches, "ikpls2_op": launches, "ikpls2_wide":
+    launches}`` since the last :func:`reset_launch_counts`: the kernel on
+    formed fold matrices, the operator kernel, and the wide route's kernels
+    (2 A + 2 a chunk)."""
+    return {"ikpls2": ikpls2.launches, "ikpls2_op": ikpls2_operator.launches,
+            "ikpls2_wide": ikpls2_wide.launches}
 
 
 def fold_components(route: Optional[str] = None) -> int:
     """The fold-components solved since the last :func:`reset_launch_counts`,
     F x A a solve, the twins' included: of the route ``"operator"``
-    (:func:`ikpls2_operator`) or ``"matrices"`` (:func:`ikpls2`, on formed
-    fold matrices), or of both where ``route`` is ``None``."""
-    counts = {"operator": ikpls2_operator.fold_components,
-              "matrices": ikpls2.fold_components}
+    (:func:`ikpls2_operator`), ``"matrices"`` (:func:`ikpls2`, on formed
+    fold matrices) or ``"wide"`` (:func:`ikpls2_wide`, on formed fold
+    matrices wider than :data:`MAX_K`), or of every route where ``route`` is
+    ``None``."""
     if route is None:
-        return sum(counts.values())
-    if route not in counts:
-        raise ValueError(f"Unknown route: {route!r} (operator|matrices).")
-    return counts[route]
+        return sum(fn.fold_components for fn in _ROUTES.values())
+    if route not in _ROUTES:
+        raise ValueError(f"Unknown route: {route!r} (operator|matrices|wide).")
+    return _ROUTES[route].fold_components
 
 
 reset_launch_counts()

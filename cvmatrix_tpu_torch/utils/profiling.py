@@ -35,9 +35,12 @@ name:
 - ``cvmatrix_tpu_torch.models.pls.<entry>``: each ``cross_validate_pls``
   call;
 - ``cvmatrix_tpu_torch.models.pls.solve``: one chunk's IKPLS #2 solve and
-  score (``models.pls.solve``: the ``ikpls2`` kernel or its twin, on formed
-  fold matrices; ``models.pls.solve_operator``: ``ikpls2_op`` or its twin,
-  on leave-one-out folds with none formed).
+  score (``models.pls.solve``: the ``ikpls2`` or ``ikpls2_wide`` kernels or
+  their twin, on formed fold matrices; ``models.pls.solve_operator``:
+  ``ikpls2_op`` or its twin, on leave-one-out folds with none formed);
+- ``cvmatrix_tpu_torch.ops.pls.ikpls2_wide``: inside it, each solve of the
+  wide route (``ops.pls.ikpls2_wide``: formed fold matrices wider than
+  ``ops.pls.MAX_K``), kernels or twin.
 
 No span nests inside another of its name, and none changes a result. The
 fold-components that the solves solve (F x A a chunk) are counted by route
@@ -69,6 +72,7 @@ SWEEP = PREFIX + "models.sweep."
 REDUCE_FN = SWEEP + "reduce_fn"
 PLS = PREFIX + "models.pls."
 PLS_SOLVE = PLS + "solve"
+PLS_WIDE = PREFIX + "ops.pls.ikpls2_wide"
 
 _OFF = contextlib.nullcontext()
 

@@ -400,6 +400,120 @@ def test_round_robin_covers_every_pair_once():
             assert len(idx) == len(set(idx))
 
 
+# ---- the wide route: formed fold matrices wider than MAX_K ---------------- #
+
+WN, WK, WA, WP = 40, 120, 4, 5
+
+
+def _wide_run(dev, flags, ddof, m, masked=False, n_components=WA,
+              impl="auto"):
+    """``cross_validate_pls`` at N = 40, K = 120 (> N), A = 4: 5 folds of 8
+    rows, or 7 uneven folds as one masked bucket; weights with zeros."""
+    X, Y, w = _data(m, n=WN, k=WK, seed=4)
+    cfg = T.CVConfig(*flags, ddof=ddof)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    if masked:
+        idx, mask, val = _folds("masked", n=WN)
+    else:
+        idx = np.arange(WN).reshape(-1, WP).T.copy()
+        mask, val = None, list(idx)
+    got = T.cross_validate_pls(cfg, st, idx, mask, n_components=n_components,
+                               batch_size=2, impl=impl)
+    return got, _reference(X, Y, w, val, flags, ddof,
+                           n_components=n_components)
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_wide_route_matches_reference(monkeypatch, flags, ddof, m):
+    """With ``MAX_K`` below K the K-fold buckets take the wide route (its
+    twin on the CPU), every flag set, ddof 0 and 1, weights with zeros; 3
+    chunks of 2 folds, the last fold repeated in the last."""
+    monkeypatch.setattr(OP, "MAX_K", WK - 1)
+    OP.reset_launch_counts()
+    got, ref = _wide_run("cpu", flags, ddof, m)
+    assert got.shape == ref.shape == (WP, WA, m)
+    assert OP.fold_components("wide") == 6 * WA
+    assert OP.fold_components("matrices") == 0
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+@pytest.mark.parametrize("m", [1, 3])
+def test_wide_route_masked_bucket(monkeypatch, m):
+    monkeypatch.setattr(OP, "MAX_K", WK - 1)
+    OP.reset_launch_counts()
+    got, ref = _wide_run("cpu", (True,) * 4, 1, m, masked=True)
+    assert got.shape == ref.shape == (7, WA, m)
+    assert OP.fold_components("wide") == 8 * WA  # 4 chunks of 2
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+@pytest.mark.parametrize("case, wide", [
+    ("over", True), ("at", False), ("torch", True), ("float32", True),
+    ("masked", True)])
+def test_wide_route_gate(monkeypatch, case, wide):
+    """The route follows K alone: K over ``MAX_K`` takes the wide route
+    (its twin here), under ``impl="torch"`` and for float32 too, and K at
+    the limit takes ``ikpls2``; a leave-one-out bucket takes the operator
+    where it did (float64, "auto"), else the wide route."""
+    monkeypatch.setattr(OP, "MAX_K", WK if case == "at" else WK - 1)
+    dtype = np.float32 if case == "float32" else np.float64
+    X, Y, w = _data(2, n=WN, k=WK)
+    cfg = T.CVConfig(dtype=dtype)
+    st = T.fit(cfg, X, Y, w, device="cpu")
+    impl = "torch" if case == "torch" else "auto"
+    if case == "masked":
+        idx, mask, _ = _folds("masked", n=WN)
+    else:
+        idx, mask = np.arange(WN).reshape(-1, WP).T.copy(), None
+    OP.reset_launch_counts()
+    T.cross_validate_pls(cfg, st, idx, mask, n_components=2, impl=impl)
+    assert OP.fold_components("wide") == (len(idx) * 2 if wide else 0)
+    assert OP.fold_components("matrices") == (0 if wide else len(idx) * 2)
+    OP.reset_launch_counts()
+    T.cross_validate_pls(cfg, st, np.arange(WN)[:, None], n_components=2,
+                         impl=impl)
+    operator = impl == "auto" and dtype == np.float64
+    assert OP.fold_components("operator") == (WN * 2 if operator else 0)
+    assert OP.fold_components("wide") == (0 if operator else WN * 2)
+
+
+def test_wide_wrapper_dispatch(monkeypatch):
+    """On the CPU ``ikpls2_wide`` runs the twin, bit for bit, counts its
+    fold-components under "wide" and launches nothing; "cuda" raises.
+    ``ikpls2`` sends K over ``MAX_K`` to it, counted under "wide" alone."""
+    X, Y, w = _data(2, n=WN, k=WK)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device="cpu")
+    idx = np.arange(WN).reshape(-1, WP).T.copy()
+    (mats, stats), = [TB.training_matrices_batched(cfg, st, idx)]
+    rows = TB._copied_rows(cfg, st, idx, None)(0, WP)
+    kw = dict(n_components=3, center_X=True, center_Y=True, scale_X=True,
+              scale_Y=True)
+    OP.reset_launch_counts()
+    got = OP.ikpls2_wide(*mats, rows.X, rows.Y, rows.w, rows.mask, stats,
+                         **kw)
+    ref = OP.ikpls2_reference(*mats, rows.X, rows.Y, rows.w, rows.mask,
+                              stats, **kw)
+    assert torch.equal(got, ref)
+    assert OP.fold_components("wide") == WP * 3
+    assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
+                                  "ikpls2_wide": 0}
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        OP.ikpls2_wide(*mats, rows.X, rows.Y, rows.w, rows.mask, stats,
+                       impl="cuda", **kw)
+    with pytest.raises(ValueError, match="n_components"):
+        OP.ikpls2_wide(*mats, rows.X, rows.Y, rows.w, rows.mask, stats,
+                       **{**kw, "n_components": 0})
+    monkeypatch.setattr(OP, "MAX_K", WK - 1)
+    OP.reset_launch_counts()
+    sent = OP.ikpls2(*mats, rows.X, rows.Y, rows.w, rows.mask, stats, **kw)
+    assert torch.equal(sent, ref)
+    assert OP.fold_components("wide") == WP * 3
+    assert OP.fold_components("matrices") == 0
+
+
 # ---- inputs -------------------------------------------------------------- #
 
 def _state(m=2, dtype=np.float64):
@@ -581,7 +695,7 @@ def test_example_runs_on_the_cpu():
 
 def test_api_lists_the_pls_spans():
     text = (ROOT / "docs" / "torch" / "api.md").read_text()
-    for name in (P.PLS + "<entry>", P.PLS_SOLVE):
+    for name in (P.PLS + "<entry>", P.PLS_SOLVE, P.PLS_WIDE):
         assert f"`{name}`" in text, name
     assert "cvmatrix_tpu_torch.examples.cross_validation_pls" in text
 
@@ -756,3 +870,181 @@ def test_cell_shape_launches_only_the_operator_kernel(dev):
     assert OP.fold_components("matrices") == 0
     assert press.shape == (n, 20, 10) and bool(torch.isfinite(press).all())
     assert 8 * OP.max_active_clusters(500, 10, dev) >= 511
+
+
+# ---- on the card: the wide route ------------------------------------------ #
+
+ALL_ON = dict(center_X=True, center_Y=True, scale_X=True, scale_Y=True)
+
+
+def _reference_on(X, Y, w, val, n_components, flags=ALL_ON, ddof=1):
+    """The reference of each fold ``val`` on the inputs' device."""
+    return torch.stack([fold_press(X, Y, w, v, n_components=n_components,
+                                   ddof=ddof, **flags) for v in val])
+
+
+def _wide_chunk(dev, n, k, m, A, n_folds, seed=0):
+    """Uniform data (weighted, every flag on, ddof 1), one chunk of
+    ``n_folds`` K-fold folds through the sweep: the wide kernels twice and
+    the twin on the same formed matrices, and each fold's reference."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.uniform(size=(n, k)), device=dev)
+    Y = torch.as_tensor(rng.uniform(size=(n, m)), device=dev)
+    w = torch.as_tensor(rng.uniform(size=n), device=dev)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w)
+    idx = np.arange(n).reshape(-1, n_folds).T.copy()
+    got = {}
+
+    def consume(mats, stats, rows):
+        args = (*mats, rows.X, rows.Y, rows.w, rows.mask, stats)
+        got["cuda"] = OP.ikpls2_wide(*args, n_components=A, impl="cuda",
+                                     **ALL_ON)
+        got["again"] = OP.ikpls2_wide(*args, n_components=A, impl="cuda",
+                                      **ALL_ON)
+        got["twin"] = OP.ikpls2_reference(*args, n_components=A, **ALL_ON)
+        return got["cuda"]
+
+    OP.reset_launch_counts()
+    TS.cross_validate_reduce(cfg, st, idx, chunk_fn=consume,
+                             batch_size=n_folds)
+    torch.cuda.synchronize()
+    assert OP.launch_counts()["ikpls2_wide"] == 2 * (2 * A + 2)
+    del st
+    got["ref"] = _reference_on(X, Y, w, list(idx), A)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, k, m, A", [
+    (1_000, 8_193, 1, 20),   # one column over ikpls2's limit
+    (1_000, 20_000, 1, 20),  # the cell's width
+    (600, 8_193, 3, 6),      # M > 1: Jacobi
+], ids=["k_8193", "k_20000", "k_8193_m3"])
+def test_wide_kernels_match_twin_and_reference(dev, n, k, m, A):
+    """Two folds: the kernels within 1e-10 of the twin on the same formed
+    matrices and within ``PRESS_TOL`` of the reference, the same bits on a
+    second call."""
+    got = _wide_chunk(dev, n, k, m, A, 2)
+    a, b = got["cuda"], got["twin"]
+    assert a.shape == (2, A, m) and bool(torch.isfinite(a).all())
+    assert torch.equal(a, got["again"])
+    assert _gap(a, b) <= 1e-10, (_gap(a, b), _gap(b, got["ref"]))
+    assert _gap(a, got["ref"]) <= PRESS_TOL, (_gap(a, got["ref"]),
+                                              _gap(b, got["ref"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["kfold", "masked"])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_wide_route_on_the_card(dev, monkeypatch, flags, weighted, m,
+                                scheme):
+    """``MAX_K`` lowered below K = 120: ``cross_validate_pls`` launches the
+    wide kernels, 2 A + 2 a chunk and no ``ikpls2``, within ``PRESS_TOL``
+    of the reference."""
+    monkeypatch.setattr(OP, "MAX_K", WK - 1)
+    X, Y, w = _data(m, n=WN, k=WK, seed=4)
+    if not weighted:
+        w = None
+    cfg = T.CVConfig(*flags, ddof=1)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    if scheme == "masked":
+        idx, mask, val = _folds("masked", n=WN)
+    else:
+        idx = np.arange(WN).reshape(-1, WP).T.copy()
+        mask, val = None, list(idx)
+    OP.reset_launch_counts()
+    got = T.cross_validate_pls(cfg, st, idx, mask, n_components=WA,
+                               batch_size=3)
+    torch.cuda.synchronize()
+    chunks = -(-len(val) // 3)
+    assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
+                                  "ikpls2_wide": chunks * (2 * WA + 2)}
+    ref = _reference(X, Y, w, val, flags, 1, n_components=WA)
+    assert got.device.type == "cuda"
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+@pytest.mark.cuda
+def test_wide_kernels_m_32_and_odd_shapes(dev):
+    """M = 32 (Jacobi's widest), K = 1,337 and L = 33 (no multiple of any
+    tile), 3 folds, against the twin; the same bits on a second call."""
+    rng = np.random.default_rng(8)
+    n, k, m, A = 99, 1_337, 32, 5
+    X = torch.as_tensor(rng.uniform(size=(n, k)), device=dev)
+    Y = torch.as_tensor(rng.uniform(size=(n, m)), device=dev)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, torch.as_tensor(rng.uniform(size=n), device=dev))
+    idx = np.arange(n).reshape(-1, 3).T.copy()
+    mats, stats = TB.training_matrices_batched(cfg, st, idx)
+    rows = TB._copied_rows(cfg, st, idx, None)(0, 3)
+    args = (*mats, rows.X, rows.Y, rows.w, rows.mask, stats)
+    a = OP.ikpls2_wide(*args, n_components=A, impl="cuda", **ALL_ON)
+    a2 = OP.ikpls2_wide(*args, n_components=A, impl="cuda", **ALL_ON)
+    b = OP.ikpls2_reference(*args, n_components=A, **ALL_ON)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a2)
+    assert _gap(a, b) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_wide_solve_launches_only_its_named_kernels(dev, tmp_path):
+    """Under the profiler every device operation of one wide solve is one
+    of its kernels, each named ``ikpls2_wide``: 2 A + 2 of them."""
+    import json
+
+    rng = np.random.default_rng(2)
+    n, k, A = 200, 9_000, 4
+    cfg = T.CVConfig()
+    st = T.fit(cfg, rng.uniform(size=(n, k)), rng.uniform(size=(n, 1)),
+               rng.uniform(size=n), device=dev)
+    idx = np.arange(n).reshape(-1, 2).T.copy()
+    mats, stats = TB.training_matrices_batched(cfg, st, idx)
+    rows = TB._copied_rows(cfg, st, idx, None)(0, 2)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        OP.ikpls2_wide(*mats, rows.X, rows.Y, rows.w, rows.mask, stats,
+                       n_components=A, impl="cuda", **ALL_ON)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ops = [e["name"] for e in events if e.get("ph") == "X" and e.get("cat")
+           in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert len(ops) == 2 * A + 2, ops
+    assert all("ikpls2_wide" in name for name in ops), ops
+    spans = [e for e in events if e.get("name") == P.PLS_WIDE
+             and e.get("cat") == "user_annotation"]
+    assert len(spans) == 1
+
+
+@pytest.mark.cuda
+def test_cell_shape_takes_the_wide_route(dev):
+    """The cell's shape: N = 5,000, K = 20,000, M = 1, A = 20, 10 folds in
+    chunks of 2 through ``cross_validate_pls(impl="auto")``: 5 x 42 wide
+    launches, 200 fold-components on the wide route and none on the
+    others; folds 0 and 9 against the reference."""
+    rng = np.random.default_rng(5)
+    n, k = 5_000, 20_000
+    X = torch.as_tensor(rng.uniform(size=(n, k)), device=dev)
+    Y = torch.as_tensor(rng.uniform(size=(n, 1)), device=dev)
+    w = torch.as_tensor(rng.uniform(size=n), device=dev)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w)
+    idx = np.arange(n).reshape(-1, 10).T.copy()
+    OP.reset_launch_counts()
+    press = T.cross_validate_pls(cfg, st, idx, n_components=20, batch_size=2)
+    torch.cuda.synchronize()
+    assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
+                                  "ikpls2_wide": 5 * 42}
+    assert OP.fold_components("wide") == 200
+    assert OP.fold_components("matrices") == 0
+    assert OP.fold_components("operator") == 0
+    assert press.shape == (10, 20, 1) and bool(torch.isfinite(press).all())
+    del st
+    ref = _reference_on(X, Y, w, [idx[0], idx[9]], 20)
+    assert _gap(press[[0, 9]], ref) <= PRESS_TOL

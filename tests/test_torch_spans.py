@@ -329,3 +329,25 @@ def test_to_device_spans_host_tensors_only(tmp_path):
     assert P.h2d_counts() == {"blocking": 0, "non_blocking": 1}
     assert torch.equal(a, t) and a.data_ptr() != t.data_ptr()
     assert b.device.type == "meta"
+
+
+def test_wide_route_opens_its_span_a_solve(monkeypatch, tmp_path):
+    """The wide route (``ops.pls.MAX_K`` lowered below K = 6): one
+    ``ops.pls.ikpls2_wide`` span a chunk's solve, inside that chunk's solve
+    span, and P x A fold-components on the wide route, none on another."""
+    from cvmatrix_tpu_torch.ops import pls as OP
+
+    monkeypatch.setattr(OP, "MAX_K", 5)
+    cfg, st = _state()
+    idx, _ = _folds(6, 4)
+    OP.reset_launch_counts()
+    _, spans = _program_spans(lambda: T.cross_validate_pls(
+        cfg, st, idx, n_components=2, batch_size=3), tmp_path)
+    got = collections.Counter(n for _, _, n in spans)
+    assert got[P.PLS_WIDE] == 2 and got[P.PLS_SOLVE] == 2
+    solves = [(s, e) for s, e, n in spans if n == P.PLS_SOLVE]
+    for s, e, n in spans:
+        if n == P.PLS_WIDE:
+            assert any(s0 <= s and e <= e0 for s0, e0 in solves)
+    assert OP.fold_components("wide") == 6 * 2
+    assert OP.fold_components() == 6 * 2
