@@ -221,12 +221,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
     through ``models.pls.solve`` (``ikpls2`` sends K over ``MAX_K`` to
     ``ikpls2_wide``): 2 A + 2 ``ikpls2_wide`` launches a solve and no other
     kernel, the same bits twice, within 1e-10 of the twin's PRESS (of each
-    fold's largest); timed in turns with the twin. Then
-    ``cross_validate_pls`` over every fold: 2 A + 2 ``ikpls2_wide``
-    launches a chunk and no other PLS kernel, P x A fold-components all on
-    the wide route, the first chunk within 1e-12 of the kernels' own, and
-    folds 0 and P-1 within 1e-9 of ``tests/pls_reference.py`` on the card.
-25. Prints the kernels' JSON line (seventeen kernels, each with its bound and
+    fold's largest); timed in turns with the twin. The same chunk with no
+    fold matrix formed, through ``models.pls.solve_wide_operator``: 3 A + 2
+    ``ikpls2_wide_op`` launches a solve and no other kernel, the same bits
+    twice, within 1e-12 of its twin; timed in turns with the formed
+    route's solve and the twin. Then ``cross_validate_pls`` over every
+    fold: 3 A + 2 ``ikpls2_wide_op`` launches a chunk and no other kernel,
+    P x A fold-components all on the wide operator route, the first chunk
+    within 1e-12 of the kernels' own, and folds 0 and P-1 within 1e-9 of
+    ``tests/pls_reference.py`` on the card.
+25. Prints the kernels' JSON line (eighteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
     path, each one's ``mesh_launches`` in phase 19 (a),
@@ -321,6 +325,7 @@ KERNEL_SOURCES = {
     "ikpls2": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
     "ikpls2_op": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
     "ikpls2_wide": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
+    "ikpls2_wide_op": ("cvmatrix_tpu_torch/csrc/pls.cu", None),
 }
 # Float32: kernel against twin at the JAX package's f32 interpret bound, and
 # against the float64 oracle at its "f32 grade", of the largest entry.
@@ -3169,26 +3174,80 @@ def main() -> int:
         f"{wide_err:.3e}; bound {least_q[0]:.4f} ms by {least_q[1]}; "
         f"reading each fold's [XTX | XTY] {PLS_A} times {reads_ms:.3f} ms "
         f"({reads_ms / best_q:.1%} of the bandwidth)  [{card}]")
-    del held_q, mats_q, stats_q, rows_q, again_q, twin_q
+
+    # the same chunk with no fold matrix formed: the wide operator kernels
+    rows_op = torch.as_tensor(idx_q[:PLS_WIDE_BATCH], device=dev)
+
+    def wide_op_solve(impl):
+        """The first chunk through ``solve_wide_operator``: the kernels of
+        ``ikpls2_wide_op`` (under "torch" its twin, called directly)."""
+        if impl == "torch":
+            sums = (st_q.sum_X, st_q.sum_sq_X, st_q.sum_Y, st_q.sum_sq_Y,
+                    st_q.sum_w, st_q.num_nonzero_w)
+            return OP.ikpls2_wide_op_reference(
+                st_q.XTX, st_q.XTY, st_q.X, st_q.Y, st_q.weights, sums,
+                rows_op, None, n_components=PLS_A, ddof=1,
+                resolution=cfg_p.resolution, **pls_flags)
+        return TP.solve_wide_operator(cfg_p, st_q, rows_op, None,
+                                      n_components=PLS_A, impl=impl)
+
+    per_op = 3 * PLS_A + 2
+    reset_launch_counts(TL, FD, SR, OP)
+    op_q, op_again = wide_op_solve("cuda"), wide_op_solve("cuda")
+    torch.cuda.synchronize()
+    op_launches = launch_counts(TL, FD, SR, OP)
+    op_twin = wide_op_solve("torch")
+    torch.cuda.synchronize()
+    if {k_: v for k_, v in op_launches.items() if v} != {
+            "ikpls2_wide_op": 2 * per_op}:
+        raise AssertionError(f"two wide operator solves launched "
+                             f"{op_launches}, expected {2 * per_op}")
+    rel_op = press_rel(op_q, op_twin)
+    if not (bool(torch.isfinite(op_q).all()) and torch.equal(op_q, op_again)
+            and rel_op <= TWIN_RTOL):
+        raise AssertionError(f"ikpls2_wide_op vs twin: relative {rel_op} > "
+                             f"{TWIN_RTOL:g}, or not finite, or not the same "
+                             "bits twice")
+    wop_err = (op_q - op_twin).abs().max().item()
+    formed_rel = press_rel(op_q, wide_q)
+    op_ms = {"torch": [], "cuda": [], "formed": []}
+    for impl in ("cuda", "formed", "torch", "cuda", "formed", "torch"):
+        fn = ((lambda: wide_solve("cuda")) if impl == "formed"
+              else (lambda impl=impl: wide_op_solve(impl)))
+        op_ms[impl].append(cuda_ms(fn, 1 if impl == "torch" else 3))
+    best_op = min(op_ms["cuda"])
+    tri_ms = (PLS_A * (kw * (kw + 1) / 2 + kw * 512) * 8
+              / HBM_BYTES_PER_S * 1e3)
+    chunk_times["ikpls2_wide_op"] = (best_op, min(op_ms["torch"]), *least_q,
+                                     None)
+    log(f"[pls-wide] the same chunk with no fold matrix: kernels "
+        f"{op_ms['cuda']} ms, formed route's kernels {op_ms['formed']} ms, "
+        f"twin {op_ms['torch']} ms (in turns); {per_op} launches a solve, all "
+        f"ikpls2_wide_op; against the twin relative {rel_op:.3e}, max abs "
+        f"{wop_err:.3e}; against the formed kernels {formed_rel:.3e}; reading "
+        f"the total's upper triangle {PLS_A} times {tri_ms:.3f} ms "
+        f"({tri_ms / best_op:.1%} of the bandwidth)  [{card}]")
+    del held_q, mats_q, stats_q, rows_q, again_q, twin_q, op_again, op_twin
 
     torch.cuda.empty_cache()
     reset_launch_counts(TL, FD, SR, OP)
     t_q, press_q = wall(lambda: cross_validate_pls(
         cfg_p, st_q, idx_q, n_components=PLS_A, batch_size=PLS_WIDE_BATCH))
     wide_launches = launch_counts(TL, FD, SR, OP)
-    if (wide_launches["ikpls2_wide"] != n_q * per_chunk
-            or wide_launches["ikpls2"] or wide_launches["ikpls2_op"]):
+    if {k_: v for k_, v in wide_launches.items() if v} != {
+            "ikpls2_wide_op": n_q * per_op}:
         raise AssertionError(f"cross_validate_pls launched {wide_launches}, "
-                             f"expected {n_q * per_chunk} ikpls2_wide and "
-                             "no other PLS kernel")
-    comps = {r: OP.fold_components(r) for r in ("wide", "matrices",
-                                                 "operator")}
-    if comps != {"wide": pw * PLS_A, "matrices": 0, "operator": 0}:
+                             f"expected {n_q * per_op} ikpls2_wide_op and "
+                             "no other kernel")
+    comps = {r: OP.fold_components(r) for r in ("wide_op", "wide",
+                                                 "matrices", "operator")}
+    if comps != {"wide_op": pw * PLS_A, "wide": 0, "matrices": 0,
+                 "operator": 0}:
         raise AssertionError(f"fold-components {comps}, expected "
-                             f"{pw * PLS_A}, all on the wide route")
+                             f"{pw * PLS_A}, all on the wide operator route")
     if tuple(press_q.shape) != (pw, PLS_A, mw):
         raise AssertionError(f"PRESS shape {tuple(press_q.shape)}")
-    same_q = press_rel(press_q[:PLS_WIDE_BATCH], wide_q)
+    same_q = press_rel(press_q[:PLS_WIDE_BATCH], op_q)
     if not same_q <= TWIN_RTOL:
         raise AssertionError(f"cross_validate_pls vs the kernels on its "
                              f"first chunk: {same_q} > {TWIN_RTOL:g}")
@@ -3208,7 +3267,7 @@ def main() -> int:
         f"fold-components {comps}; first chunk against the kernels' own "
         f"{same_q}; folds 0 and {pw - 1} against the reference {oracle_q}; "
         f"phase 24 in {time.perf_counter() - t_phase:.1f} s  [{card}]")
-    del st_q, press_q, wide_q, Xwd, Ywd, wwd
+    del st_q, press_q, wide_q, op_q, Xwd, Ywd, wwd
 
     # ---- 25. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
@@ -3218,15 +3277,17 @@ def main() -> int:
                        "fold_epilogue_widek": widek_launches,
                        "ikpls2": pls_launches["ikpls2"],
                        "ikpls2_op": pls_launches["ikpls2_op"],
-                       "ikpls2_wide": wide_launches["ikpls2_wide"]}
+                       "ikpls2_wide": solve_launches["ikpls2_wide"],
+                       "ikpls2_wide_op": wide_launches["ikpls2_wide_op"]}
     fold_err["fused_loocv"] = worst_abs
     fold_err["ikpls2"] = pls_err
     fold_err["ikpls2_op"] = op_err
     fold_err["ikpls2_wide"] = wide_err
+    fold_err["ikpls2_wide_op"] = wop_err
     names = ("fused_loocv", *ROUTE_WRAPPER.values(),
              *ROUTE_WRAPPER_F32.values(), *new_kernels, "fold_smallfold",
              "slice_rows", "fold_epilogue_widek", "ikpls2", "ikpls2_op",
-             "ikpls2_wide")
+             "ikpls2_wide", "ikpls2_wide_op")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,11 +1,12 @@
 // IKPLS Algorithm #2 on every fold of a chunk, in float64, for Hopper (sm_90a):
-// three routes, two on the folds' formed training matrices (one block a fold
-// up to K = 8,192; the whole card on the chunk at any K) and one that forms
-// none (one-row folds).
+// four routes, two on the folds' formed training matrices (one block a fold
+// up to K = 8,192; the whole card on the chunk at any K) and two that form
+// none (one-row folds; folds of any L, the whole card on the chunk).
 //
 // The port's own kernels: the JAX package fits no per-fold model, so no TPU
 // kernel stands behind them. Their plain twins are ops/pls.ikpls2_reference
-// (both formed routes) and ops/pls.ikpls2_operator_reference.
+// (both formed routes), ops/pls.ikpls2_operator_reference and
+// ops/pls.ikpls2_wide_op_reference.
 //
 // ikpls2_kernel (cvm_ikpls2_f64): one block a fold, one launch a chunk. From
 // the fold's training XTX (K, K) and XTY (K, M) alone (Dayal & MacGregor, J.
@@ -107,6 +108,41 @@
 // 3.2 GB at K = 20,000, A times; it is HBM-bound (PERF.md). The steps read
 // L2-resident K-vectors on 8 SMs a fold. Limits: float64, M <= 32, any K
 // and A, at most 65,535 folds a chunk.
+//
+// The wide operator kernels (cvm_ikpls2_wide_op_f64): the same components
+// and scores for folds of any L and K with no fold matrix formed, from the
+// fitted XTX and XTY (read in place), rows and sums. A fold's training XTX
+// is the total less its rows' rank-L term; with X centred it is taken
+// about the fitted mean m0 = sum_X / sum_w, so that no sum carries the
+// large mean term (c_l a row's weight times mask, sw the training weight
+// sum, r1 = 1 / X std):
+//
+//   XTX_f r = r1 (.) (C y - sum_l c_l u_l d_l - (u_d / sw) delta)
+//   C = XTX - sum_w m0 m0^T, y = r1 (.) r, d_l = x_l - m0,
+//   delta = sum_l c_l d_l, u_l = d_l . y, u_d = delta . y
+//
+// (uncentred, m0 and delta are 0), and row l's score is u_l + u_d / sw.
+// 3 A + 2 launches a chunk, in stream order:
+//
+//   ikpls2_wide_op_prep_kernel: each fold's statistics from the fit's sums
+//     less its rows' (the LOOCV kernels' formulas), its XTY into the
+//     step's g, delta and r1, its rows of Y and weights for the step;
+//   ikpls2_wide_step_kernel (c = -1), as above, g already written;
+//   then a component c = 0 .. A-1:
+//   ikpls2_wide_op_product_kernel: C y of every fold of a group of up to 4
+//     from one pass over the total's upper triangle (a tile of 256 rows by
+//     512 columns a block, each entry giving its column's sum and, off
+//     the diagonal, its row's; the next rows' loads issued before a row's
+//     sums), and the scores u of the folds' rows (score blocks first);
+//   ikpls2_wide_op_correct_kernel: t and z from the product's sums, the
+//     rows' correction, a second read of the rows;
+//   ikpls2_wide_step_kernel (c) on t and z as one split.
+//
+// What bounds it: the product reads half the total once a chunk and
+// component for all the chunk's folds (1.68 GB at K = 20,000), against
+// 3.2 GB a fold for the formed route; the rows are read twice a component.
+// No atomics: the same inputs give the same bits. Limits as the wide
+// kernels'.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1442,7 +1478,8 @@ __device__ void wide_cluster_sum(cg::cluster_group& cl, const double* wred,
 // sums (t, tt, p and q_c, the deflation of XTY, the rows' scores and PRESS)
 // and, below A - 1, starts component c + 1 (S, Jacobi, w, Gram-Schmidt: r
 // into R[c + 1], which the next product reads); c = -1 copies XTY into g,
-// zeroes yhat and starts component 0.
+// zeroes yhat and starts component 0 (with a null xty it copies nothing:
+// the wide operator route's prep has written the folds' XTY into g).
 __global__ void __cluster_dims__(kWideCluster, 1, 1)
     __launch_bounds__(kStepThreads) ikpls2_wide_step_kernel(const WideArgs a,
                                                             const int c) {
@@ -1476,9 +1513,12 @@ __global__ void __cluster_dims__(kWideCluster, 1, 1)
 
   int off = 0;  // where the Gram matrix's sums start
   if (c < 0) {
-    const double* xty = a.xty + f * a.xty_sf;
-    for (int64_t k = k0 + tid; k < k1; k += kStepThreads)
-      for (int m = 0; m < M; ++m) g[m * K + k] = xty[k * a.xty_sr + m];
+    // null xty: g holds the folds' XTY already (the operator route's prep)
+    if (a.xty) {
+      const double* xty = a.xty + f * a.xty_sf;
+      for (int64_t k = k0 + tid; k < k1; k += kStepThreads)
+        for (int m = 0; m < M; ++m) g[m * K + k] = xty[k * a.xty_sr + m];
+    }
     for (int64_t i = l0 * M + tid; i < l1 * M; i += kStepThreads) yhat[i] = 0.0;
   } else {
     // t = r^T XTX from the split sums (into P[c]); tt and XTY^T r
@@ -1635,6 +1675,468 @@ __global__ void __cluster_dims__(kWideCluster, 1, 1)
     }
   }
   cl.sync();  // no block leaves while another reads its shared memory
+}
+
+// ---------------------------------------------------------------------------
+// The wide operator kernels (cvm_ikpls2_wide_op_f64): the wide route's
+// components and scores with no fold matrix formed, for folds of any L at
+// any K. See the file's comment.
+
+constexpr int kWopThreads = 128;  // columns a prep or correction block
+constexpr int kWopStage = 128;    // validation rows staged a pass
+constexpr int kWopRows = 8;       // validation rows a score block
+constexpr int kWopWarps = kWideThreads / 32;
+constexpr int kWopStrip = 256;    // rows of a product tile
+constexpr int kWopCols = 2;       // product columns a thread
+constexpr int kWopTile = kWideThreads * kWopCols;  // columns of a tile
+static_assert(kWideUnroll == 4, "the product's row sums take four rows");
+static_assert(kWopTile % kWopStrip == 0, "a strip lies in one tile");
+
+struct WopArgs {
+  const double* xtx;       // fitted total, row i at i * ld_xtx
+  const double* xty;       // (K, M) fitted, row k at k * ld_xty
+  const double* X;         // (N, K) fitted rows, row n at n * ld_x
+  const double* Y;         // (N, M), row n at n * ld_y
+  const double* wts;       // weights, row n at n * ld_w; null unweighted
+  const double* sum_x;     // (K) the fit's sums; null where no flag needs one
+  const double* sum_sq_x;  // (K)
+  const double* sum_y;     // (M)
+  const double* sum_sq_y;  // (M)
+  const double* sum_w;     // scalar
+  const int64_t* nnz;      // scalar
+  const int64_t* rows;     // (F, L) each fold's validation rows, in [0, N)
+  const double* mask;      // (F, L) 0/1, or null
+  double* vec;             // (F, 2, K) scratch: delta, then r1 = 1 / X std
+  double* ystat;           // (F, 2, M) scratch: Y mean, then Y std
+  double* scal;            // (F) scratch: the training weight sum
+  double* g;               // (F, M, K) scratch: the folds' XTY (the step's)
+  double* yv;              // (F, L, M) scratch: the validation rows of Y
+  double* wv;              // (F, L) scratch: their weights, or null
+  double* colpart;         // (F, S, K) scratch: the product's column sums
+  double* rowpart;         // (F, NT, K) scratch: the product's row sums
+  double* u;               // (F, L + 1) scratch: d_l . y, then delta . y
+  double* part;            // (F, K + L) scratch: t and z (the step's, S = 1)
+  const double* pr;        // (F, 2, A, K): the step's p and r
+  int64_t F, K, M, L, A, S, NT;
+  int64_t ld_xtx, ld_xty, ld_x, ld_y, ld_w;
+  int64_t ddof;
+  double resolution;
+  int flags;
+};
+
+// Validation row l of fold f: its weight times its mask (1 where neither).
+__device__ __forceinline__ double wop_coef(const WopArgs& a, int64_t f,
+                                           int64_t l, int64_t row) {
+  double c = a.wts ? a.wts[row * a.ld_w] : 1.0;
+  if (a.mask) c = c * a.mask[f * a.L + l];
+  return c;
+}
+
+// The centring point m0 = sum_X / sum_w of column k; 0 uncentred.
+__device__ __forceinline__ double wop_m0(const WopArgs& a, int64_t k) {
+  return (a.flags & kCenterX) ? a.sum_x[k] / a.sum_w[0] : 0.0;
+}
+
+// y = r1 (.) r of component c of fold f, entry k.
+__device__ __forceinline__ double wop_y(const WopArgs& a, int64_t f, int c,
+                                        int64_t k) {
+  return a.vec[(f * 2 + 1) * a.K + k] * a.pr[((f * 2 + 1) * a.A + c) * a.K + k];
+}
+
+// Each fold's statistics, its XTY and the m0-centred sum of its validation
+// rows: a block is kWopThreads columns of one fold, each column summed over
+// the fold's rows in order, kWopStage rows staged at a time. Every block
+// sums the fold's scalars and Y side in the same order, so all hold the
+// same bits.
+__global__ void __launch_bounds__(kWopThreads)
+    ikpls2_wide_op_prep_kernel(const WopArgs a) {
+  __shared__ int64_t rs[kWopStage];
+  __shared__ double cs[kWopStage];
+  __shared__ double ys[kWopStage * kMaxM];
+  __shared__ double fy[4 * kMaxM + 4];  // Y sums, squared sums; mY, sY; sv, nv
+  const int64_t f = blockIdx.y, K = a.K, L = a.L;
+  const int M = static_cast<int>(a.M);
+  const int tid = threadIdx.x;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kWopThreads + tid;
+  const bool cx = a.flags & kCenterX, cy = a.flags & kCenterY;
+  const bool sx = a.flags & kScaleX, sy = a.flags & kScaleY;
+  const bool stats = cx || cy || sx || sy;
+  const int64_t* frows = a.rows + f * L;
+
+  // the fold's scalars and Y sums: one quantity a thread, rows in order
+  if (tid < M || (tid >= kMaxM && tid < kMaxM + M) || tid == 2 * kMaxM ||
+      tid == 2 * kMaxM + 1) {
+    const int m = tid < kMaxM ? tid : tid - kMaxM;
+    double s = 0.0;
+    for (int64_t l = 0; l < L; ++l) {
+      const int64_t row = frows[l];
+      const double c = wop_coef(a, f, l, row);
+      if (tid == 2 * kMaxM) {
+        s += c;
+      } else if (tid == 2 * kMaxM + 1) {
+        s += c != 0.0 ? 1.0 : 0.0;
+      } else if (stats && a.sum_y) {
+        const double y = a.Y[row * a.ld_y + m];
+        s += tid < kMaxM ? c * y : (c * y) * y;
+      }
+    }
+    if (tid < kMaxM) fy[tid] = s;
+    else if (tid < 2 * kMaxM) fy[kMaxM + m] = s;
+    else fy[4 * kMaxM + tid - 2 * kMaxM] = s;
+  }
+  __syncthreads();
+  // the scalars and formulas of ops/loocv.side_mean_std
+  double sw = 0.0, rsw = 0.0, rdv = 0.0;
+  if (stats) {
+    sw = a.sum_w[0] - fy[4 * kMaxM];
+    const double nt =
+        a.wts ? static_cast<double>(a.nnz[0] -
+                                    static_cast<int64_t>(fy[4 * kMaxM + 1]))
+              : sw;
+    rsw = 1.0 / sw;
+    rdv = 1.0 / ((nt - static_cast<double>(a.ddof)) * sw / nt);
+  }
+  if (tid < M) {
+    double my = 0.0, sdy = 1.0;
+    if (cx || cy || sy) {
+      const double st = a.sum_y[tid] - fy[tid];
+      my = st * rsw;
+      if (sy) {
+        double var = (-2.0 * my * st + sw * (my * my) +
+                      (a.sum_sq_y[tid] - fy[kMaxM + tid])) * rdv;
+        var = var < 0.0 ? 0.0 : var;
+        sdy = sqrt(var);
+        if (sdy <= a.resolution) sdy = 1.0;
+      }
+    }
+    fy[2 * kMaxM + tid] = my;
+    fy[3 * kMaxM + tid] = sdy;
+    if (blockIdx.x == 0) {
+      a.ystat[(f * 2) * M + tid] = my;
+      a.ystat[(f * 2 + 1) * M + tid] = sdy;
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) a.scal[f] = sw;
+  // the step's validation rows of Y and their weights, spread over blocks
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWopThreads + tid;
+       i < L * M; i += static_cast<int64_t>(gridDim.x) * kWopThreads) {
+    const int64_t l = i / M;
+    a.yv[f * L * M + i] = a.Y[frows[l] * a.ld_y + (i - l * M)];
+    if (a.wts && i - l * M == 0) a.wv[f * L + l] = a.wts[frows[l] * a.ld_w];
+  }
+
+  // the column's sums over the fold's rows, in order
+  const double m0 = k < K ? wop_m0(a, k) : 0.0;
+  double s1 = 0.0, s2 = 0.0, sd = 0.0;
+  double sxy[kMaxM];
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) sxy[m] = 0.0;
+  for (int64_t l0 = 0; l0 < L; l0 += kWopStage) {
+    const int n = static_cast<int>(min(static_cast<int64_t>(kWopStage), L - l0));
+    __syncthreads();
+    for (int i = tid; i < n; i += kWopThreads) {
+      const int64_t row = frows[l0 + i];
+      rs[i] = row;
+      cs[i] = wop_coef(a, f, l0 + i, row);
+    }
+    for (int i = tid; i < n * M; i += kWopThreads) {
+      const int li = i / M;
+      ys[i] = a.Y[frows[l0 + li] * a.ld_y + (i - li * M)];
+    }
+    __syncthreads();
+    if (k < K) {
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const double x = a.X[rs[i] * a.ld_x + k];
+        const double cxv = cs[i] * x;
+        s1 += cxv;
+        s2 += cxv * x;
+        sd += cs[i] * (x - m0);
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m)
+          if (m < M) sxy[m] += cxv * ys[i * M + m];
+      }
+    }
+  }
+  if (k >= K) return;
+  double mx = 0.0, sdx = 1.0;
+  if (cx || cy || sx) {
+    const double st = a.sum_x[k] - s1;
+    mx = st * rsw;
+    if (sx) {
+      double var = (-2.0 * mx * st + sw * (mx * mx) + (a.sum_sq_x[k] - s2)) *
+                   rdv;
+      var = var < 0.0 ? 0.0 : var;
+      sdx = sqrt(var);
+      if (sdx <= a.resolution) sdx = 1.0;
+    }
+  }
+  a.vec[(f * 2) * K + k] = cx ? sd : 0.0;
+  a.vec[(f * 2 + 1) * K + k] = sx ? 1.0 / sdx : 1.0;
+  const double* xty = a.xty + k * a.ld_xty;
+  double* g = a.g + f * M * K + k;
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) {
+    if (m < M) {
+      double v = xty[m] - sxy[m];
+      if (cx || cy) v = v - sw * (mx * fy[2 * kMaxM + m]);
+      if (sx && sy) {
+        v = v / (sdx * fy[3 * kMaxM + m]);
+      } else if (sx) {
+        v = v / sdx;
+      } else if (sy) {
+        v = v / fy[3 * kMaxM + m];
+      }
+      g[m * K] = v;
+    }
+  }
+}
+
+// One component's product for a group of G folds, read from the upper
+// triangle of the total: C y_f with C = XTX - sum_w m0 m0^T (centred on
+// the fly, m0 = 0 uncentred) and y_f = r1 (.) r. A tile block is one
+// strip of kWopStrip rows I by kWopTile columns jt at or right of the
+// diagonal; its entries (i, j), j >= i, are read once, each giving
+// C_ij y_i to column j's sum and, off the diagonal, C_ij y_j to row i's.
+// colpart[f][I][j] holds the strip's column sums, rowpart[f][jt][i] the
+// tile's row sums (each row's warp sums in warp order). Score blocks (before
+// the tiles) each hold kWopRows of a fold's validation rows and, as row L,
+// its delta: u[f][l] = (x_l - m0) . y_f, the whole K a block. Rows and
+// warps are summed in order: the same inputs give the same bits.
+template <int G>
+__global__ void __launch_bounds__(kWideThreads)
+    ikpls2_wide_op_product_kernel(const WopArgs a, const int c) {
+  extern __shared__ double dsh[];
+  const int64_t K = a.K, NT = a.NT;
+  const int64_t b = blockIdx.x;
+  const int64_t f0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool cx = a.flags & kCenterX;
+
+  const int64_t nrb = (a.L + 1 + kWopRows - 1) / kWopRows;
+  if (b < G * nrb) {
+    // score block: kWopRows rows of fold f, each over the whole K
+    const int64_t f = f0 + b / nrb;
+    if (f >= a.F) return;
+    const int64_t l0 = (b % nrb) * kWopRows;
+    const double* src[kWopRows];
+#pragma unroll
+    for (int q = 0; q < kWopRows; ++q) {
+      const int64_t l = l0 + q;
+      src[q] = l < a.L ? a.X + a.rows[f * a.L + l] * a.ld_x
+                       : (l == a.L && cx ? a.vec + f * 2 * K : nullptr);
+    }
+    double acc[kWopRows];
+#pragma unroll
+    for (int q = 0; q < kWopRows; ++q) acc[q] = 0.0;
+    for (int64_t k = tid; k < K; k += kWideThreads) {
+      const double y = wop_y(a, f, c, k);
+      const double m0 = wop_m0(a, k);
+#pragma unroll
+      for (int q = 0; q < kWopRows; ++q) {
+        if (src[q]) {
+          // row L is delta itself, centred already
+          const double x = l0 + q < a.L ? src[q][k] - m0 : src[q][k];
+          acc[q] += x * y;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kWopRows; ++q) {
+      const double v = warp_sum(acc[q]);
+      if (lane == 0) dsh[warp * kWopRows + q] = v;
+    }
+    __syncthreads();
+    if (tid < kWopRows && l0 + tid <= a.L) {
+      double s = 0.0;
+      for (int w = 0; w < kWopWarps; ++w) s += dsh[w * kWopRows + tid];
+      a.u[f * (a.L + 1) + l0 + tid] = s;
+    }
+    return;
+  }
+
+  const int64_t I = (b - G * nrb) / NT, jt = (b - G * nrb) % NT;
+  if (I > (jt + 1) * (kWopTile / kWopStrip) - 1) return;  // below the diagonal
+  const int64_t i0 = I * kWopStrip;
+  const int n = static_cast<int>(min(static_cast<int64_t>(kWopStrip), K - i0));
+  const int64_t j0 = jt * kWopTile + tid;
+  double* ysh = dsh;                    // G x kWopStrip: y of the strip's rows
+  double* msh = dsh + G * kWopStrip;    // kWopStrip: sum_w m0 of those rows
+  double* rowbuf = msh + kWopStrip;     // G x kWopWarps x kWopStrip
+  for (int i = tid; i < kWopStrip; i += kWideThreads) {
+    msh[i] = i < n && cx ? a.sum_w[0] * wop_m0(a, i0 + i) : 0.0;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      ysh[g * kWopStrip + i] =
+          i < n && f0 + g < a.F ? wop_y(a, f0 + g, c, i0 + i) : 0.0;
+  }
+  bool ok[kWopCols];
+  double mc[kWopCols], yc[G][kWopCols], acc[G][kWopCols];
+#pragma unroll
+  for (int s = 0; s < kWopCols; ++s) {
+    const int64_t j = j0 + s * kWideThreads;
+    ok[s] = j < K;
+    mc[s] = ok[s] ? wop_m0(a, j) : 0.0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      yc[g][s] = ok[s] && f0 + g < a.F ? wop_y(a, f0 + g, c, j) : 0.0;
+      acc[g][s] = 0.0;
+    }
+  }
+  __syncthreads();
+  const double* base = a.xtx + i0 * a.ld_xtx + j0;
+  // rows i .. i + 3 as stored (0 off the upper triangle and past K): the
+  // loads of the next rows are issued before this rows' sums
+  auto load = [&](double (&v)[kWideUnroll][kWopCols], int i) {
+#pragma unroll
+    for (int u = 0; u < kWideUnroll; ++u) {
+#pragma unroll
+      for (int s = 0; s < kWopCols; ++s)
+        v[u][s] = ok[s] && i + u < n && j0 + s * kWideThreads >= i0 + i + u
+                      ? __ldcs(base + (i + u) * a.ld_xtx + s * kWideThreads)
+                      : 0.0;
+    }
+  };
+  // their column sums into acc and row sums into rowbuf, centred on m0
+  auto consume = [&](double (&v)[kWideUnroll][kWopCols], int i) {
+#pragma unroll
+    for (int u = 0; u < kWideUnroll; ++u) {
+#pragma unroll
+      for (int s = 0; s < kWopCols; ++s)
+        v[u][s] = ok[s] && i + u < n && j0 + s * kWideThreads >= i0 + i + u
+                      ? fma(-msh[i + u], mc[s], v[u][s])
+                      : 0.0;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      double p[kWideUnroll];
+#pragma unroll
+      for (int u = 0; u < kWideUnroll; ++u) {
+        const int64_t row = i0 + i + u;
+        const double yr = ysh[g * kWopStrip + i + u];
+        double pu = 0.0;
+#pragma unroll
+        for (int s = 0; s < kWopCols; ++s) {
+          acc[g][s] += yr * v[u][s];
+          if (j0 + s * kWideThreads > row) pu += v[u][s] * yc[g][s];
+        }
+        p[u] = pu;
+      }
+      // the four rows' sums over the warp, halving the rows a lane holds
+      // at each of the first two exchanges: lane l ends with the sum of
+      // row 2 (l >> 4 & 1) + (l >> 3 & 1)
+      const bool hi = lane & 16, mid = lane & 8;
+      double k0 = hi ? p[2] : p[0], k1 = hi ? p[3] : p[1];
+      k0 += __shfl_xor_sync(0xffffffffu, hi ? p[0] : p[2], 16);
+      k1 += __shfl_xor_sync(0xffffffffu, hi ? p[1] : p[3], 16);
+      double kk = mid ? k1 : k0;
+      kk += __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 8);
+      kk += __shfl_xor_sync(0xffffffffu, kk, 4);
+      kk += __shfl_xor_sync(0xffffffffu, kk, 2);
+      kk += __shfl_xor_sync(0xffffffffu, kk, 1);
+      if ((lane & 7) == 0)
+        rowbuf[(g * kWopWarps + warp) * kWopStrip + i + (hi ? 2 : 0) +
+               (mid ? 1 : 0)] = kk;
+    }
+  };
+  double va[kWideUnroll][kWopCols], vb[kWideUnroll][kWopCols];
+  load(va, 0);
+  for (int i = 0; i < n; i += 2 * kWideUnroll) {
+    if (i + kWideUnroll < n) load(vb, i + kWideUnroll);
+    consume(va, i);
+    if (i + kWideUnroll >= n) break;
+    if (i + 2 * kWideUnroll < n) load(va, i + 2 * kWideUnroll);
+    consume(vb, i + kWideUnroll);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (f0 + g < a.F) {
+      double* out = a.colpart + ((f0 + g) * a.S + I) * K + j0;
+#pragma unroll
+      for (int s = 0; s < kWopCols; ++s)
+        if (ok[s]) out[s * kWideThreads] = acc[g][s];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < G * kWopStrip; idx += kWideThreads) {
+    const int g = idx / kWopStrip, i = idx - g * kWopStrip;
+    if (f0 + g < a.F && i < n) {
+      double s = 0.0;
+      for (int w = 0; w < kWopWarps; ++w)
+        s += rowbuf[(g * kWopWarps + w) * kWopStrip + i];
+      a.rowpart[((f0 + g) * NT + jt) * K + i0 + i] = s;
+    }
+  }
+}
+
+// t and z of one component for the step (part, one split): a block is
+// kWopThreads columns of one fold. Column k: C y from the product's sums
+// (the strips at or above row k, the tiles at or right of column k), less
+// the correction sum_l w_l u_l (x_l - m0)_k + u_delta delta_k / sw, times
+// r1_k; the first block of a fold writes z_l = u_l + u_delta / sw.
+__global__ void __launch_bounds__(kWopThreads)
+    ikpls2_wide_op_correct_kernel(const WopArgs a) {
+  __shared__ int64_t rs[kWopStage];
+  __shared__ double vs[kWopStage];
+  const int64_t f = blockIdx.y, K = a.K, L = a.L;
+  const int tid = threadIdx.x;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kWopThreads + tid;
+  const bool cx = a.flags & kCenterX;
+  const double* u = a.u + f * (L + 1);
+  const double ud = cx ? u[L] / a.scal[f] : 0.0;
+  const int64_t* frows = a.rows + f * L;
+  const double m0 = k < K ? wop_m0(a, k) : 0.0;
+  double corr = 0.0;
+  for (int64_t l0 = 0; l0 < L; l0 += kWopStage) {
+    const int n = static_cast<int>(min(static_cast<int64_t>(kWopStage), L - l0));
+    __syncthreads();
+    for (int i = tid; i < n; i += kWopThreads) {
+      const int64_t row = frows[l0 + i];
+      rs[i] = row;
+      vs[i] = wop_coef(a, f, l0 + i, row) * u[l0 + i];
+    }
+    __syncthreads();
+    if (k < K) {
+#pragma unroll 8
+      for (int i = 0; i < n; ++i)
+        corr += vs[i] * (a.X[rs[i] * a.ld_x + k] - m0);
+    }
+  }
+  double* part = a.part + f * (K + L);
+  if (blockIdx.x == 0)
+    for (int64_t l = tid; l < L; l += kWopThreads) part[K + l] = u[l] + ud;
+  if (k >= K) return;
+  if (cx) corr += ud * a.vec[f * 2 * K + k];
+  const int64_t strips = k / kWopStrip + 1;
+  const double* cp = a.colpart + f * a.S * K + k;
+  double t = 0.0;
+  for (int64_t si = 0; si < strips; ++si) t += cp[si * K];
+  const double* rp = a.rowpart + f * a.NT * K + k;
+  for (int64_t jt = k / kWopTile; jt < a.NT; ++jt) t += rp[jt * K];
+  part[k] = a.vec[(f * 2 + 1) * K + k] * (t - corr);
+}
+
+// One component's product for a group of G folds: its dynamic shared
+// memory set once a call, then the launch.
+template <int G>
+size_t wop_product_shmem() {
+  return sizeof(double) * ((G + 1) * kWopStrip + G * kWopWarps * kWopStrip);
+}
+
+template <int G>
+cudaError_t wop_product_attr() {
+  return cudaFuncSetAttribute(ikpls2_wide_op_product_kernel<G>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(wop_product_shmem<G>()));
+}
+
+template <int G>
+void wop_product(const WopArgs& a, int c, cudaStream_t st) {
+  const int64_t nrb = (a.L + 1 + kWopRows - 1) / kWopRows;
+  const dim3 grid(static_cast<unsigned>(a.S * a.NT + G * nrb),
+                  static_cast<unsigned>((a.F + G - 1) / G));
+  ikpls2_wide_op_product_kernel<G>
+      <<<grid, kWideThreads, wop_product_shmem<G>(), st>>>(a, c);
 }
 
 }  // namespace
@@ -1813,6 +2315,74 @@ extern "C" int cvm_ikpls2_wide_f64(
                   static_cast<unsigned>(F));
   for (int c = 0; c < A; ++c) {
     ikpls2_wide_product_kernel<<<grid, kWideThreads, 0, st>>>(a, c);
+    ikpls2_wide_step_kernel<<<steps, kStepThreads, shmem, st>>>(a, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every fold's IKPLS #2 solve and weighted PRESS with no fold matrix formed,
+// folds of any L at any K, the whole card on the chunk: the prep, component
+// 0's start, then a product, a correction and a step a component (3 A + 2
+// launches, in stream order). Returns a cudaError_t (0 on success).
+extern "C" int cvm_ikpls2_wide_op_f64(
+    const double* xtx, const double* xty, const double* X, const double* Y,
+    const double* wts, const double* sum_x, const double* sum_sq_x,
+    const double* sum_y, const double* sum_sq_y, const double* sum_w,
+    const int64_t* nnz, const int64_t* rows, const double* mask, double* vec,
+    double* ystat, double* scal, double* g, double* yv, double* wv,
+    double* colpart, double* rowpart, double* u, double* part, double* pr,
+    double* yhat, double* z, double* press, int64_t F, int64_t K, int64_t M,
+    int64_t L, int64_t A, int64_t ld_xtx, int64_t ld_xty, int64_t ld_x,
+    int64_t ld_y, int64_t ld_w, int64_t ddof, double resolution, int flags,
+    int device, void* stream) {
+  if (F <= 0 || A <= 0) return 0;
+  const int64_t S = (K + kWopStrip - 1) / kWopStrip;
+  const int64_t NT = (K + kWopTile - 1) / kWopTile;
+  if (K < 1 || M < 1 || M > kMaxM || L < 1 || F > 65535 ||
+      S * NT + 4 * ((L + kWopRows) / kWopRows) > 0x7fffffff ||
+      A > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = F == 1 ? 1 : (F == 2 ? 2 : 4);
+  err = G == 1 ? wop_product_attr<1>()
+               : (G == 2 ? wop_product_attr<2>() : wop_product_attr<4>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int shmem = static_cast<int>(sizeof(double) * kWideShmem);
+  err = cudaFuncSetAttribute(ikpls2_wide_step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  WopArgs w{xtx,     xty,     X,    Y,      wts,  sum_x, sum_sq_x, sum_y,
+            sum_sq_y, sum_w,  nnz,  rows,   mask, vec,   ystat,    scal,
+            g,       yv,      wv,   colpart, rowpart, u,  part,     pr,
+            F,       K,       M,    L,      A,    S,     NT,       ld_xtx,
+            ld_xty,  ld_x,    ld_y, ld_w,   ddof, resolution, flags};
+  // the step reads the folds' XTY from g (xty null), t and z from part as
+  // one split, the rows' Y and weights gathered by the prep
+  WideArgs a{nullptr, nullptr, nullptr, yv,      wv,    mask,  nullptr,
+             nullptr, ystat,   ystat + M, nullptr, part, g,     pr,
+             yhat,    z,       press,   K,       M,     L,     A,
+             1,       K + L,   0,       0,       0,     0,     0,
+             0,       2 * M,   2 * M,   flags};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 cols(static_cast<unsigned>((K + kWopThreads - 1) / kWopThreads),
+                  static_cast<unsigned>(F));
+  ikpls2_wide_op_prep_kernel<<<cols, kWopThreads, 0, st>>>(w);
+  const unsigned steps = static_cast<unsigned>(F * kWideCluster);
+  ikpls2_wide_step_kernel<<<steps, kStepThreads, shmem, st>>>(a, -1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int c = 0; c < A; ++c) {
+    if (G == 1) {
+      wop_product<1>(w, c, st);
+    } else if (G == 2) {
+      wop_product<2>(w, c, st);
+    } else {
+      wop_product<4>(w, c, st);
+    }
+    ikpls2_wide_op_correct_kernel<<<cols, kWopThreads, 0, st>>>(w);
     ikpls2_wide_step_kernel<<<steps, kStepThreads, shmem, st>>>(a, c);
   }
   return static_cast<int>(cudaGetLastError());

@@ -10,24 +10,34 @@ Improved Kernel PLS Algorithm #2 (Dayal & MacGregor, J. Chemometrics
 validation rows are predicted with 1..A components, and each component
 count is scored, so that the user can choose A.
 
-:func:`cross_validate_pls` takes one of three routes, by what the input
-shows. A leave-one-out batch (one unmasked row a fold) of a float64 state
-with K at most ``ops.pls.MAX_OP_K``, under ``impl="auto"`` or ``"cuda"``
-(:func:`operator_route`), forms no fold matrix: its own loop of chunks of
-``batch_size`` folds, the rows copied to the state's device once a call,
-and one :func:`solve_operator` a chunk, i.e. one
-``ops.pls.ikpls2_operator`` (the kernel ``cvm_ikpls2_op_f64`` on the card,
-its twin on the CPU), which applies each fold's training ``XTX`` as the
-fitted total plus the fold's rank-one corrections. Every other bucket
-(K-fold, masked, float32, ``impl="torch"``, K over the operator's limit)
-runs through the reduce sweep's bodies
+:func:`cross_validate_pls` takes one of four routes, by what the input
+shows (:func:`operator_route` names the first two). Under ``impl="auto"``
+or ``"cuda"`` a float64 state forms no fold matrix on two of them: one loop
+of chunks of ``batch_size`` folds, the rows and mask copied to the state's
+device once a call, each chunk's PRESS written into its folds' rows of one
+output. A leave-one-out batch (one unmasked row a fold) with K at most
+``ops.pls.MAX_OP_K`` (``"operator"``) runs one :func:`solve_operator` a
+chunk, i.e. one ``ops.pls.ikpls2_operator`` (the kernel
+``cvm_ikpls2_op_f64`` on the card, its twin on the CPU), which applies each
+fold's training ``XTX`` as the fitted total plus the fold's rank-one
+corrections. Any other bucket with K over ``ops.pls.MAX_K``
+(``"wide_op"``: K-fold, masked or leave-one-out) runs one
+:func:`solve_wide_operator` a chunk, i.e. one ``ops.pls.ikpls2_wide_op``
+(the kernels ``cvm_ikpls2_wide_op_f64``, the whole card on the chunk, or
+their twin on the CPU), which applies each fold's training ``XTX`` as the
+fitted total less the fold's rank-L validation term. Every other bucket
+(K-fold and masked up to ``ops.pls.MAX_K``, float32, ``impl="torch"``, K
+over the operator's limit up to ``MAX_K``) runs through the reduce sweep's
+bodies
 (:func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce` with a
 chunk consumer: the hoisted body's LOOCV, packed and v3 fold plans, the
 generic per-chunk body, masked batches) on formed fold matrices;
 :func:`solve` is that consumer, one ``ops.pls.ikpls2`` call a chunk (one
-block a fold), which sends K over ``ops.pls.MAX_K`` to the wide route's
-``ops.pls.ikpls2_wide`` (the whole card on the chunk, K unbounded): the
-hand-written kernels on the card, their plain twin on the CPU. There is no
+block a fold), which sends K over ``ops.pls.MAX_K`` (``impl="torch"``
+and float32 alone reach it through this function) to the wide route's
+``ops.pls.ikpls2_wide`` on formed matrices (the whole card on the chunk, K
+unbounded): the hand-written kernels on the card, their plain twin on the
+CPU. There is no
 float32 kernel: a float32 state on the card needs ``impl="torch"``, which
 runs the twin there.
 """
@@ -35,6 +45,7 @@ runs the twin there.
 from __future__ import annotations
 
 import operator
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,7 +58,8 @@ from ..ops.loocv import IMPLS, check_rows
 from ..utils.profiling import PLS, PLS_SOLVE, spanned, to_device
 from .sweep import ValidationRows, chunking, cross_validate_reduce
 
-__all__ = ["cross_validate_pls", "operator_route", "solve", "solve_operator"]
+__all__ = ["cross_validate_pls", "operator_route", "solve", "solve_operator",
+           "solve_wide_operator"]
 
 
 @spanned(PLS_SOLVE)
@@ -100,9 +112,10 @@ def cross_validate_pls(
     the training rows of every fold (N less its validation rows).
 
     ``impl``: ``"auto"`` takes the operator route for leave-one-out
-    batches (:func:`operator_route`), else the sweep's hoisted bodies and
-    the wide route's solve where K is over ``ops.pls.MAX_K``, and the
-    kernels on the card (the twins on the CPU), ``"cuda"`` the same and
+    batches, the wide operator route where K is over ``ops.pls.MAX_K``
+    (:func:`operator_route`), else the sweep's
+    hoisted bodies, and the kernels on the card (the twins on the CPU),
+    ``"cuda"`` the same and
     requires CUDA tensors, ``"torch"`` the generic body and every twin. The
     kernels are float64 only: a float32 state runs on the CPU, or on the
     card with ``impl="torch"``, and raises otherwise.
@@ -131,8 +144,10 @@ def cross_validate_pls(
             f"rows)] = [1, {min(state.K, n_train)}] (K={state.K}, the "
             f"fewest training rows {n_train}).")
 
-    if operator_route(config, state, idx, mask, impl):
-        return _operator_sweep(config, state, idx, n_components=n_components,
+    route = operator_route(config, state, idx, mask, impl)
+    if route is not None:
+        return _operator_sweep(config, state, route, idx, mask,
+                               n_components=n_components,
                                batch_size=batch_size, impl=impl)
 
     def consume(mats, stats, rows):
@@ -144,44 +159,89 @@ def cross_validate_pls(
 
 
 def operator_route(config: CVConfig, state: FitState, idx: np.ndarray,
-                   mask, impl: str) -> bool:
-    """Whether :func:`cross_validate_pls` takes the operator route for the
-    host folds ``idx`` (P, L) and ``mask``: ``impl`` ``"auto"`` or
-    ``"cuda"``, a float64 config, one unmasked row a fold (LOOCV) and K at
-    most ``ops.pls.MAX_OP_K``. Every other bucket runs on formed fold
-    matrices through the reduce sweep."""
-    return (impl in ("auto", "cuda") and config.torch_dtype == torch.float64
-            and idx.shape[1] == 1 and mask is None
-            and state.K <= _pls.MAX_OP_K)
+                   mask, impl: str) -> Optional[str]:
+    """Which route with no fold matrix :func:`cross_validate_pls` takes for
+    the host folds ``idx`` (P, L) and ``mask``, both only under ``impl``
+    ``"auto"`` or ``"cuda"`` and for a float64 config: ``"operator"`` for
+    one unmasked row a fold (LOOCV) and K at most ``ops.pls.MAX_OP_K``,
+    else ``"wide_op"`` for K over ``ops.pls.MAX_K``, whatever the rows a
+    fold and mask. ``None``: the bucket runs on formed fold matrices
+    through the reduce sweep."""
+    if impl not in ("auto", "cuda") or config.torch_dtype != torch.float64:
+        return None
+    if idx.shape[1] == 1 and mask is None and state.K <= _pls.MAX_OP_K:
+        return "operator"
+    return "wide_op" if state.K > _pls.MAX_K else None
 
 
 @spanned(PLS_SOLVE)
 def solve_operator(config: CVConfig, state: FitState, rows: torch.Tensor, *,
-                   n_components: int, impl: str = "auto") -> torch.Tensor:
+                   n_components: int, impl: str = "auto",
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One chunk of one-row folds -> (F, A, M) weighted PRESS, as
     :func:`solve` scores them, from the fitted state alone:
     ``ops.pls.ikpls2_operator`` applies each fold's training ``XTX`` as
     the fitted total and the fold's rank-one corrections, so no fold
     matrix is formed. ``rows`` is the chunk's (F,) int64 row indices on
-    the state's device, checked."""
-    sums = (state.sum_X, state.sum_sq_X, state.sum_Y, state.sum_sq_Y,
-            state.sum_w, state.num_nonzero_w)
+    the state's device, checked; the PRESS is written into ``out`` where
+    given."""
     return _pls.ikpls2_operator(
-        state.XTX, state.XTY, state.X, state.Y, state.weights, sums, rows,
-        n_components=n_components, center_X=config.center_X,
+        state.XTX, state.XTY, state.X, state.Y, state.weights, _sums(state),
+        rows, n_components=n_components, center_X=config.center_X,
         center_Y=config.center_Y, scale_X=config.scale_X,
         scale_Y=config.scale_Y, ddof=config.ddof,
-        resolution=config.resolution, impl=impl)
+        resolution=config.resolution, impl=impl, out=out)
 
 
-def _operator_sweep(config, state, idx, *, n_components, batch_size, impl):
-    """The operator route: the rows copied to the state's device once, then
-    :func:`solve_operator` over chunks of at most ``batch_size`` folds,
-    equalised as the reduce sweep equalises them (no padding)."""
+def _sums(state: FitState) -> tuple:
+    """The fit's sums as the operator kernels take them."""
+    return (state.sum_X, state.sum_sq_X, state.sum_Y, state.sum_sq_Y,
+            state.sum_w, state.num_nonzero_w)
+
+
+@spanned(PLS_SOLVE)
+def solve_wide_operator(config: CVConfig, state: FitState, rows: torch.Tensor,
+                        mask: Optional[torch.Tensor], *, n_components: int,
+                        impl: str = "auto",
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One chunk of folds of any L -> (F, A, M) weighted PRESS, as
+    :func:`solve` scores them, from the fitted state alone:
+    ``ops.pls.ikpls2_wide_op`` applies each fold's training ``XTX`` as the
+    fitted total less the fold's rank-L validation term, so no fold matrix
+    is formed. ``rows`` is the chunk's (F, L) int64 row indices on the
+    state's device, checked, ``mask`` its (F, L) float64 mask or ``None``;
+    the PRESS is written into ``out`` where given."""
+    return _pls.ikpls2_wide_op(
+        state.XTX, state.XTY, state.X, state.Y, state.weights, _sums(state),
+        rows, mask, n_components=n_components, center_X=config.center_X,
+        center_Y=config.center_Y, scale_X=config.scale_X,
+        scale_Y=config.scale_Y, ddof=config.ddof,
+        resolution=config.resolution, impl=impl, out=out)
+
+
+def _operator_sweep(config, state, route, idx, mask, *, n_components,
+                    batch_size, impl):
+    """The routes with no fold matrix (``route`` as :func:`operator_route`
+    names it): the rows and mask copied to the state's device once, then
+    :func:`solve_operator` or :func:`solve_wide_operator` over chunks of at
+    most ``batch_size`` folds, equalised as the reduce sweep equalises them
+    (no padding), each writing its folds' rows of the (P, A, M) output."""
     n_folds = idx.shape[0]
-    rows = to_device(check_rows(idx[:, 0], state.N), state.device)
+    rows = to_device(check_rows(idx, state.N).reshape(idx.shape),
+                     state.device)
+    if mask is not None:
+        mask = to_device(torch.as_tensor(mask, dtype=torch.float64),
+                         state.device).reshape(idx.shape)
     bs, _ = chunking(n_folds, state.K, state.K + state.M, batch_size)
-    return torch.cat([
-        solve_operator(config, state, rows[c0:c0 + bs],
-                       n_components=n_components, impl=impl)
-        for c0 in range(0, n_folds, bs)])
+    out = torch.empty((n_folds, n_components, state.M),
+                      dtype=state.XTX.dtype, device=state.device)
+    for c0 in range(0, n_folds, bs):
+        c = slice(c0, c0 + bs)
+        if route == "operator":
+            solve_operator(config, state, rows[c, 0],
+                           n_components=n_components, impl=impl, out=out[c])
+        else:
+            solve_wide_operator(
+                config, state, rows[c], None if mask is None else mask[c],
+                n_components=n_components, impl=impl, out=out[c])
+    return out

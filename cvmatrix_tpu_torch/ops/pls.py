@@ -61,9 +61,36 @@ PRESS, and the next component's ``w`` and Gram-Schmidt ``r`` (Jacobi as
 :func:`ikpls2_reference`, dispatched as :func:`ikpls2`. It runs in a span
 ``cvmatrix_tpu_torch.ops.pls.ikpls2_wide`` (``utils/profiling.py``).
 
-Counters: :func:`launch_counts` (kernel launches, ``ikpls2``, ``ikpls2_op``
-and ``ikpls2_wide``) and :func:`fold_components` (F x A of every solve,
-kernel or twin, by route).
+Folds of any L wider than :data:`MAX_K` need no formed matrix either:
+:func:`ikpls2_wide_op` reads the fitted totals in place, the fitted rows,
+the fit's sums and each fold's rows (and mask), and applies each fold's
+training ``XTX`` as the total less the fold's rank-L validation term. With
+X centred it centres on the fitted mean ``m0 = sum_X / sum_w``, so that no
+product carries the large mean term::
+
+    XTX_f = D^-1 (C - sum_l c_l d_l d_l^T - delta delta^T / sw) D^-1
+    C = XTX - sum_w m0 m0^T,   d_l = x_l - m0,   delta = sum_l c_l d_l
+
+(``c_l`` the row's weight times its mask, ``sw`` the training weight sum,
+``D`` the training std; uncentred, ``m0`` and ``delta`` are 0), the same
+matrix as the formed route's ``XTX - sum_l c_l x_l x_l^T - sw mu mu^T``
+scaled, with the training mean ``mu = m0 - delta / sw``. Each component's
+``t = XTX_f r`` is ``r1 (.) (C y - sum_l c_l u_l d_l - u_d delta / sw)``
+with ``y = r1 (.) r``, ``u_l = d_l . y`` and ``u_d = delta . y``, and the
+rows' scores are ``u_l + u_d / sw``. Kernels: ``csrc/pls.cu``
+(``cvm_ikpls2_wide_op_f64``: 3 A + 2 launches a chunk, every one named
+``ikpls2_wide_*``): a prep (the folds' statistics from the fit's sums less
+their rows, each fold's ``XTY`` and ``delta``), then a component's product
+(``C y`` of every fold of the chunk from one pass over the upper triangle
+of the total, and the scores ``u``), its correction and the wide route's
+step. Float64, M at most :data:`MAX_M`, any K, L and A; twin
+:func:`ikpls2_wide_op_reference` (which reads the whole total), dispatched
+as :func:`ikpls2`. It runs in a span
+``cvmatrix_tpu_torch.ops.pls.ikpls2_wide_op``.
+
+Counters: :func:`launch_counts` (kernel launches, ``ikpls2``, ``ikpls2_op``,
+``ikpls2_wide`` and ``ikpls2_wide_op``) and :func:`fold_components` (F x A
+of every solve, kernel or twin, by route).
 """
 
 from __future__ import annotations
@@ -73,7 +100,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.profiling import PLS_WIDE, spanned
+from ..utils.profiling import PLS_WIDE, PLS_WIDE_OP, spanned
 from .fold_downdate import _fn, _run, _use_kernel
 from .loocv import _ptr
 from .loocv import side_mean_std as _side_mean_std
@@ -81,7 +108,8 @@ from .precision import highest_precision
 
 __all__ = ["MAX_K", "MAX_M", "MAX_OP_K", "MAX_SWEEPS", "fold_components",
            "ikpls2", "ikpls2_operator", "ikpls2_operator_reference",
-           "ikpls2_reference", "ikpls2_wide", "jacobi_dominant",
+           "ikpls2_reference", "ikpls2_wide", "ikpls2_wide_op",
+           "ikpls2_wide_op_reference", "jacobi_dominant",
            "max_active_clusters", "round_robin_pairs", "launch_counts",
            "reset_launch_counts"]
 
@@ -90,8 +118,11 @@ __all__ = ["MAX_K", "MAX_M", "MAX_OP_K", "MAX_SWEEPS", "fold_components",
 # memory); a wider one takes ikpls2_wide.
 MAX_M = 32
 MAX_K = 8192
-# Rows of a split of ikpls2_wide's product (kWideRows in csrc/pls.cu).
+# Rows of a split of ikpls2_wide's product (kWideRows in csrc/pls.cu), and
+# rows and columns of a tile of ikpls2_wide_op's (kWopStrip, kWopTile).
 _WIDE_ROWS = 256
+_WOP_STRIP = 256
+_WOP_TILE = 512
 # Widest K of the operator kernel: a block keeps its cluster's eight
 # (r1 (.) r) vectors and four folds' vectors and M x M matrices in shared
 # memory, 219 KB at K=768, M=32 (see csrc/pls.cu).
@@ -420,45 +451,47 @@ def ikpls2_wide(xtx, xty, X_val, Y_val, w_val, mask, stats, *,
     return press
 
 
-def _fold_statistics(X, Y, weights, sums, rows, *, center_X, center_Y,
-                     scale_X, scale_Y, ddof, resolution):
-    """The one-row folds ``rows`` (F,): each fold's validation row and
-    training statistics from the fit's sums less that row, as the LOOCV
-    kernels' vector phase computes them (``ops.loocv.side_mean_std``, the
-    scalars of ``core/batch._fold_scalar_stream``) -> ``(x, y, wv, sw, mX,
-    sX, mY, sY)``: (F, K), (F, M), (F,) or ``None`` unweighted, (F,), (F,
-    K) twice, (F, M) twice. A mean is 0 where no flag needs it and a std 1
-    where its side is not scaled."""
+def _fold_statistics(X, Y, weights, sums, rows, mask=None, *, center_X,
+                     center_Y, scale_X, scale_Y, ddof, resolution):
+    """The folds ``rows`` (F, L) with ``mask`` (F, L) or ``None``: each
+    fold's validation rows and training statistics from the fit's sums less
+    theirs, as the LOOCV kernels' vector phase computes them
+    (``ops.loocv.side_mean_std``, the scalars of
+    ``core/batch._fold_scalar_stream``) -> ``(x, y, c, sw, mX, sX, mY,
+    sY)``: (F, L, K), (F, L, M), each row's weight times its mask (F, L),
+    (F,), (F, K) twice, (F, M) twice. A mean is 0 where no flag needs it
+    and a std 1 where its side is not scaled."""
     sum_X, sum_sq_X, sum_Y, sum_sq_Y, sum_w, nnz = sums
     x, y = X[rows], Y[rows]
-    wv = None if weights is None else weights[rows, 0]
-    xw, yw = (x, y) if wv is None else (x * wv[:, None], y * wv[:, None])
+    c = (torch.ones(rows.shape, dtype=x.dtype, device=x.device)
+         if weights is None else weights[rows, 0])
+    if mask is not None:
+        c = c * mask
     center = center_X or center_Y
     sw = x.new_zeros((rows.shape[0],))
     scal = x.new_zeros((rows.shape[0], 3))
     if center or scale_X or scale_Y:
-        if wv is not None:
-            sw = sum_w - wv
-            nnz_t = (nnz - (wv != 0).to(nnz.dtype)).to(x.dtype)
-        else:
-            sw = sw + (X.shape[0] - 1)
-            nnz_t = sw
+        sw = sum_w - c.sum(dim=1)
+        nnz_t = sw if weights is None else (
+            nnz - (c != 0).sum(dim=1)).to(x.dtype)
         divisor = (nnz_t - ddof) * sw / nnz_t
         scal = torch.stack([sw, 1.0 / sw, 1.0 / divisor], dim=1)
 
-    def side(w_rows, u_rows, s, sq, need_mean, need_std):
-        g = w_rows.new_zeros((2, w_rows.shape[1]))
+    def side(v, s, sq, need_mean, need_std):
+        g = v.new_zeros((2, v.shape[2]))
         if need_mean or need_std:
             g[0] = s[0]
         if need_std:
             g[1] = sq[0]
-        return _side_mean_std(w_rows, w_rows * u_rows if need_std else None,
-                              g, scal, need_mean=need_mean,
+        cv = c[:, :, None] * v
+        return _side_mean_std(cv.sum(dim=1),
+                              (cv * v).sum(dim=1) if need_std else None, g,
+                              scal, need_mean=need_mean,
                               resolution=resolution)
 
-    mX, sX = side(xw, x, sum_X, sum_sq_X, center or scale_X, scale_X)
-    mY, sY = side(yw, y, sum_Y, sum_sq_Y, center or scale_Y, scale_Y)
-    return x, y, wv, sw, mX, sX, mY, sY
+    mX, sX = side(x, sum_X, sum_sq_X, center or scale_X, scale_X)
+    mY, sY = side(y, sum_Y, sum_sq_Y, center or scale_Y, scale_Y)
+    return x, y, c, sw, mX, sX, mY, sY
 
 
 @highest_precision()
@@ -485,9 +518,12 @@ def ikpls2_operator_reference(xtx, xty, X, Y, weights, sums, rows, *,
     last component's eigenvectors (:func:`jacobi_dominant` with
     ``basis``), in whose basis the deflated ``S`` differs from a diagonal
     matrix only in one row and column."""
-    x, y, wv, sw, mX, sX, mY, sY = _fold_statistics(
-        X, Y, weights, sums, rows, center_X=center_X, center_Y=center_Y,
-        scale_X=scale_X, scale_Y=scale_Y, ddof=ddof, resolution=resolution)
+    x, y, c, sw, mX, sX, mY, sY = _fold_statistics(
+        X, Y, weights, sums, rows[:, None], center_X=center_X,
+        center_Y=center_Y, scale_X=scale_X, scale_Y=scale_Y, ddof=ddof,
+        resolution=resolution)
+    x, y = x[:, 0], y[:, 0]
+    wv = None if weights is None else c[:, 0]
     center = center_X or center_Y
     f_folds, k = x.shape
     m = y.shape[1]
@@ -543,12 +579,26 @@ def ikpls2_operator_reference(xtx, xty, X, Y, weights, sums, rows, *,
     return press
 
 
+def _press_out(name, out, f_folds, A, m, device):
+    """``out`` checked as a contiguous (F, A, M) float64 tensor on
+    ``device``, or a new one where ``None``."""
+    if out is None:
+        return torch.empty((f_folds, A, m), dtype=torch.float64, device=device)
+    if (tuple(out.shape) != (f_folds, A, m) or out.dtype != torch.float64
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous ({f_folds}, {A}, "
+                         f"{m}) float64 tensor on {device}")
+    return out
+
+
 def ikpls2_operator(xtx, xty, X, Y, weights, sums, rows, *,
                     n_components: int, center_X: bool, center_Y: bool,
                     scale_X: bool, scale_Y: bool, ddof: int,
-                    resolution: float, impl: str = "auto") -> torch.Tensor:
+                    resolution: float, impl: str = "auto",
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every one-row fold's IKPLS #2 solve and score, no fold matrix
-    formed -> (F, A, M) weighted PRESS.
+    formed -> (F, A, M) weighted PRESS, written into ``out`` where given
+    (as :func:`ikpls2_wide_op` takes it).
 
     Operands as :func:`ikpls2_operator_reference`; on the kernel's path
     (``cvm_ikpls2_op_f64``) every one is float64 on one CUDA device, with
@@ -568,9 +618,10 @@ def ikpls2_operator(xtx, xty, X, Y, weights, sums, rows, *,
                          "impl='torch' to run its plain twin")
     ikpls2_operator.fold_components += f_folds * A
     if not launch:
-        return ikpls2_operator_reference(
+        press = ikpls2_operator_reference(
             xtx, xty, X, Y, weights, sums, rows, n_components=A, ddof=ddof,
             resolution=resolution, **flags)
+        return press if out is None else out.copy_(press)
     if m > MAX_M or k > MAX_OP_K:
         raise ValueError(
             f"ikpls2_op's kernel takes M <= {MAX_M} and K <= {MAX_OP_K} "
@@ -596,13 +647,13 @@ def ikpls2_operator(xtx, xty, X, Y, weights, sums, rows, *,
                                  or nnz.dtype != torch.int64)):
         raise ValueError(f"ikpls2_op: rows and num_nonzero_w must be int64 "
                          f"on {device}.")
+    press = _press_out("ikpls2_op", out, f_folds, A, m, device)
     rows = rows.contiguous()
     g = torch.empty((f_folds, k, m), dtype=torch.float64, device=device)
     pr = torch.empty((f_folds, 2, A, k), dtype=torch.float64, device=device)
     vec = torch.empty((f_folds, 3, k), dtype=torch.float64, device=device)
     aux = torch.empty((f_folds, m * m + A), dtype=torch.float64,
                       device=device)
-    press = torch.empty((f_folds, A, m), dtype=torch.float64, device=device)
     fn = _fn("pls", "cvm_ikpls2_op_f64", 17, 11,
              (ctypes.c_double, ctypes.c_int))
     bits = sum(b for nm, b in _FLAG_BITS.items() if flags[nm])
@@ -614,6 +665,178 @@ def ikpls2_operator(xtx, xty, X, Y, weights, sums, rows, *,
          float(resolution), bits, device=device)
     ikpls2_operator.launches += 1
     return press
+
+
+@highest_precision()
+def ikpls2_wide_op_reference(xtx, xty, X, Y, weights, sums, rows, mask, *,
+                             n_components: int, center_X: bool,
+                             center_Y: bool, scale_X: bool, scale_Y: bool,
+                             ddof: int, resolution: float) -> torch.Tensor:
+    """Plain-torch twin of the wide operator kernels -> (F, A, M) weighted
+    PRESS of the folds ``rows`` (F, L) int64 with ``mask`` (F, L) or
+    ``None``, no fold matrix formed.
+
+    ``xtx``, ``xty``, ``X``, ``Y``, ``weights`` and ``sums`` as
+    :func:`ikpls2_operator_reference`. Each fold's statistics are the
+    operator's (its rows' sums taken off the fit's) and its ``XTY``
+    is formed: ``(xty - sum_l c_l x_l y_l^T - sw mX mY^T) / (sX sY^T)``,
+    each term only where its flag is on. Its ``XTX`` is applied as the
+    module's doc says: ``t = r1 (.) (C y - sum_l c_l u_l d_l - u_d delta
+    / sw)``, C the whole total centred on ``m0``, and the rows' scores are
+    ``u + u_d / sw``; every other step runs as :func:`ikpls2_reference`
+    does."""
+    x, y, c, sw, mX, sX, mY, sY = _fold_statistics(
+        X, Y, weights, sums, rows, mask, center_X=center_X,
+        center_Y=center_Y, scale_X=scale_X, scale_Y=scale_Y, ddof=ddof,
+        resolution=resolution)
+    f_folds, n_l, k = x.shape
+    m = y.shape[2]
+    A = n_components
+    cx = c[:, :, None] * x
+    G = xty - cx.mT @ y
+    if center_X or center_Y:
+        G = G - sw[:, None, None] * (mX[:, :, None] * mY[:, None, :])
+    if scale_X and scale_Y:
+        G = G / (sX[:, :, None] * sY[:, None, :])
+    elif scale_X:
+        G = G / sX[:, :, None]
+    elif scale_Y:
+        G = G / sY[:, None, :]
+    C, d, delta = xtx, x, None
+    if center_X:
+        m0 = sums[0].reshape(-1) / sums[4]
+        C = xtx - (sums[4] * m0)[:, None] * m0[None, :]
+        d = x - m0
+        delta = (c[:, :, None] * d).sum(dim=1)
+    r1 = 1.0 / sX
+    wm = None
+    for t in (None if weights is None else weights[rows, 0], mask):
+        if t is not None:
+            wm = t if wm is None else wm * t
+    Pm = x.new_zeros((f_folds, A, k))
+    Rm = x.new_zeros((f_folds, A, k))
+    yhat = y.new_zeros(y.shape)
+    press = x.new_empty((f_folds, A, m))
+    for a in range(A):
+        qe = jacobi_dominant(G.mT @ G)
+        w = (G @ qe[:, :, None])[:, :, 0]
+        w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True)
+        r = w
+        if a:
+            dots = (Pm[:, :a] @ w[:, :, None])[:, :, 0]
+            for j in range(a):
+                r = r - dots[:, j:j + 1] * Rm[:, j]
+        yv = r1 * r
+        u = (d @ yv[:, :, None])[:, :, 0]
+        corr = (d.mT @ (c * u)[:, :, None])[:, :, 0]
+        z = u
+        if center_X:
+            ud = (delta * yv).sum(dim=1, keepdim=True) / sw[:, None]
+            corr = corr + ud * delta
+            z = u + ud
+        t = r1 * (yv @ C - corr)
+        tt = (t * r).sum(dim=1)[:, None]
+        p = t / tt
+        qn = (G.mT @ r[:, :, None])[:, :, 0] / tt
+        G = G - (p[:, :, None] * qn[:, None, :]) * tt[:, :, None]
+        Pm[:, a], Rm[:, a] = p, r
+        yhat = yhat + z[:, :, None] * qn[:, None, :]
+        pred = yhat
+        if scale_Y:
+            pred = pred * sY[:, None, :]
+        if center_Y:
+            pred = pred + mY[:, None, :]
+        e2 = (y - pred) ** 2
+        press[:, a] = (e2 if wm is None else wm[:, :, None] * e2).sum(dim=1)
+    return press
+
+
+@spanned(PLS_WIDE_OP)
+def ikpls2_wide_op(xtx, xty, X, Y, weights, sums, rows, mask, *,
+                   n_components: int, center_X: bool, center_Y: bool,
+                   scale_X: bool, scale_Y: bool, ddof: int,
+                   resolution: float, impl: str = "auto",
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every fold's IKPLS #2 solve and score, no fold matrix formed, folds
+    of any L -> (F, A, M) weighted PRESS, written into ``out`` where given
+    (a contiguous (F, A, M) float64 tensor on the operands' device).
+
+    Operands as :func:`ikpls2_wide_op_reference`; on the kernel's path
+    (``cvm_ikpls2_wide_op_f64``, 3 A + 2 launches) every one is float64 on
+    one CUDA device, ``rows`` int64 in [0, N) (not checked here), M at
+    most :data:`MAX_M` and the chunk at most 65,535 folds. Scratch of about
+    F (K (K / 256 + 2 A + M + 3) + L (M + 4)) values is allocated a call.
+    Dispatch as :func:`ikpls2`."""
+    k, m = xty.shape
+    f_folds, n_l = rows.shape
+    A = int(n_components)
+    if A < 1:
+        raise ValueError(f"n_components must be at least 1, got {A}")
+    flags = dict(center_X=center_X, center_Y=center_Y, scale_X=scale_X,
+                 scale_Y=scale_Y)
+    device = xty.device
+    launch = _use_kernel("ikpls2_wide_op", impl, device)
+    if launch and xty.dtype != torch.float64:
+        raise ValueError(f"ikpls2_wide_op has no kernel for {xty.dtype}; "
+                         "pass impl='torch' to run its plain twin")
+    ikpls2_wide_op.fold_components += f_folds * A
+    if not launch:
+        press = ikpls2_wide_op_reference(
+            xtx, xty, X, Y, weights, sums, rows, mask, n_components=A,
+            ddof=ddof, resolution=resolution, **flags)
+        return press if out is None else out.copy_(press)
+    if m > MAX_M or f_folds > 65535:
+        raise ValueError(
+            f"ikpls2_wide_op's kernel takes M <= {MAX_M} and at most 65,535 "
+            f"folds a chunk (M={m}, F={f_folds}); run impl='torch'")
+    n = X.shape[0]
+    if (tuple(xtx.shape) != (k, k) or tuple(X.shape) != (n, k)
+            or tuple(Y.shape) != (n, m)
+            or (weights is not None and tuple(weights.shape) != (n, 1))
+            or (mask is not None and tuple(mask.shape) != (f_folds, n_l))):
+        raise ValueError(
+            f"ikpls2_wide_op: xtx {tuple(xtx.shape)}, xty {tuple(xty.shape)}, "
+            f"X {tuple(X.shape)}, Y {tuple(Y.shape)} do not match (K, K), "
+            "(K, M), (N, K), (N, M), weights (N, 1), mask (F, L)")
+    xtx, xty, X, Y = (_strided(t, True)[0] for t in (xtx, xty, X, Y))
+    sums = [None if s is None else s.reshape(-1) for s in sums]
+    nnz = sums[5]
+    mask = None if mask is None else mask.contiguous()
+    for t in [xtx, xty, X, Y, weights, mask, *sums[:5]]:
+        if t is not None and (t.device != device
+                              or t.dtype != torch.float64):
+            raise ValueError(f"ikpls2_wide_op operands must all be float64 "
+                             f"on {device}.")
+    if rows.device != device or rows.dtype != torch.int64 or (
+            nnz is not None and (nnz.device != device
+                                 or nnz.dtype != torch.int64)):
+        raise ValueError(f"ikpls2_wide_op: rows and num_nonzero_w must be "
+                         f"int64 on {device}.")
+    out = _press_out("ikpls2_wide_op", out, f_folds, A, m, device)
+    rows = rows.contiguous()
+    splits, tiles = -(-k // _WOP_STRIP), -(-k // _WOP_TILE)
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float64, device=device)
+    vec, ystat, scal = scratch(f_folds, 2, k), scratch(f_folds, 2, m), \
+        scratch(f_folds)
+    g, yv = scratch(f_folds, m, k), scratch(f_folds, n_l, m)
+    wv = None if weights is None else scratch(f_folds, n_l)
+    colpart, rowpart = scratch(f_folds, splits, k), scratch(f_folds, tiles, k)
+    u, part = scratch(f_folds, n_l + 1), scratch(f_folds, k + n_l)
+    pr, yhat, z = (scratch(f_folds, 2, A, k), scratch(f_folds, n_l, m),
+                   scratch(f_folds, n_l))
+    fn = _fn("pls", "cvm_ikpls2_wide_op_f64", 27, 11,
+             (ctypes.c_double, ctypes.c_int))
+    bits = sum(b for nm, b in _FLAG_BITS.items() if flags[nm])
+    _run("ikpls2_wide_op", fn, *(_ptr(t) for t in (
+        xtx, xty, X, Y, weights, *sums, rows, mask, vec, ystat, scal, g, yv,
+        wv, colpart, rowpart, u, part, pr, yhat, z, out)),
+         f_folds, k, m, n_l, A, xtx.stride(0), xty.stride(0), X.stride(0),
+         Y.stride(0), 0 if weights is None else weights.stride(0), int(ddof),
+         float(resolution), bits, device=device)
+    ikpls2_wide_op.launches += 3 * A + 2
+    return out
 
 
 def max_active_clusters(k: int, m: int, device=None) -> int:
@@ -636,7 +859,7 @@ def max_active_clusters(k: int, m: int, device=None) -> int:
 
 
 _ROUTES = {"operator": ikpls2_operator, "matrices": ikpls2,
-           "wide": ikpls2_wide}
+           "wide": ikpls2_wide, "wide_op": ikpls2_wide_op}
 
 
 def reset_launch_counts() -> None:
@@ -647,24 +870,28 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """``{"ikpls2": launches, "ikpls2_op": launches, "ikpls2_wide":
-    launches}`` since the last :func:`reset_launch_counts`: the kernel on
-    formed fold matrices, the operator kernel, and the wide route's kernels
-    (2 A + 2 a chunk)."""
+    launches, "ikpls2_wide_op": launches}`` since the last
+    :func:`reset_launch_counts`: the kernel on formed fold matrices, the
+    operator kernel, the wide route's kernels on formed matrices (2 A + 2 a
+    chunk) and without them (3 A + 2 a chunk)."""
     return {"ikpls2": ikpls2.launches, "ikpls2_op": ikpls2_operator.launches,
-            "ikpls2_wide": ikpls2_wide.launches}
+            "ikpls2_wide": ikpls2_wide.launches,
+            "ikpls2_wide_op": ikpls2_wide_op.launches}
 
 
 def fold_components(route: Optional[str] = None) -> int:
     """The fold-components solved since the last :func:`reset_launch_counts`,
     F x A a solve, the twins' included: of the route ``"operator"``
     (:func:`ikpls2_operator`), ``"matrices"`` (:func:`ikpls2`, on formed
-    fold matrices) or ``"wide"`` (:func:`ikpls2_wide`, on formed fold
-    matrices wider than :data:`MAX_K`), or of every route where ``route`` is
-    ``None``."""
+    fold matrices), ``"wide"`` (:func:`ikpls2_wide`, on formed fold
+    matrices wider than :data:`MAX_K`) or ``"wide_op"``
+    (:func:`ikpls2_wide_op`, none formed), or of every route where
+    ``route`` is ``None``."""
     if route is None:
         return sum(fn.fold_components for fn in _ROUTES.values())
     if route not in _ROUTES:
-        raise ValueError(f"Unknown route: {route!r} (operator|matrices|wide).")
+        raise ValueError(f"Unknown route: {route!r} "
+                         "(operator|matrices|wide|wide_op).")
     return _ROUTES[route].fold_components
 
 

@@ -37,10 +37,16 @@ name:
 - ``cvmatrix_tpu_torch.models.pls.solve``: one chunk's IKPLS #2 solve and
   score (``models.pls.solve``: the ``ikpls2`` or ``ikpls2_wide`` kernels or
   their twin, on formed fold matrices; ``models.pls.solve_operator``:
-  ``ikpls2_op`` or its twin, on leave-one-out folds with none formed);
+  ``ikpls2_op`` or its twin, on leave-one-out folds with none formed;
+  ``models.pls.solve_wide_operator``: the ``ikpls2_wide_op`` kernels or
+  their twin, on wide folds with none formed);
 - ``cvmatrix_tpu_torch.ops.pls.ikpls2_wide``: inside it, each solve of the
-  wide route (``ops.pls.ikpls2_wide``: formed fold matrices wider than
-  ``ops.pls.MAX_K``), kernels or twin.
+  wide route on formed fold matrices (``ops.pls.ikpls2_wide``: wider than
+  ``ops.pls.MAX_K``), kernels or twin;
+- ``cvmatrix_tpu_torch.ops.pls.ikpls2_wide_op``: inside it, each solve of
+  the wide route with no fold matrix formed (``ops.pls.ikpls2_wide_op``:
+  float64 buckets wider than ``ops.pls.MAX_K`` under ``impl`` "auto" or
+  "cuda"), kernels or twin.
 
 No span nests inside another of its name, and none changes a result. The
 fold-components that the solves solve (F x A a chunk) are counted by route
@@ -73,6 +79,7 @@ REDUCE_FN = SWEEP + "reduce_fn"
 PLS = PREFIX + "models.pls."
 PLS_SOLVE = PLS + "solve"
 PLS_WIDE = PREFIX + "ops.pls.ikpls2_wide"
+PLS_WIDE_OP = PREFIX + "ops.pls.ikpls2_wide_op"
 
 _OFF = contextlib.nullcontext()
 

@@ -26,8 +26,9 @@ Tolerances, and why:
   sizes; the operator kernel against its twin, 1e-12 on the card, where
   the tensor cores' sums take another order again.
 
-Leave-one-out batches of a float64 state take the operator route
-(``models.pls.operator_route``); K-fold, masked, float32 and
+Leave-one-out batches of a float64 state take the operator route and
+buckets with K over ``ops.pls.MAX_K`` the wide operator route
+(``models.pls.operator_route`` names both); K-fold, masked, float32 and
 ``impl="torch"`` batches the formed matrices. The CPU runs the twins
 (``ops.pls.ikpls2_operator_reference``, ``ops.pls.ikpls2_reference``); the
 cases marked ``cuda`` run the kernels and skip without a card. This file
@@ -263,7 +264,8 @@ def test_route_gate(monkeypatch, case, operator):
     impl = "torch" if case == "loocv_torch" else "auto"
     T.cross_validate_pls(cfg, st, idx, mask, n_components=2, impl=impl)
     assert ran == ["operator" if operator else "formed"]
-    assert TP.operator_route(cfg, st, idx, mask, impl) is operator
+    assert TP.operator_route(cfg, st, idx, mask, impl) == (
+        "operator" if operator else None)
 
 
 def test_fold_components_by_route():
@@ -427,15 +429,15 @@ def _wide_run(dev, flags, ddof, m, masked=False, n_components=WA,
 @pytest.mark.parametrize("ddof", [0, 1])
 @pytest.mark.parametrize("flags", FLAGS)
 def test_wide_route_matches_reference(monkeypatch, flags, ddof, m):
-    """With ``MAX_K`` below K the K-fold buckets take the wide route (its
-    twin on the CPU), every flag set, ddof 0 and 1, weights with zeros; 3
-    chunks of 2 folds, the last fold repeated in the last."""
+    """With ``MAX_K`` below K the K-fold buckets take the wide route with
+    no fold matrix formed (its twin on the CPU), every flag set, ddof 0
+    and 1, weights with zeros; 3 chunks of 2, 2 and 1 folds."""
     monkeypatch.setattr(OP, "MAX_K", WK - 1)
     OP.reset_launch_counts()
     got, ref = _wide_run("cpu", flags, ddof, m)
     assert got.shape == ref.shape == (WP, WA, m)
-    assert OP.fold_components("wide") == 6 * WA
-    assert OP.fold_components("matrices") == 0
+    assert OP.fold_components("wide_op") == WP * WA
+    assert OP.fold_components("wide") == OP.fold_components("matrices") == 0
     assert _gap(got, ref) <= PRESS_TOL
 
 
@@ -445,18 +447,21 @@ def test_wide_route_masked_bucket(monkeypatch, m):
     OP.reset_launch_counts()
     got, ref = _wide_run("cpu", (True,) * 4, 1, m, masked=True)
     assert got.shape == ref.shape == (7, WA, m)
-    assert OP.fold_components("wide") == 8 * WA  # 4 chunks of 2
+    assert OP.fold_components("wide_op") == 7 * WA  # 4 chunks, no padding
+    assert OP.fold_components("wide") == 0
     assert _gap(got, ref) <= PRESS_TOL
 
 
 @pytest.mark.parametrize("case, wide", [
-    ("over", True), ("at", False), ("torch", True), ("float32", True),
-    ("masked", True)])
+    ("over", "wide_op"), ("at", None), ("torch", "wide"),
+    ("float32", "wide"), ("masked", "wide_op")])
 def test_wide_route_gate(monkeypatch, case, wide):
-    """The route follows K alone: K over ``MAX_K`` takes the wide route
-    (its twin here), under ``impl="torch"`` and for float32 too, and K at
-    the limit takes ``ikpls2``; a leave-one-out bucket takes the operator
-    where it did (float64, "auto"), else the wide route."""
+    """The route follows K: K over ``MAX_K`` takes the wide route, with no
+    fold matrix formed for float64 under "auto" (K-fold and masked alike)
+    and on formed matrices under ``impl="torch"`` and for float32 (the
+    twins here), and K at the limit takes ``ikpls2``; a leave-one-out
+    bucket takes the operator where it did (float64, "auto"), else the
+    wide route on formed matrices."""
     monkeypatch.setattr(OP, "MAX_K", WK if case == "at" else WK - 1)
     dtype = np.float32 if case == "float32" else np.float64
     X, Y, w = _data(2, n=WN, k=WK)
@@ -469,7 +474,9 @@ def test_wide_route_gate(monkeypatch, case, wide):
         idx, mask = np.arange(WN).reshape(-1, WP).T.copy(), None
     OP.reset_launch_counts()
     T.cross_validate_pls(cfg, st, idx, mask, n_components=2, impl=impl)
-    assert OP.fold_components("wide") == (len(idx) * 2 if wide else 0)
+    for route in ("wide", "wide_op"):
+        assert OP.fold_components(route) == (
+            len(idx) * 2 if wide == route else 0), route
     assert OP.fold_components("matrices") == (0 if wide else len(idx) * 2)
     OP.reset_launch_counts()
     T.cross_validate_pls(cfg, st, np.arange(WN)[:, None], n_components=2,
@@ -477,6 +484,7 @@ def test_wide_route_gate(monkeypatch, case, wide):
     operator = impl == "auto" and dtype == np.float64
     assert OP.fold_components("operator") == (WN * 2 if operator else 0)
     assert OP.fold_components("wide") == (0 if operator else WN * 2)
+    assert OP.fold_components("wide_op") == 0
 
 
 def test_wide_wrapper_dispatch(monkeypatch):
@@ -499,7 +507,7 @@ def test_wide_wrapper_dispatch(monkeypatch):
     assert torch.equal(got, ref)
     assert OP.fold_components("wide") == WP * 3
     assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
-                                  "ikpls2_wide": 0}
+                                  "ikpls2_wide": 0, "ikpls2_wide_op": 0}
     with pytest.raises(ValueError, match="impl='cuda'"):
         OP.ikpls2_wide(*mats, rows.X, rows.Y, rows.w, rows.mask, stats,
                        impl="cuda", **kw)
@@ -512,6 +520,128 @@ def test_wide_wrapper_dispatch(monkeypatch):
     assert torch.equal(sent, ref)
     assert OP.fold_components("wide") == WP * 3
     assert OP.fold_components("matrices") == 0
+
+
+# ---- the wide operator route: no fold matrix formed above MAX_K ----------- #
+
+def _wide_op_case(flags, weighted, m, scheme, ddof, n_components=WA,
+                  dev="cpu"):
+    """``_data`` at N = 40, K = 120 (> N), A = 4, the bucket ``scheme``
+    (5 K-fold folds of 8 rows, 7 uneven masked folds, or leave-one-out),
+    through ``cross_validate_pls`` under "auto" with ``MAX_K`` (and, for
+    leave-one-out, ``MAX_OP_K``) below K, which the caller lowers; and the
+    formed route's twin (``impl="torch"``: ``ikpls2_reference`` on the same
+    folds' formed matrices) and the reference."""
+    X, Y, w = _data(m, n=WN, k=WK, seed=4)
+    if not weighted:
+        w = None
+    cfg = T.CVConfig(*flags, ddof=ddof)
+    st = T.fit(cfg, X, Y, w, device=dev)
+    if scheme == "masked":
+        idx, mask, val = _folds("masked", n=WN)
+    elif scheme == "loocv":
+        idx, mask, val = _folds("loocv", n=WN)
+    else:
+        idx = np.arange(WN).reshape(-1, WP).T.copy()
+        mask, val = None, list(idx)
+    got = T.cross_validate_pls(cfg, st, idx, mask, n_components=n_components,
+                               batch_size=3)
+    formed = T.cross_validate_pls(cfg, st, idx, mask,
+                                  n_components=n_components, batch_size=3,
+                                  impl="torch")
+    return got, formed, _reference(X, Y, w, val, flags, ddof,
+                                   n_components=n_components)
+
+
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("scheme", ["kfold", "masked", "loocv"])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_wide_op_twin_matches_formed_twin(monkeypatch, flags, weighted, m,
+                                          scheme, ddof):
+    """The wide operator route's twin against ``ikpls2_reference`` on the
+    same folds' formed matrices (``OP_TOL``) and against the reference
+    (``PRESS_TOL``), every flag set, weights with zeros or none, K-fold,
+    masked and leave-one-out; the folds of weight 0 read 0."""
+    monkeypatch.setattr(OP, "MAX_K", WK - 1)
+    monkeypatch.setattr(OP, "MAX_OP_K", WK - 1)
+    OP.reset_launch_counts()
+    got, formed, ref = _wide_op_case(flags, weighted, m, scheme, ddof)
+    assert got.shape == formed.shape == ref.shape == (len(ref), WA, m)
+    assert got.dtype == torch.float64
+    assert OP.fold_components("wide_op") == len(ref) * WA
+    assert _gap(got, formed) <= OP_TOL
+    assert _gap(got, ref) <= PRESS_TOL
+    if weighted and scheme == "loocv":
+        assert torch.equal(got[::7], torch.zeros_like(got[::7]))
+
+
+@pytest.mark.parametrize("case, route", [
+    ("kfold", "wide_op"), ("masked", "wide_op"), ("loocv", "wide_op"),
+    ("kfold_at", "matrices"), ("masked_at", "matrices"),
+    ("kfold_torch", "wide"), ("masked_torch", "wide"),
+    ("loocv_operator", "operator"), ("loocv_torch", "wide")])
+def test_wide_op_route_gate_and_counters(monkeypatch, case, route):
+    """K-fold, masked and leave-one-out buckets over ``MAX_K`` count their
+    F x A under "wide_op" and none under "wide"; K at ``MAX_K`` keeps
+    ``ikpls2``, ``impl="torch"`` the formed wide route, and leave-one-out
+    at K up to ``MAX_OP_K`` the operator route, untouched."""
+    scheme, _, variant = case.partition("_")
+    monkeypatch.setattr(OP, "MAX_K", WK if variant == "at" else WK - 1)
+    if variant != "operator":
+        monkeypatch.setattr(OP, "MAX_OP_K", WK - 1)
+    X, Y, w = _data(2, n=WN, k=WK)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device="cpu")
+    if scheme == "kfold":
+        idx, mask = np.arange(WN).reshape(-1, WP).T.copy(), None
+    else:
+        idx, mask, _ = _folds(scheme, n=WN)
+    impl = "torch" if variant == "torch" else "auto"
+    ran = []
+    for name in ("_operator_sweep", "cross_validate_reduce"):
+        real = getattr(TP, name)
+        monkeypatch.setattr(TP, name, lambda *a, _n=name, _r=real, **k: (
+            ran.append(_n), _r(*a, **k))[1])
+    OP.reset_launch_counts()
+    T.cross_validate_pls(cfg, st, idx, mask, n_components=2, impl=impl)
+    for r in ("operator", "matrices", "wide", "wide_op"):
+        assert OP.fold_components(r) == (len(idx) * 2 if r == route else 0), r
+    no_matrix = route in ("wide_op", "operator")
+    assert ran == ["_operator_sweep" if no_matrix else "cross_validate_reduce"]
+    assert TP.operator_route(cfg, st, idx, mask, impl) == (
+        route if no_matrix else None)
+    assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
+                                  "ikpls2_wide": 0, "ikpls2_wide_op": 0}
+
+
+def test_wide_op_wrapper_dispatch():
+    """On the CPU ``ikpls2_wide_op`` runs the twin, bit for bit, into
+    ``out`` where given, counts its fold-components under "wide_op" and
+    launches nothing; "cuda" raises, and so does a bad ``n_components``."""
+    X, Y, w = _data(2, n=WN, k=WK)
+    cfg = T.CVConfig()
+    st = T.fit(cfg, X, Y, w, device="cpu")
+    sums = (st.sum_X, st.sum_sq_X, st.sum_Y, st.sum_sq_Y, st.sum_w,
+            st.num_nonzero_w)
+    rows = torch.as_tensor(np.arange(WN).reshape(-1, WP).T.copy())
+    kw = dict(n_components=3, center_X=True, center_Y=True, scale_X=True,
+              scale_Y=True, ddof=1, resolution=cfg.resolution)
+    args = (st.XTX, st.XTY, st.X, st.Y, st.weights, sums, rows, None)
+    OP.reset_launch_counts()
+    got = OP.ikpls2_wide_op(*args, **kw)
+    ref = OP.ikpls2_wide_op_reference(*args, **kw)
+    assert torch.equal(got, ref)
+    out = torch.empty((WP, 3, 2), dtype=torch.float64)
+    assert OP.ikpls2_wide_op(*args, out=out, **kw) is out
+    assert torch.equal(out, ref)
+    assert OP.fold_components("wide_op") == 2 * WP * 3
+    assert OP.launch_counts()["ikpls2_wide_op"] == 0
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        OP.ikpls2_wide_op(*args, impl="cuda", **kw)
+    with pytest.raises(ValueError, match="n_components"):
+        OP.ikpls2_wide_op(*args, **{**kw, "n_components": 0})
 
 
 # ---- inputs -------------------------------------------------------------- #
@@ -695,7 +825,7 @@ def test_example_runs_on_the_cpu():
 
 def test_api_lists_the_pls_spans():
     text = (ROOT / "docs" / "torch" / "api.md").read_text()
-    for name in (P.PLS + "<entry>", P.PLS_SOLVE, P.PLS_WIDE):
+    for name in (P.PLS + "<entry>", P.PLS_SOLVE, P.PLS_WIDE, P.PLS_WIDE_OP):
         assert f"`{name}`" in text, name
     assert "cvmatrix_tpu_torch.examples.cross_validation_pls" in text
 
@@ -942,8 +1072,8 @@ def test_wide_kernels_match_twin_and_reference(dev, n, k, m, A):
 def test_wide_route_on_the_card(dev, monkeypatch, flags, weighted, m,
                                 scheme):
     """``MAX_K`` lowered below K = 120: ``cross_validate_pls`` launches the
-    wide kernels, 2 A + 2 a chunk and no ``ikpls2``, within ``PRESS_TOL``
-    of the reference."""
+    wide operator kernels, 3 A + 2 a chunk and no other, within
+    ``PRESS_TOL`` of the reference."""
     monkeypatch.setattr(OP, "MAX_K", WK - 1)
     X, Y, w = _data(m, n=WN, k=WK, seed=4)
     if not weighted:
@@ -961,7 +1091,8 @@ def test_wide_route_on_the_card(dev, monkeypatch, flags, weighted, m,
     torch.cuda.synchronize()
     chunks = -(-len(val) // 3)
     assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
-                                  "ikpls2_wide": chunks * (2 * WA + 2)}
+                                  "ikpls2_wide": 0,
+                                  "ikpls2_wide_op": chunks * (3 * WA + 2)}
     ref = _reference(X, Y, w, val, flags, 1, n_components=WA)
     assert got.device.type == "cuda"
     assert _gap(got, ref) <= PRESS_TOL
@@ -1025,8 +1156,8 @@ def test_wide_solve_launches_only_its_named_kernels(dev, tmp_path):
 @pytest.mark.cuda
 def test_cell_shape_takes_the_wide_route(dev):
     """The cell's shape: N = 5,000, K = 20,000, M = 1, A = 20, 10 folds in
-    chunks of 2 through ``cross_validate_pls(impl="auto")``: 5 x 42 wide
-    launches, 200 fold-components on the wide route and none on the
+    chunks of 2 through ``cross_validate_pls(impl="auto")``: 5 x 62 wide
+    operator launches, 200 fold-components on that route and none on the
     others; folds 0 and 9 against the reference."""
     rng = np.random.default_rng(5)
     n, k = 5_000, 20_000
@@ -1040,11 +1171,154 @@ def test_cell_shape_takes_the_wide_route(dev):
     press = T.cross_validate_pls(cfg, st, idx, n_components=20, batch_size=2)
     torch.cuda.synchronize()
     assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
-                                  "ikpls2_wide": 5 * 42}
-    assert OP.fold_components("wide") == 200
+                                  "ikpls2_wide": 0, "ikpls2_wide_op": 5 * 62}
+    assert OP.fold_components("wide_op") == 200
+    assert OP.fold_components("wide") == 0
     assert OP.fold_components("matrices") == 0
     assert OP.fold_components("operator") == 0
     assert press.shape == (10, 20, 1) and bool(torch.isfinite(press).all())
     del st
     ref = _reference_on(X, Y, w, [idx[0], idx[9]], 20)
     assert _gap(press[[0, 9]], ref) <= PRESS_TOL
+
+
+# ---- on the card: the wide operator route ---------------------------------- #
+
+def _wide_op_on(dev, n, k, m, A, n_folds, n_l=None, weighted=True,
+                masked=False, seed=0, flags=ALL_ON):
+    """Uniform data, ``n_folds`` folds of ``n_l`` rows (strided, the
+    default n / n_folds; a mask that drops each fold's last row where
+    ``masked``): ``ops.pls.ikpls2_wide_op``'s kernels twice and its twin,
+    on the card, and each fold's reference."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.uniform(size=(n, k)), device=dev)
+    Y = torch.as_tensor(rng.uniform(size=(n, m)), device=dev)
+    w = (torch.as_tensor(rng.uniform(size=n), device=dev) if weighted
+         else None)
+    cfg = T.CVConfig(*flags.values(), ddof=1)
+    st = T.fit(cfg, X, Y, w)
+    n_l = n // n_folds if n_l is None else n_l
+    idx = np.arange(n_folds * n_l).reshape(n_l, n_folds).T.copy()
+    mask = None
+    if masked:
+        mask = np.ones(idx.shape)
+        mask[:, -1] = 0.0
+    sums = (st.sum_X, st.sum_sq_X, st.sum_Y, st.sum_sq_Y, st.sum_w,
+            st.num_nonzero_w)
+    rows = torch.as_tensor(idx, device=dev)
+    mk = None if mask is None else torch.as_tensor(mask, device=dev)
+    kw = dict(n_components=A, ddof=1, resolution=cfg.resolution, **flags)
+    args = (st.XTX, st.XTY, st.X, st.Y, st.weights, sums, rows, mk)
+    OP.reset_launch_counts()
+    got = {"cuda": OP.ikpls2_wide_op(*args, impl="cuda", **kw),
+           "again": OP.ikpls2_wide_op(*args, impl="cuda", **kw)}
+    torch.cuda.synchronize()
+    assert OP.launch_counts()["ikpls2_wide_op"] == 2 * (3 * A + 2)
+    got["twin"] = OP.ikpls2_wide_op_reference(*args, **kw)
+    torch.cuda.synchronize()
+    del st
+    val = [row if mask is None else row[mask[f] == 1]
+           for f, row in enumerate(idx)]
+    got["ref"] = _reference_on(X, Y, w, val, A,
+                               flags={k_: v for k_, v in flags.items()})
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, k, m, A, n_folds, n_l, masked, weighted", [
+    (1_000, 8_193, 1, 20, 2, None, False, True),   # one column over ikpls2's
+    (1_000, 20_000, 1, 20, 2, None, False, True),  # the cell's width
+    (600, 8_193, 3, 6, 3, None, True, True),       # M > 1, masked, 3 folds
+    (600, 8_193, 1, 6, 1, 300, False, False),      # one fold, unweighted
+    (990, 9_000, 2, 5, 5, None, True, False),      # 5 folds: two groups
+], ids=["k_8193", "k_20000", "m3_masked_f3", "f1_unweighted", "f5"])
+def test_wide_op_kernels_match_twin_and_reference(dev, n, k, m, A, n_folds,
+                                                  n_l, masked, weighted):
+    """The kernels (the total's upper triangle read once a group of folds
+    and component) within 1e-12 of the twin (which reads the whole total)
+    on each fold's largest PRESS, the same bits on a second call, and
+    within ``PRESS_TOL`` of the reference."""
+    got = _wide_op_on(dev, n, k, m, A, n_folds, n_l=n_l, masked=masked,
+                      weighted=weighted)
+    a, b = got["cuda"], got["twin"]
+    assert a.shape == (n_folds, A, m) and bool(torch.isfinite(a).all())
+    assert torch.equal(a, got["again"])
+    assert _gap(a, b) <= 1e-12, (_gap(a, b), _gap(b, got["ref"]))
+    assert _gap(a, got["ref"]) <= PRESS_TOL, (_gap(a, got["ref"]),
+                                              _gap(b, got["ref"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", FLAGS)
+def test_wide_op_kernels_every_flag_set(dev, flags):
+    """K = 1,337 and L = 33 (no multiple of any tile), M = 32 (Jacobi's
+    widest), 3 folds, every flag set: the kernels within 1e-12 of the
+    twin."""
+    fl = dict(zip(("center_X", "center_Y", "scale_X", "scale_Y"), flags))
+    got = _wide_op_on(dev, 99, 1_337, 32, 5, 3, n_l=33, flags=fl, seed=8)
+    assert torch.equal(got["cuda"], got["again"])
+    assert _gap(got["cuda"], got["twin"]) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["kfold", "masked", "loocv"])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", FLAGS)
+def test_wide_op_route_on_the_card(dev, monkeypatch, flags, weighted, m,
+                                   scheme):
+    """``MAX_K`` (and ``MAX_OP_K``) lowered below K = 120: every bucket
+    launches the wide operator kernels, 3 A + 2 a chunk and no other,
+    within ``OP_TOL`` of the formed route's twin and ``PRESS_TOL`` of the
+    reference."""
+    monkeypatch.setattr(OP, "MAX_K", WK - 1)
+    monkeypatch.setattr(OP, "MAX_OP_K", WK - 1)
+    OP.reset_launch_counts()
+    got, formed, ref = _wide_op_case(flags, weighted, m, scheme, 1, dev=dev)
+    torch.cuda.synchronize()
+    chunks = -(-len(ref) // 3)
+    assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
+                                  "ikpls2_wide": 0,
+                                  "ikpls2_wide_op": chunks * (3 * WA + 2)}
+    assert got.device.type == "cuda"
+    assert _gap(got, formed) <= OP_TOL
+    assert _gap(got, ref) <= PRESS_TOL
+
+
+@pytest.mark.cuda
+def test_wide_op_solve_launches_only_its_named_kernels(dev, tmp_path):
+    """Under the profiler every device operation of one wide operator
+    solve, in its span, is one of its kernels, each named
+    ``ikpls2_wide``: 3 A + 2 of them, the gather of the rows included. One
+    solve runs before the profiler starts and one in its warm-up step,
+    whose events it discards: launches soon after tracing starts can go
+    unrecorded, on cold kernels and in a long run of tests alike."""
+    import json
+
+    rng = np.random.default_rng(2)
+    n, k, A = 200, 9_000, 4
+    cfg = T.CVConfig()
+    st = T.fit(cfg, rng.uniform(size=(n, k)), rng.uniform(size=(n, 1)),
+               rng.uniform(size=n), device=dev)
+    idx = np.arange(n).reshape(-1, 2).T.copy()
+    rows = torch.as_tensor(idx, device=dev)
+    TP.solve_wide_operator(cfg, st, rows, None, n_components=A)
+    torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(2):
+            TP.solve_wide_operator(cfg, st, rows, None, n_components=A)
+            torch.cuda.synchronize()
+            prof.step()
+    events = json.loads(path.read_text())["traceEvents"]
+    ops = [e["name"] for e in events if e.get("ph") == "X" and e.get("cat")
+           in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert len(ops) == 3 * A + 2, ops
+    assert all("ikpls2_wide" in name for name in ops), ops
+    spans = [e for e in events if e.get("name") == P.PLS_WIDE_OP
+             and e.get("cat") == "user_annotation"]
+    assert len(spans) == 1

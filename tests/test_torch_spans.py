@@ -332,9 +332,11 @@ def test_to_device_spans_host_tensors_only(tmp_path):
 
 
 def test_wide_route_opens_its_span_a_solve(monkeypatch, tmp_path):
-    """The wide route (``ops.pls.MAX_K`` lowered below K = 6): one
-    ``ops.pls.ikpls2_wide`` span a chunk's solve, inside that chunk's solve
-    span, and P x A fold-components on the wide route, none on another."""
+    """The wide route on formed matrices (``ops.pls.MAX_K`` lowered below
+    K = 6, ``impl="torch"``, which alone reaches it through the sweep):
+    one ``ops.pls.ikpls2_wide`` span a chunk's solve, inside that chunk's
+    solve span, and P x A fold-components on the wide route, none on
+    another."""
     from cvmatrix_tpu_torch.ops import pls as OP
 
     monkeypatch.setattr(OP, "MAX_K", 5)
@@ -342,7 +344,7 @@ def test_wide_route_opens_its_span_a_solve(monkeypatch, tmp_path):
     idx, _ = _folds(6, 4)
     OP.reset_launch_counts()
     _, spans = _program_spans(lambda: T.cross_validate_pls(
-        cfg, st, idx, n_components=2, batch_size=3), tmp_path)
+        cfg, st, idx, n_components=2, batch_size=3, impl="torch"), tmp_path)
     got = collections.Counter(n for _, _, n in spans)
     assert got[P.PLS_WIDE] == 2 and got[P.PLS_SOLVE] == 2
     solves = [(s, e) for s, e, n in spans if n == P.PLS_SOLVE]
@@ -351,3 +353,30 @@ def test_wide_route_opens_its_span_a_solve(monkeypatch, tmp_path):
             assert any(s0 <= s and e <= e0 for s0, e0 in solves)
     assert OP.fold_components("wide") == 6 * 2
     assert OP.fold_components() == 6 * 2
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_operator_route_opens_its_span_a_chunk(monkeypatch, tmp_path,
+                                                    masked):
+    """The wide operator route (``ops.pls.MAX_K`` lowered below K = 6,
+    "auto"): one ``ops.pls.ikpls2_wide_op`` span a chunk, inside that
+    chunk's ``models.pls.solve`` span, no reduce sweep and no formed
+    route's span; the rows (and the mask) copied once a call; P x A
+    fold-components on that route, none on another."""
+    from cvmatrix_tpu_torch.ops import pls as OP
+
+    monkeypatch.setattr(OP, "MAX_K", 5)
+    cfg, st = _state()
+    idx, mask = _folds(7, 4, masked=masked)
+    OP.reset_launch_counts()
+    _, spans = _program_spans(lambda: T.cross_validate_pls(
+        cfg, st, idx, mask, n_components=2, batch_size=3), tmp_path)
+    got = collections.Counter(n for _, _, n in spans)
+    assert got == {P.PLS + "cross_validate_pls": 1, P.PLS_SOLVE: 3,
+                   P.PLS_WIDE_OP: 3, P.H2D: 2 if masked else 1}
+    solves = [(s, e) for s, e, n in spans if n == P.PLS_SOLVE]
+    for s, e, n in spans:
+        if n == P.PLS_WIDE_OP:
+            assert any(s0 <= s and e <= e0 for s0, e0 in solves)
+    assert OP.fold_components("wide_op") == 7 * 2
+    assert OP.fold_components() == 7 * 2
