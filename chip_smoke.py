@@ -230,7 +230,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
     P x A fold-components all on the wide operator route, the first chunk
     within 1e-12 of the kernels' own, and folds 0 and P-1 within 1e-9 of
     ``tests/pls_reference.py`` on the card.
-25. Prints the kernels' JSON line (eighteen kernels, each with its bound and
+25. Soil-spectra PLS2 at the shape of the cell ``lucas_n20k.kfold10``
+    (N=20,000, K=4,200, M=12, P=10 interleaved folds of 2,000 rows, A=20,
+    weighted, every flag on, ddof 1; seeded uniform data): the one chunk
+    of 10 folds through ``models.pls.solve_wide_operator``, 3 A + 2
+    ``ikpls2_wide_op`` launches a solve and no other kernel, the same bits
+    twice, within 1e-12 of its twin; timed in turns with the formed
+    route's ``models.pls.solve`` (``ikpls2``) of the same chunk. Then
+    ``cross_validate_pls`` over every fold: 3 A + 2 ``ikpls2_wide_op``
+    launches and no other kernel, P x A fold-components all on the wide
+    operator route, one ``models.pls.route.wide_op`` span, the chunk's
+    PRESS bit-equal to the kernels' own, and folds 0 and 9 within 1e-9 of
+    ``tests/pls_reference.py`` on the card.
+26. Prints the kernels' JSON line (eighteen kernels, each with its bound and
     the library call's time where one PyTorch call computes the same
     function, the epilogue again as ``fold_epilogue_widek`` on the wide-K
     path, each one's ``mesh_launches`` in phase 19 (a),
@@ -279,6 +291,10 @@ PLS_ORACLE_RTOL = 1e-9
 # bound of the card tests, tests/test_torch_pls.py).
 PLS_WIDE_BATCH = 2
 PLS_WIDE_TWIN_RTOL = 1e-10
+# Phase 25: the cell lucas_n20k.kfold10 (the LUCAS topsoil vis-NIR
+# library's size): N, K, M, P; its 10 folds are one chunk at
+# cross_validate_pls's default batch_size (PLS_BATCH).
+LUCAS = (20_000, 4_200, 12, 10)
 # P -> the wrapper whose kernel the K-fold main path must launch
 KFOLD_P = ((25_000, "fold_packed"), (10_000, "fold_v3"), (1_000, "fold_v3"),
            (100, "fold_ozaki_df64"), (10, "fold_epilogue"),
@@ -421,6 +437,146 @@ def wall(fn):
     res = fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, res
+
+
+def press_rel(got, ref):
+    """Widest gap of each fold's PRESS over its largest, worst fold."""
+    scale = ref.abs().amax(dim=(1, 2), keepdim=True)
+    return float(((got - ref).abs() / scale).max())
+
+
+def lucas_phase(dev, card: str) -> dict:
+    """Phase 25: the soil-spectra cell's one chunk through the wide
+    operator below ``MAX_K`` at M = 12, against its twin, timed in turns
+    with the formed route's ``ikpls2``, then ``cross_validate_pls`` over
+    every fold against the reference. Returns the phase's numbers."""
+    from cvmatrix_tpu_torch import CVConfig, cross_validate_pls, fit
+    from cvmatrix_tpu_torch.models import pls as TP
+    from cvmatrix_tpu_torch.models.sweep import cross_validate_reduce
+    from cvmatrix_tpu_torch.ops import fold_downdate as FD
+    from cvmatrix_tpu_torch.ops import loocv as TL
+    from cvmatrix_tpu_torch.ops import pls as OP
+    from cvmatrix_tpu_torch.ops import slice_rows as SR
+    from cvmatrix_tpu_torch.utils import profiling as P
+    from cvbench.pls_costs import pls_cost
+    from tests.pls_reference import fold_press
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n, k, m, p = LUCAS
+    flags = dict(center_X=True, center_Y=True, scale_X=True, scale_Y=True)
+    cfg = CVConfig(*flags.values(), ddof=1, dtype=np.float64)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    X, Y, w = (torch.rand(shape, generator=g, dtype=torch.float64,
+                          device=dev) for shape in ((n, k), (n, m), (n,)))
+    st = fit(cfg, X, Y, w, copy=False)
+    idx = np.arange(n).reshape(-1, p).T.copy()  # fold q: rows q, q + P, ..
+    n_l = idx.shape[1]
+    rows = torch.as_tensor(idx, device=dev)
+    per_op = 3 * PLS_A + 2
+
+    def wide_op_solve(impl):
+        """The chunk through ``solve_wide_operator`` (under "torch" the
+        twin, called directly)."""
+        if impl == "torch":
+            sums = (st.sum_X, st.sum_sq_X, st.sum_Y, st.sum_sq_Y, st.sum_w,
+                    st.num_nonzero_w)
+            return OP.ikpls2_wide_op_reference(
+                st.XTX, st.XTY, st.X, st.Y, st.weights, sums, rows, None,
+                n_components=PLS_A, ddof=1, resolution=cfg.resolution,
+                **flags)
+        return TP.solve_wide_operator(cfg, st, rows, None,
+                                      n_components=PLS_A, impl=impl)
+
+    reset_launch_counts(TL, FD, SR, OP)
+    op, again = wide_op_solve("cuda"), wide_op_solve("cuda")
+    torch.cuda.synchronize()
+    got = launch_counts(TL, FD, SR, OP)
+    twin = wide_op_solve("torch")
+    torch.cuda.synchronize()
+    if {k_: v for k_, v in got.items() if v} != {"ikpls2_wide_op": 2 * per_op}:
+        raise AssertionError(f"two wide operator solves at M={m} launched "
+                             f"{got}, expected {2 * per_op}")
+    rel = press_rel(op, twin)
+    if not (bool(torch.isfinite(op).all()) and torch.equal(op, again)
+            and rel <= TWIN_RTOL):
+        raise AssertionError(f"ikpls2_wide_op vs twin at K={k}, M={m}: "
+                             f"relative {rel} > {TWIN_RTOL:g}, or not "
+                             "finite, or not the same bits twice")
+    del twin, again
+
+    held = []
+    cross_validate_reduce(cfg, st, idx, batch_size=PLS_BATCH,
+                          chunk_fn=lambda mats, stats, r: held.append(
+                              (mats, stats, r)) or r.X.new_zeros(
+                                  r.X.shape[0]))
+    (mats, stats, vrows), = held
+    del held
+
+    def formed_solve():
+        """The same chunk on its formed fold matrices: ``ikpls2``."""
+        return TP.solve(cfg, mats, stats, vrows, n_components=PLS_A,
+                        impl="cuda")
+
+    formed_rel = press_rel(op, formed_solve()[:p])
+    ms = {"wide_op": [], "formed": []}
+    for what in ("wide_op", "formed", "wide_op", "formed"):
+        fn = ((lambda: wide_op_solve("cuda")) if what == "wide_op"
+              else formed_solve)
+        ms[what].append(cuda_ms(fn, 3))
+    del mats, stats, vrows
+    least = bound(*pls_cost([(p, n_l)], k, m, PLS_A, 8, True))
+    moved = PLS_A * (k * (k + 1) / 2 + 2 * n * k) * 8
+    best = min(ms["wide_op"])
+    log(f"[pls-lucas] one chunk of {p} folds (L={n_l:,}, K={k:,}, M={m}, "
+        f"A={PLS_A}): wide operator {ms['wide_op']} ms, formed route's "
+        f"ikpls2 {ms['formed']} ms (in turns); {per_op} launches a solve, "
+        f"all ikpls2_wide_op; against the twin relative {rel:.3e}, against "
+        f"ikpls2 {formed_rel:.3e}; bound {least[0]:.4f} ms by {least[1]}; "
+        f"the triangle and the rows twice a component {moved / 1e9:.2f} GB, "
+        f"{moved / best / 1e6:.0f} GB/s  [{card}]")
+
+    torch.cuda.empty_cache()
+    reset_launch_counts(TL, FD, SR, OP)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t_cv, press = wall(lambda: cross_validate_pls(
+            cfg, st, idx, n_components=PLS_A))
+    spans = [e.name for e in prof.events() if e.name.startswith(P.PLS_ROUTE)]
+    got = launch_counts(TL, FD, SR, OP)
+    if {k_: v for k_, v in got.items() if v} != {"ikpls2_wide_op": per_op}:
+        raise AssertionError(f"cross_validate_pls launched {got}, expected "
+                             f"{per_op} ikpls2_wide_op and no other kernel")
+    comps = {r: OP.fold_components(r) for r in ("wide_op", "wide",
+                                                "matrices", "operator")}
+    if comps != {"wide_op": p * PLS_A, "wide": 0, "matrices": 0,
+                 "operator": 0}:
+        raise AssertionError(f"fold-components {comps}, expected "
+                             f"{p * PLS_A}, all on the wide operator route")
+    if spans != [P.PLS_ROUTE + "wide_op"]:
+        raise AssertionError(f"route spans {spans}, expected one wide_op")
+    if not torch.equal(press, op):
+        raise AssertionError("cross_validate_pls vs the kernels on its one "
+                             f"chunk: {press_rel(press, op)}")
+    oracle = {}
+    for q in (0, p - 1):
+        ref = fold_press(X, Y, w, idx[q], n_components=PLS_A, ddof=1,
+                         **flags)
+        oracle[q] = press_rel(press[q:q + 1], ref[None])
+    torch.cuda.synchronize()
+    if not max(oracle.values()) <= PLS_ORACLE_RTOL:
+        raise AssertionError(f"soil-spectra cross_validate_pls vs "
+                             f"tests/pls_reference.py: {oracle} > "
+                             f"{PLS_ORACLE_RTOL:g}")
+    log(f"[pls-lucas] cross_validate_pls, N={n:,}, K={k:,}, M={m}, {p} "
+        f"folds in one chunk, A={PLS_A}: {t_cv:.4f} s ({p / t_cv:.1f} "
+        f"folds/s); launches {got}; fold-components {comps}; spans {spans}; "
+        f"folds 0 and {p - 1} against the reference {oracle}; phase 25 in "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"wide_op_ms": ms["wide_op"], "formed_ms": ms["formed"],
+            "twin_rel": rel, "formed_rel": formed_rel, "oracle": oracle,
+            "cross_validate_s": t_cv}
 
 
 # The LOOCV kernels' launches that stored the training statistics: a
@@ -3020,11 +3176,6 @@ def main() -> int:
         return TP.solve_operator(cfg_p, st_p, chunk_rows[c],
                                  n_components=PLS_A, impl=impl)
 
-    def press_rel(got, ref):
-        """Widest gap of each fold's PRESS over its largest, worst fold."""
-        scale = ref.abs().amax(dim=(1, 2), keepdim=True)
-        return float(((got - ref).abs() / scale).max())
-
     pls_kernel, pls_err, op_err = {}, 0.0, 0.0
     for c in (0, last):
         n_c = chunk_rows[c].shape[0]
@@ -3269,7 +3420,10 @@ def main() -> int:
         f"phase 24 in {time.perf_counter() - t_phase:.1f} s  [{card}]")
     del st_q, press_q, wide_q, op_q, Xwd, Ywd, wwd
 
-    # ---- 25. result ---------------------------------------------------------
+    # ---- 25. soil-spectra PLS2 at the cell's shape --------------------------
+    lucas_phase(dev, card)
+
+    # ---- 26. result ---------------------------------------------------------
     kernel_launches = {"fused_loocv": launches, **kfold_launches,
                        **policy_launches,
                        "fold_smallfold": smallfold_launches,

@@ -20,15 +20,15 @@ output. A leave-one-out batch (one unmasked row a fold) with K at most
 chunk, i.e. one ``ops.pls.ikpls2_operator`` (the kernel
 ``cvm_ikpls2_op_f64`` on the card, its twin on the CPU), which applies each
 fold's training ``XTX`` as the fitted total plus the fold's rank-one
-corrections. Any other bucket with K over ``ops.pls.MAX_K``
-(``"wide_op"``: K-fold, masked or leave-one-out) runs one
-:func:`solve_wide_operator` a chunk, i.e. one ``ops.pls.ikpls2_wide_op``
-(the kernels ``cvm_ikpls2_wide_op_f64``, the whole card on the chunk, or
-their twin on the CPU), which applies each fold's training ``XTX`` as the
-fitted total less the fold's rank-L validation term. Every other bucket
-(K-fold and masked up to ``ops.pls.MAX_K``, float32, ``impl="torch"``, K
-over the operator's limit up to ``MAX_K``) runs through the reduce sweep's
-bodies
+corrections. A K-fold or masked bucket with K over ``ops.pls.MAX_OP_K``,
+and a leave-one-out bucket with K over ``ops.pls.MAX_K`` (``"wide_op"``),
+runs one :func:`solve_wide_operator` a chunk, i.e. one
+``ops.pls.ikpls2_wide_op`` (the kernels ``cvm_ikpls2_wide_op_f64``, the
+whole card on the chunk, or their twin on the CPU), which applies each
+fold's training ``XTX`` as the fitted total less the fold's rank-L
+validation term. Every other bucket (K-fold and masked up to
+``ops.pls.MAX_OP_K``, leave-one-out over it up to ``ops.pls.MAX_K``,
+float32, ``impl="torch"``) runs through the reduce sweep's bodies
 (:func:`~cvmatrix_tpu_torch.models.sweep.cross_validate_reduce` with a
 chunk consumer: the hoisted body's LOOCV, packed and v3 fold plans, the
 generic per-chunk body, masked batches) on formed fold matrices;
@@ -37,7 +37,8 @@ block a fold), which sends K over ``ops.pls.MAX_K`` (``impl="torch"``
 and float32 alone reach it through this function) to the wide route's
 ``ops.pls.ikpls2_wide`` on formed matrices (the whole card on the chunk, K
 unbounded): the hand-written kernels on the card, their plain twin on the
-CPU. There is no
+CPU. The bucket's sweep runs in a span ``models.pls.route.<route>``
+(``operator``, ``wide_op`` or ``formed``). There is no
 float32 kernel: a float32 state on the card needs ``impl="torch"``, which
 runs the twin there.
 """
@@ -55,7 +56,14 @@ from ..core.batch import host_folds, host_mask
 from ..core.state import FitState
 from ..ops import pls as _pls
 from ..ops.loocv import IMPLS, check_rows
-from ..utils.profiling import PLS, PLS_SOLVE, spanned, to_device
+from ..utils.profiling import (
+    PLS,
+    PLS_ROUTE,
+    PLS_SOLVE,
+    span,
+    spanned,
+    to_device,
+)
 from .sweep import ValidationRows, chunking, cross_validate_reduce
 
 __all__ = ["cross_validate_pls", "operator_route", "solve", "solve_operator",
@@ -112,7 +120,8 @@ def cross_validate_pls(
     the training rows of every fold (N less its validation rows).
 
     ``impl``: ``"auto"`` takes the operator route for leave-one-out
-    batches, the wide operator route where K is over ``ops.pls.MAX_K``
+    batches, the wide operator route for K-fold and masked batches with K
+    over ``ops.pls.MAX_OP_K`` and any batch with K over ``ops.pls.MAX_K``
     (:func:`operator_route`), else the sweep's
     hoisted bodies, and the kernels on the card (the twins on the CPU),
     ``"cuda"`` the same and
@@ -145,17 +154,19 @@ def cross_validate_pls(
             f"fewest training rows {n_train}).")
 
     route = operator_route(config, state, idx, mask, impl)
-    if route is not None:
-        return _operator_sweep(config, state, route, idx, mask,
-                               n_components=n_components,
-                               batch_size=batch_size, impl=impl)
+    with span(PLS_ROUTE + (route or "formed")):
+        if route is not None:
+            return _operator_sweep(config, state, route, idx, mask,
+                                   n_components=n_components,
+                                   batch_size=batch_size, impl=impl)
 
-    def consume(mats, stats, rows):
-        return solve(config, mats, stats, rows, n_components=n_components,
-                     impl=impl)
+        def consume(mats, stats, rows):
+            return solve(config, mats, stats, rows,
+                         n_components=n_components, impl=impl)
 
-    return cross_validate_reduce(config, state, idx, mask, chunk_fn=consume,
-                                 batch_size=batch_size, impl=impl)
+        return cross_validate_reduce(config, state, idx, mask,
+                                     chunk_fn=consume, batch_size=batch_size,
+                                     impl=impl)
 
 
 def operator_route(config: CVConfig, state: FitState, idx: np.ndarray,
@@ -164,14 +175,18 @@ def operator_route(config: CVConfig, state: FitState, idx: np.ndarray,
     the host folds ``idx`` (P, L) and ``mask``, both only under ``impl``
     ``"auto"`` or ``"cuda"`` and for a float64 config: ``"operator"`` for
     one unmasked row a fold (LOOCV) and K at most ``ops.pls.MAX_OP_K``,
-    else ``"wide_op"`` for K over ``ops.pls.MAX_K``, whatever the rows a
-    fold and mask. ``None``: the bucket runs on formed fold matrices
-    through the reduce sweep."""
+    else ``"wide_op"`` for K over ``ops.pls.MAX_K``, or for K over
+    ``ops.pls.MAX_OP_K`` with more than one row a fold or a mask.
+    ``None``: the bucket runs on formed fold matrices through the reduce
+    sweep (leave-one-out with K between the two limits among them)."""
     if impl not in ("auto", "cuda") or config.torch_dtype != torch.float64:
         return None
-    if idx.shape[1] == 1 and mask is None and state.K <= _pls.MAX_OP_K:
+    loocv = idx.shape[1] == 1 and mask is None
+    if loocv and state.K <= _pls.MAX_OP_K:
         return "operator"
-    return "wide_op" if state.K > _pls.MAX_K else None
+    if state.K > _pls.MAX_K or (not loocv and state.K > _pls.MAX_OP_K):
+        return "wide_op"
+    return None
 
 
 @spanned(PLS_SOLVE)

@@ -34,6 +34,10 @@ name:
   one chunk (``torch.func.vmap``), with the copies of views it returns.
 - ``cvmatrix_tpu_torch.models.pls.<entry>``: each ``cross_validate_pls``
   call;
+- ``cvmatrix_tpu_torch.models.pls.route.<route>``: inside it, the bucket's
+  sweep from the moment ``models.pls.operator_route`` has chosen
+  ``<route>``: ``operator``, ``wide_op`` (no fold matrix formed) or
+  ``formed`` (the reduce sweep on formed fold matrices); one a call;
 - ``cvmatrix_tpu_torch.models.pls.solve``: one chunk's IKPLS #2 solve and
   score (``models.pls.solve``: the ``ikpls2`` or ``ikpls2_wide`` kernels or
   their twin, on formed fold matrices; ``models.pls.solve_operator``:
@@ -78,6 +82,7 @@ SWEEP = PREFIX + "models.sweep."
 REDUCE_FN = SWEEP + "reduce_fn"
 PLS = PREFIX + "models.pls."
 PLS_SOLVE = PLS + "solve"
+PLS_ROUTE = PLS + "route."
 PLS_WIDE = PREFIX + "ops.pls.ikpls2_wide"
 PLS_WIDE_OP = PREFIX + "ops.pls.ikpls2_wide_op"
 

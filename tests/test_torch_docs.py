@@ -29,13 +29,14 @@ def resolve(dotted: str):
 
 def span_names():
     """The spans the port opens (``utils/profiling.py``), each route and
-    sweep entry by name, and the stems ``…route`` and ``…sweep`` that the
-    docs write before ``.<route>`` and ``.<entry>``."""
+    sweep entry by name, and the stems ``…route`` (of ``core.batch`` and
+    of ``models.pls``) and ``…sweep`` that the docs write before
+    ``.<route>`` and ``.<entry>``."""
     from cvmatrix_tpu_torch.core.batch import TPU_KERNELS
     from cvmatrix_tpu_torch.utils import profiling as P
 
     return ({P.FIT, P.SOURCES, P.STATS, P.H2D, P.REDUCE_FN,
-             P.ROUTE[:-1], P.SWEEP[:-1]}
+             P.ROUTE[:-1], P.SWEEP[:-1], P.PLS_ROUTE[:-1]}
             | {P.ROUTE + r for r in TPU_KERNELS}
             | {P.SWEEP + e for e in ("cross_validate_reduce",
                                      "materialize_sweep")})

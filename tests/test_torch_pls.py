@@ -579,17 +579,20 @@ def test_wide_op_twin_matches_formed_twin(monkeypatch, flags, weighted, m,
 
 @pytest.mark.parametrize("case, route", [
     ("kfold", "wide_op"), ("masked", "wide_op"), ("loocv", "wide_op"),
-    ("kfold_at", "matrices"), ("masked_at", "matrices"),
+    ("kfold_at", "wide_op"), ("masked_at", "wide_op"),
+    ("kfold_below", "matrices"), ("masked_below", "matrices"),
     ("kfold_torch", "wide"), ("masked_torch", "wide"),
     ("loocv_operator", "operator"), ("loocv_torch", "wide")])
 def test_wide_op_route_gate_and_counters(monkeypatch, case, route):
     """K-fold, masked and leave-one-out buckets over ``MAX_K`` count their
-    F x A under "wide_op" and none under "wide"; K at ``MAX_K`` keeps
-    ``ikpls2``, ``impl="torch"`` the formed wide route, and leave-one-out
-    at K up to ``MAX_OP_K`` the operator route, untouched."""
+    F x A under "wide_op" and none under "wide"; K-fold and masked buckets
+    at ``MAX_K`` with ``MAX_OP_K`` below K do too; K at most ``MAX_OP_K``
+    keeps ``ikpls2``, ``impl="torch"`` the formed wide route, and
+    leave-one-out at K up to ``MAX_OP_K`` the operator route, untouched."""
     scheme, _, variant = case.partition("_")
-    monkeypatch.setattr(OP, "MAX_K", WK if variant == "at" else WK - 1)
-    if variant != "operator":
+    monkeypatch.setattr(OP, "MAX_K",
+                        WK if variant in ("at", "below") else WK - 1)
+    if variant not in ("operator", "below"):
         monkeypatch.setattr(OP, "MAX_OP_K", WK - 1)
     X, Y, w = _data(2, n=WN, k=WK)
     cfg = T.CVConfig()
@@ -614,6 +617,64 @@ def test_wide_op_route_gate_and_counters(monkeypatch, case, route):
         route if no_matrix else None)
     assert OP.launch_counts() == {"ikpls2": 0, "ikpls2_op": 0,
                                   "ikpls2_wide": 0, "ikpls2_wide_op": 0}
+
+
+@pytest.mark.parametrize("case, route", [
+    ("kfold", "wide_op"), ("masked", "wide_op"), ("loocv", "formed"),
+    ("kfold_torch", "formed"), ("masked_torch", "formed"),
+    ("kfold_float32", "formed"), ("masked_float32", "formed")])
+def test_band_route_gate(monkeypatch, case, route):
+    """With ``MAX_OP_K`` < K <= ``MAX_K`` (the band where most spectra
+    lie), float64 K-fold and masked buckets under "auto" take the wide
+    operator route; leave-one-out there, ``impl="torch"`` and float32 form
+    their fold matrices for ``ikpls2`` (its twin here), as K at most
+    ``MAX_OP_K`` does (``test_wide_op_route_gate_and_counters``)."""
+    scheme, _, variant = case.partition("_")
+    monkeypatch.setattr(OP, "MAX_K", K + 1)
+    monkeypatch.setattr(OP, "MAX_OP_K", K - 1)
+    cfg, st = _state(dtype=np.float32 if variant == "float32"
+                     else np.float64)
+    idx, mask, _ = _folds(scheme)
+    impl = "torch" if variant == "torch" else "auto"
+    ran = []
+    for name in ("_operator_sweep", "cross_validate_reduce"):
+        real = getattr(TP, name)
+        monkeypatch.setattr(TP, name, lambda *a, _n=name, _r=real, **k: (
+            ran.append(_n), _r(*a, **k))[1])
+    OP.reset_launch_counts()
+    got = T.cross_validate_pls(cfg, st, idx, mask, n_components=2,
+                               impl=impl)
+    assert got.shape == (len(idx), 2, 2)
+    assert TP.operator_route(cfg, st, idx, mask, impl) == (
+        "wide_op" if route == "wide_op" else None)
+    assert ran == ["_operator_sweep" if route == "wide_op"
+                   else "cross_validate_reduce"]
+    counted = "matrices" if route == "formed" else "wide_op"
+    for r in ("operator", "matrices", "wide", "wide_op"):
+        assert OP.fold_components(r) == (len(idx) * 2 if r == counted
+                                         else 0), r
+
+
+BAND_FLAGS = [(True,) * 4, (False,) * 4, (True, True, False, False),
+              (True, False, True, False)]
+
+
+@pytest.mark.parametrize("scheme", ["kfold", "masked"])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("flags", BAND_FLAGS)
+def test_wide_op_twin_m12_in_the_band(monkeypatch, flags, weighted, scheme):
+    """M = 12 responses (a soil library's laboratory properties) with K
+    between ``MAX_OP_K`` and ``MAX_K``: K-fold and masked buckets take the
+    wide operator route (its twin here), within ``OP_TOL`` of the formed
+    route's twin and ``PRESS_TOL`` of the reference, F x A fold-components
+    on that route."""
+    monkeypatch.setattr(OP, "MAX_OP_K", WK - 1)
+    OP.reset_launch_counts()
+    got, formed, ref = _wide_op_case(flags, weighted, 12, scheme, 1)
+    assert got.shape == formed.shape == ref.shape == (len(ref), WA, 12)
+    assert OP.fold_components("wide_op") == len(ref) * WA
+    assert _gap(got, formed) <= OP_TOL
+    assert _gap(got, ref) <= PRESS_TOL
 
 
 def test_wide_op_wrapper_dispatch():

@@ -372,7 +372,8 @@ def test_wide_operator_route_opens_its_span_a_chunk(monkeypatch, tmp_path,
     _, spans = _program_spans(lambda: T.cross_validate_pls(
         cfg, st, idx, mask, n_components=2, batch_size=3), tmp_path)
     got = collections.Counter(n for _, _, n in spans)
-    assert got == {P.PLS + "cross_validate_pls": 1, P.PLS_SOLVE: 3,
+    assert got == {P.PLS + "cross_validate_pls": 1,
+                   P.PLS_ROUTE + "wide_op": 1, P.PLS_SOLVE: 3,
                    P.PLS_WIDE_OP: 3, P.H2D: 2 if masked else 1}
     solves = [(s, e) for s, e, n in spans if n == P.PLS_SOLVE]
     for s, e, n in spans:
@@ -380,3 +381,32 @@ def test_wide_operator_route_opens_its_span_a_chunk(monkeypatch, tmp_path,
             assert any(s0 <= s and e <= e0 for s0, e0 in solves)
     assert OP.fold_components("wide_op") == 7 * 2
     assert OP.fold_components() == 7 * 2
+
+
+@pytest.mark.parametrize("route", ["operator", "wide_op", "formed"])
+def test_pls_route_span_names_the_route(monkeypatch, tmp_path, route):
+    """``cross_validate_pls`` opens one ``models.pls.route.<route>`` span a
+    bucket, inside its entry's span, named as ``operator_route`` names the
+    route (``formed`` where it names none), and every solve span of the
+    bucket inside it: leave-one-out at K = 6 (the operator), K-fold with
+    ``ops.pls.MAX_OP_K`` lowered below K = 6 (the wide operator) and
+    K-fold at K = 6 (the formed matrices)."""
+    from cvmatrix_tpu_torch.models import pls as TP
+    from cvmatrix_tpu_torch.ops import pls as OP
+
+    if route == "wide_op":
+        monkeypatch.setattr(OP, "MAX_OP_K", 5)
+    cfg, st = _state()
+    idx, _ = _folds(8, 1 if route == "operator" else 4)
+    assert (TP.operator_route(cfg, st, idx, None, "auto")
+            or "formed") == route
+    _, spans = _program_spans(lambda: T.cross_validate_pls(
+        cfg, st, idx, n_components=2, batch_size=3), tmp_path)
+    routes = [(s, e, n) for s, e, n in spans if n.startswith(P.PLS_ROUTE)]
+    assert [n for _, _, n in routes] == [P.PLS_ROUTE + route]
+    (s0, e0, _), = routes
+    (s1, e1), = [(s, e) for s, e, n in spans
+                 if n == P.PLS + "cross_validate_pls"]
+    assert s1 <= s0 and e0 <= e1
+    solves = [(s, e) for s, e, n in spans if n == P.PLS_SOLVE]
+    assert solves and all(s0 <= s and e <= e0 for s, e in solves)
